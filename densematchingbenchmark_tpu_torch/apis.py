@@ -1,0 +1,134 @@
+"""Library inference API: init_model / inference_stereo.
+
+Counterpart of densematchingbenchmark_tpu/apis.py:95-179: build a model from
+a config, then run stereo inference over image pairs with pad-to-shape (or
+center crop), optional scaling (disparity values rescale with width) and
+padding removal. The JAX package's TPU compile-failure schedule ladder
+(:23-92) has no counterpart: the port has one schedule.
+
+Models run on ``cuda`` unless the caller passes ``device="cpu"``; with no
+GPU and no device given, ``init_model`` raises rather than carry on on the
+CPU.
+"""
+
+import numpy as np
+import torch
+
+from .configs import get_config
+from .data import transforms
+from .evaluation.metrics import remove_padding
+from .models import build_model
+from .ops.interpolate import resize_linear
+
+
+class StereoModel:
+    """A built model on its device, in eval mode, with its config."""
+
+    def __init__(self, cfg, module, device):
+        self.cfg = cfg
+        self.module = module
+        self.device = device
+
+    def forward(self, left, right):
+        """[B, H, W, 3] normalized images on ``device`` -> the model's
+        result dict ('disps', 'costs'; best first)."""
+        with torch.inference_mode():
+            return self.module(left, right)
+
+
+def resolve_device(device=None):
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on the GPU; pass "
+                "device='cpu' to run the plain PyTorch versions on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def init_model(config_name_or_cfg, device=None, seed=0, checkpoint_dir=None,
+               **overrides):
+    """Build a StereoModel with parameters initialised from ``seed``.
+
+    On a CUDA device this sets ``torch.backends.cudnn.allow_tf32`` and
+    ``torch.backends.cuda.matmul.allow_tf32`` to False: the float32 configs
+    compute in float32, as the JAX package does, and TF32 library convs
+    round to a 10-bit mantissa, which soft-argmin amplifies into whole-pixel
+    errors (docs/DESIGN.md section 8).
+    """
+    if checkpoint_dir:
+        raise NotImplementedError(
+            "checkpoint restore is not ported yet (ROADMAP.md queue 1, "
+            "checkpoint restore with the training slice)")
+    device = resolve_device(device)
+    cfg = (get_config(config_name_or_cfg, **overrides)
+           if isinstance(config_name_or_cfg, str) else config_name_or_cfg)
+    module = build_model(cfg, torch.Generator().manual_seed(seed))
+    module.to(device).eval()
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return StereoModel(cfg, module, device)
+
+
+def _resize(img, size, align_corners=False):
+    """[..., H, W, C] numpy -> numpy resized on the host."""
+    x = torch.from_numpy(np.ascontiguousarray(img))
+    return resize_linear(x, size, (x.dim() - 3, x.dim() - 2),
+                         align_corners).numpy()
+
+
+def inference_stereo(model, batches, pad_to_shape=None, crop_shape=None,
+                     scale_factor=None, disp_div_factor=1.0):
+    """Run inference over a list of {'leftImage', 'rightImage'[, names]}.
+
+    Args:
+      model: StereoModel from init_model.
+      batches: list of dicts with [H, W, 3] float images (0-255).
+      pad_to_shape / crop_shape: preprocessing geometry (pad top + right,
+        or center crop).
+      scale_factor: optional resize before inference; the predicted
+        disparity is resized back and its values divided accordingly.
+      disp_div_factor: divide output disparity values.
+
+    Returns:
+      list of result dicts with 'disps' (numpy [1, H, W, 1], original size,
+      best first).
+    """
+    mean, std = model.cfg["data"]["mean"], model.cfg["data"]["std"]
+    results = []
+    for item in batches:
+        left, right = item["leftImage"], item["rightImage"]
+        orig_h, orig_w = left.shape[:2]
+        sample = {"leftImage": left.astype(np.float32),
+                  "rightImage": right.astype(np.float32)}
+        scaled = scale_factor is not None and scale_factor != 1.0
+        if scaled:
+            nh = int(round(orig_h * scale_factor))
+            nw = int(round(orig_w * scale_factor))
+            for k in ("leftImage", "rightImage"):
+                sample[k] = _resize(sample[k], (nh, nw))
+        if crop_shape is not None:
+            sample = transforms.center_crop(sample, crop_shape)
+        if pad_to_shape is not None:
+            sample = transforms.pad_to(sample, pad_to_shape)
+        sample = transforms.normalize(sample, mean, std)
+
+        li, ri = (torch.from_numpy(np.ascontiguousarray(sample[k]))[None]
+                  .to(model.device) for k in ("leftImage", "rightImage"))
+        out = model.forward(li, ri)
+
+        disps = []
+        for d in out["disps"]:
+            d = d.float().cpu().numpy()
+            if pad_to_shape is not None:
+                inner_h = int(round(orig_h * (scale_factor or 1.0)))
+                inner_w = int(round(orig_w * (scale_factor or 1.0)))
+                d = remove_padding(d, inner_h, inner_w)
+            if scaled:
+                d = _resize(d, (orig_h, orig_w)) / scale_factor
+            disps.append(d / disp_div_factor)
+        result = dict(item)
+        result["disps"] = disps
+        results.append(result)
+    return results

@@ -1,0 +1,51 @@
+"""Stereo sample transforms (numpy, channels-last) used at inference.
+
+This package's own copy of densematchingbenchmark_tpu/data/transforms.py
+:19-72. Samples are dicts with 'leftImage' / 'rightImage' [H, W, 3] and
+optional 'leftDisp' / 'rightDisp' [H, W, 1].
+"""
+
+import numpy as np
+
+_SPATIAL_KEYS = ("leftImage", "rightImage", "leftDisp", "rightDisp")
+
+
+def _crop(sample, y1, x1, th, tw):
+    out = dict(sample)
+    for k in _SPATIAL_KEYS:
+        if sample.get(k) is not None:
+            out[k] = sample[k][y1:y1 + th, x1:x1 + tw]
+    return out
+
+
+def center_crop(sample, size):
+    h, w = sample["leftImage"].shape[:2]
+    th, tw = size
+    return _crop(sample, (h - th) // 2, (w - tw) // 2, th, tw)
+
+
+def pad_to(sample, size, pad_disp=False):
+    """Pad top and right with zeros to (th, tw); the images only, unless
+    ``pad_disp`` (then the GT too, which padded-pixel masking makes
+    equivalent)."""
+    h, w = sample["leftImage"].shape[:2]
+    th, tw = size
+    if (h, w) == (th, tw):
+        return sample
+    pad = ((th - h, 0), (0, tw - w), (0, 0))
+    out = dict(sample)
+    keys = ("leftImage", "rightImage") + (
+        ("leftDisp", "rightDisp") if pad_disp else ())
+    for k in keys:
+        if sample.get(k) is not None:
+            out[k] = np.pad(sample[k], pad)
+    return out
+
+
+def normalize(sample, mean, std):
+    mean = np.asarray(mean, np.float32)
+    std = np.asarray(std, np.float32)
+    out = dict(sample)
+    for k in ("leftImage", "rightImage"):
+        out[k] = (sample[k] - mean) / std
+    return out
