@@ -58,8 +58,8 @@ def init_model(config_name_or_cfg, device=None, seed=0, checkpoint_dir=None,
     """
     if checkpoint_dir:
         raise NotImplementedError(
-            "checkpoint restore is not ported yet (ROADMAP.md queue 1, "
-            "checkpoint restore with the training slice)")
+            "checkpoint restore is not ported yet (ROADMAP.md queue 1 "
+            "item 4)")
     device = resolve_device(device)
     cfg = (get_config(config_name_or_cfg, **overrides)
            if isinstance(config_name_or_cfg, str) else config_name_or_cfg)

@@ -1,8 +1,10 @@
-"""Stereo sample transforms (numpy, channels-last) used at inference.
+"""Stereo sample transforms (numpy, channels-last).
 
 This package's own copy of densematchingbenchmark_tpu/data/transforms.py
-:19-72. Samples are dicts with 'leftImage' / 'rightImage' [H, W, 3] and
-optional 'leftDisp' / 'rightDisp' [H, W, 1].
+:19-79. Samples are dicts with 'leftImage' / 'rightImage' [H, W, 3] and
+optional 'leftDisp' / 'rightDisp' [H, W, 1]. Randomness is an explicit
+np.random.Generator. Training: random_crop(input_shape) -> normalize;
+inference: pad_to or center_crop -> normalize.
 """
 
 import numpy as np
@@ -16,6 +18,16 @@ def _crop(sample, y1, x1, th, tw):
         if sample.get(k) is not None:
             out[k] = sample[k][y1:y1 + th, x1:x1 + tw]
     return out
+
+
+def random_crop(sample, size, rng):
+    h, w = sample["leftImage"].shape[:2]
+    th, tw = size
+    if (h, w) == (th, tw):
+        return sample
+    y1 = int(rng.integers(0, h - th + 1))
+    x1 = int(rng.integers(0, w - tw + 1))
+    return _crop(sample, y1, x1, th, tw)
 
 
 def center_crop(sample, size):
@@ -49,3 +61,9 @@ def normalize(sample, mean, std):
     for k in ("leftImage", "rightImage"):
         out[k] = (sample[k] - mean) / std
     return out
+
+
+def make_train_transform(input_shape, mean, std):
+    def apply(sample, rng):
+        return normalize(random_crop(sample, input_shape, rng), mean, std)
+    return apply

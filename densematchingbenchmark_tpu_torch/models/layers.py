@@ -9,8 +9,11 @@ sees its input through ``movedim(-1, 1)`` without a copy.
 
 Submodule names follow the Flax tree (``Conv_0``, ``BatchNorm_0``,
 ``ConvTransposeExact_0``, ``ConvUnit_<i>``, ``Hourglass3D_<i>``) so that
-utils/jax_weights.py maps the two by path. BatchNorm is Flax's momentum 0.9
-(torch momentum 0.1), eps 1e-5.
+utils/jax_weights.py maps the two by path. BatchNorm is the port's own
+``BatchNorm`` with Flax's semantics: momentum 0.9 (torch momentum 0.1), eps
+1e-5, and in training the biased batch variance both to normalise and to
+update ``running_var`` (torch's own BatchNorm updates it with the unbiased
+one).
 
 The TPU schedules of the JAX layers (trunk ``pack``, PackedBatchNorm,
 DispatchConv2D row packing, remat, sharding constraints) have no
@@ -20,9 +23,11 @@ counterpart: their parameter trees equal the unpacked ones.
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cuda.conv3d_kernel import fused_conv3d
+from ..ops.cuda.packed_conv3d_kernel import conv3d_packed_s1
 
 
 def _tuple(x, n):
@@ -50,13 +55,45 @@ def channels_last(x):
     return x.movedim(1, -1).contiguous()
 
 
+class BatchNorm(nn.modules.batchnorm._BatchNorm):
+    """BatchNorm over dim 1 of a logical [B, C, *spatial] tensor with the
+    semantics of Flax ``nn.BatchNorm`` and ``PackedBatchNorm`` (JAX
+    layers.py:89-101): in training it normalises with the biased batch
+    variance and moves ``running_var`` toward that same biased variance
+    (momentum 0.1 here is Flax's 0.9); in eval it uses the running
+    statistics."""
+
+    def _check_input_dim(self, x):
+        if x.dim() < 2:
+            raise ValueError(f"BatchNorm: expected [B, C, ...], got "
+                             f"{tuple(x.shape)}")
+
+    def forward(self, x):
+        self._check_input_dim(x)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        # one pass: no running buffers given, so it normalises with the
+        # batch statistics and returns the mean and 1 / sqrt(var + eps)
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(invstd.pow(-2) - self.eps, self.momentum)
+            self.num_batches_tracked += 1
+        return y
+
+
 class ConvUnit(nn.Module):
     """conv[Transpose] -> optional BN -> optional ReLU, order switchable.
 
     ``pre_norm=True`` gives the bn_relu_conv ordering. A 3x3x3 stride-1
-    non-transposed unit with BN, in eval mode, runs as one fused kernel: the
-    running-stat BN folds into a per-channel (inv, bias - mean * inv)
-    epilogue of ``fused_conv3d`` (the JAX layers.py:434-447 fold).
+    non-transposed unit with BN (``fusable``) runs its conv through a
+    kernel: in eval one fused kernel, the running-stat BN folded into a
+    per-channel (inv, bias - mean * inv) epilogue of ``fused_conv3d`` (the
+    JAX layers.py:434-447 fold); in training ``conv3d_packed_s1`` with
+    pack 1 (JAX layers.py:459-466, the trunk's ``DispatchConv3D``), then
+    the conv bias, batch-statistics BN and ReLU (:486-488).
     """
 
     def __init__(self, in_features, features, kernel_size=3, stride=1,
@@ -80,9 +117,9 @@ class ConvUnit(nn.Module):
                               dilation, bias=bias)
         self.BatchNorm_0 = None
         if batch_norm:
-            cls = (nn.BatchNorm2d, nn.BatchNorm3d)[dims - 2]
-            self.BatchNorm_0 = cls(in_features if pre_norm else features,
-                                   eps=1e-5, momentum=0.1)
+            self.BatchNorm_0 = BatchNorm(in_features if pre_norm
+                                         else features, eps=1e-5,
+                                         momentum=0.1)
         conv = None if transpose else self.Conv_0
         self.fusable = (dims == 3 and batch_norm and not pre_norm
                         and conv is not None and conv.kernel_size == (3,) * 3
@@ -112,11 +149,16 @@ class ConvUnit(nn.Module):
     def forward(self, x):
         if self.pre_norm:
             x = self._norm_act(x)
-        if self.fusable and not self.training:
-            scale, bias = self.folded_bn()
+        if self.fusable:
             kernel = self.Conv_0.weight.permute(2, 3, 4, 1, 0).contiguous()
-            return fused_conv3d(x.contiguous(), kernel, scale, bias,
-                                relu=self.relu)
+            if not self.training:
+                scale, bias = self.folded_bn()
+                return fused_conv3d(x.contiguous(), kernel, scale, bias,
+                                    relu=self.relu)
+            x = conv3d_packed_s1(x.contiguous(), kernel, pack=1)
+            if self.Conv_0.bias is not None:
+                x = x + self.Conv_0.bias
+            return self._norm_act(x)
         x = channels_last(self.conv(channels_first(x)))
         return x if self.pre_norm else self._norm_act(x)
 

@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles, on its own, into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds) under
-``densematchingbenchmark_tpu_torch/_build/``, named by a hash of the source
-and the flags: a changed source is rebuilt at first use, an unchanged one is
-loaded as built. ``build()`` starts one nvcc per source, all at once.
+``densematchingbenchmark_tpu_torch/_build/``, named by a hash of the source,
+the shared headers (``csrc/*.cuh``) and the flags: a changed source is
+rebuilt at first use, an unchanged one is loaded as built. ``build()`` starts one nvcc per source, all at once.
 """
 
 import ctypes
@@ -17,7 +17,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("conv3d_kernel", "upsample_argmin_kernel")
+SOURCES = ("conv3d_kernel", "packed_conv3d_kernel", "upsample_argmin_kernel")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,7 +38,10 @@ def _nvcc():
 
 
 def library_path(name):
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """The library's path, named by a hash of its source, the headers in
+    ``csrc/`` and the flags."""
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                            *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

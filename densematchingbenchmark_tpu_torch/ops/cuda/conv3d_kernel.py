@@ -4,8 +4,9 @@ Replaces the TPU kernel densematchingbenchmark_tpu/ops/pallas/
 conv3d_kernel.py::fused_conv3d (body ``_kernel``): the eval-mode
 conv + folded BatchNorm (+ReLU) unit of the PSMNet aggregation trunk, 13
 launches per forward. Hopper kernel: ``csrc/conv3d_kernel.cu`` (CUDA C++,
-sm_90a), an implicit GEMM on the CUDA cores in float32; the source note
-there says what bounds it (the f32 FMA rate) and how the design meets it.
+sm_90a), an implicit GEMM on the CUDA cores in float32 whose block it
+shares with K4 (``csrc/conv3d_tile.cuh``); the note there says what bounds
+it (the f32 FMA rate) and how the design meets it.
 
 ``conv3d_plain`` is the same function in plain PyTorch: the sum over the 27
 taps of a shifted [N, Cin] x [Cin, Cout] product, the arithmetic the kernel

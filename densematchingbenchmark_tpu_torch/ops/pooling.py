@@ -1,7 +1,31 @@
-"""Average pooling for the SPP branches.
+"""Pooling: the SPP branches' average pool and the GT rescale of the losses.
 
-Counterpart of densematchingbenchmark_tpu/ops/pooling.py:35-48.
+Counterpart of densematchingbenchmark_tpu/ops/pooling.py:13-48. Every
+loss level's scale factor is an exact integer (static shapes), so adaptive
+pooling is a block reduction over a reshape.
 """
+
+
+def _reshape_pool(x, out_h, out_w, reducer):
+    """Pool [B, H, W, C] -> [B, out_h, out_w, C] by exact block reduction."""
+    b, h, w, c = x.shape
+    if (h, w) == (out_h, out_w):
+        return x
+    if h % out_h or w % out_w:
+        raise ValueError(f"adaptive pool needs an integer ratio, got "
+                         f"{h}x{w} -> {out_h}x{out_w}")
+    x = x.reshape(b, out_h, h // out_h, out_w, w // out_w, c)
+    return reducer(x)
+
+
+def adaptive_avg_pool2d(x, out_h, out_w):
+    """Exact-block average pool (dense GT rescale)."""
+    return _reshape_pool(x, out_h, out_w, lambda t: t.mean(dim=(2, 4)))
+
+
+def adaptive_max_pool2d(x, out_h, out_w):
+    """Exact-block max pool (sparse GT rescale: keeps valid pixels alive)."""
+    return _reshape_pool(x, out_h, out_w, lambda t: t.amax(dim=(2, 4)))
 
 
 def avg_pool2d(x, window, stride=None):

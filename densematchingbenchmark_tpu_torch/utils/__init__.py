@@ -1,5 +1,5 @@
 """Utilities of the port."""
 
-from .jax_weights import load_jax_variables
+from .jax_weights import flax_variables, load_jax_variables
 
-__all__ = ["load_jax_variables"]
+__all__ = ["flax_variables", "load_jax_variables"]

@@ -1,4 +1,5 @@
-"""Load the JAX package's Flax variables into the port's modules.
+"""Carry Flax variables into the port's modules, and the port's tensors
+back into Flax-shaped trees.
 
 ``variables`` is the Flax ``{"params": ..., "batch_stats": ...}`` tree with
 numpy leaves (for example ``jax.tree.map(np.asarray, variables)``); this
@@ -20,6 +21,9 @@ torch_convert.py:60-81):
   BatchNorm batch_stats mean / var        -> running_mean / running_var
 
 Any leaf left unmatched on either side, or of the wrong shape, raises.
+``flax_variables`` is the inverse direction with the same rules: it lays
+the module's parameters (or per-parameter tensors such as gradients) and
+BN statistics out as the Flax tree, for comparisons with the JAX package.
 """
 
 import numpy as np
@@ -58,6 +62,51 @@ def _torch_kernel(kernel, transposed):
         kernel = kernel[(slice(None, None, -1),) * n]
         return np.transpose(kernel, (n, n + 1, *range(n)))
     return np.transpose(kernel, (n + 1, n, *range(n)))
+
+
+def _flax_kernel(weight, transposed):
+    n = weight.ndim - 2
+    if transposed:
+        kernel = np.transpose(weight, (*range(2, n + 2), 0, 1))
+        return np.ascontiguousarray(kernel[(slice(None, None, -1),) * n])
+    return np.transpose(weight, (*range(2, n + 2), 1, 0))
+
+
+def flax_variables(model, values=None):
+    """{"params": ..., "batch_stats": ...} numpy tree of ``model`` in the
+    Flax layout. ``values``: optional {parameter name: tensor} (for
+    example the gradients, keyed as ``model.named_parameters()``) laid out
+    in place of the parameters; batch_stats are always the module's
+    running statistics."""
+    tree = {"params": {}, "batch_stats": {}}
+
+    def put(kind, path, value):
+        node = tree[kind]
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = value
+
+    for name, m in model.named_modules():
+        path = flax_path(name)
+
+        def get(attr):
+            full = f"{name}.{attr}" if name else attr
+            t = values[full] if values is not None else getattr(m, attr)
+            return t.detach().cpu().numpy()
+
+        if isinstance(m, _CONVS + _TRANSPOSED):
+            put("params", path + ("kernel",),
+                _flax_kernel(get("weight"), isinstance(m, _TRANSPOSED)))
+            if m.bias is not None:
+                put("params", path + ("bias",), get("bias"))
+        elif isinstance(m, nn.modules.batchnorm._BatchNorm):
+            put("params", path + ("scale",), get("weight"))
+            put("params", path + ("bias",), get("bias"))
+            put("batch_stats", path + ("mean",),
+                m.running_mean.detach().cpu().numpy())
+            put("batch_stats", path + ("var",),
+                m.running_var.detach().cpu().numpy())
+    return tree
 
 
 def load_jax_variables(model, variables):

@@ -24,6 +24,10 @@ from densematchingbenchmark_tpu_torch.ops import cuda as kernels
 from densematchingbenchmark_tpu_torch.ops.cuda import _build
 from densematchingbenchmark_tpu_torch.ops.interpolate import _axis_taps
 
+# The suite runs several test workers on one CPU: one torch intra-op
+# thread each keeps their OpenMP pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 
 def conv_inputs(shape, cout, seed):
     rng = np.random.RandomState(seed)
@@ -132,4 +136,5 @@ def test_reset_and_read_launch_counts():
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == {
         "fused_conv3d": 0, "fused_soft_argmin": 0,
-        "fused_upsample_soft_argmin": 0}
+        "fused_soft_argmin_backward": 0, "fused_upsample_soft_argmin": 0,
+        "conv3d_packed_s1": 0}

@@ -42,6 +42,10 @@ from densematchingbenchmark_tpu_torch.ops.soft_argmin import (
     soft_argmin as tsoft_argmin)
 from densematchingbenchmark_tpu_torch.utils import load_jax_variables
 
+# The suite runs several test workers on one CPU: one torch intra-op
+# thread each keeps their OpenMP pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 
 def randomize_bn(variables, rng):
     """Numpy copy of ``variables`` with every BatchNorm's scale / bias /

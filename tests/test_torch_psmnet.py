@@ -28,6 +28,10 @@ from densematchingbenchmark_tpu_torch.models import build_model
 from densematchingbenchmark_tpu_torch.ops import cuda as kernels
 from densematchingbenchmark_tpu_torch.utils import load_jax_variables
 
+# The suite runs several test workers on one CPU: one torch intra-op
+# thread each keeps their OpenMP pools from oversubscribing the cores.
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = {"model.max_disp": 64,
         "model.cost_processor.cost_computation.max_disp": 16,
@@ -104,20 +108,36 @@ def test_scale_factor_and_crop_run_on_the_port():
 
 
 def test_port_imports_no_jax():
+    # inference, then one training step, with every module of the port
+    train = dict(TINY, **{"model.losses.l1_loss.max_disp": 64,
+                          "data.batch_size_per_device": 1})
     code = f"""
-import sys
+import sys, tempfile
 import numpy as np
 from densematchingbenchmark_tpu_torch.apis import init_model, inference_stereo
+from densematchingbenchmark_tpu_torch.configs import get_config
+from densematchingbenchmark_tpu_torch.data import SyntheticStereoDataset, transforms
+from densematchingbenchmark_tpu_torch.trainer import train_matcher
+import densematchingbenchmark_tpu_torch.losses
+import densematchingbenchmark_tpu_torch.ops.conv3d
+import densematchingbenchmark_tpu_torch.ops.cuda
 import densematchingbenchmark_tpu_torch.utils
+import densematchingbenchmark_tpu_torch.utils.checkpoint
+import densematchingbenchmark_tpu_torch.utils.logging
 model = init_model("PSMNet/scene_flow_f32", device="cpu", **{TINY!r})
 rng = np.random.RandomState(0)
 img = rng.rand(64, 64, 3).astype(np.float32) * 255
 inference_stereo(model, [{{"leftImage": img, "rightImage": img}}])
-bad = [m for m in sys.modules if m in ("jax", "flax", "densematchingbenchmark_tpu")
-       or m.startswith(("jax.", "flax.", "densematchingbenchmark_tpu."))]
+ds = SyntheticStereoDataset(length=1, height=32, width=64, max_disp=8)
+ds.transform = transforms.make_train_transform((32, 64), (128.,) * 3, (64.,) * 3)
+train_matcher(get_config("PSMNet/scene_flow_f32", **{train!r}),
+              tempfile.mkdtemp(), train_dataset=ds, max_steps=1, device="cpu")
+names = ("jax", "flax", "optax", "orbax", "densematchingbenchmark_tpu")
+bad = [m for m in sys.modules if m in names
+       or m.startswith(tuple(n + "." for n in names))]
 assert not bad, bad
 """
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
