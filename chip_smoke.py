@@ -16,6 +16,14 @@ PyTorch version on the card. Phases, each fatal on failure:
      backward and the K2 backward at the 256x512 batch-3 training shapes),
      with its time, its plain version's time, a one-call library yardstick
      where there is one, and its bound.
+  3b. packed: K5 (conv3d_packed_s1_v2) and K4's bfloat16 route against
+     conv3d_packed_s1_plain at the three cases of the packed-conv
+     microbench (pack 4), in float32 and bfloat16, with every epilogue form
+     and ReLU on and off; times beside bounds (float32 on the CUDA cores,
+     bfloat16 at the tensor-core rate) and cuDNN's F.conv3d.
+  3c. microbench: tools.microbench_packed.run on its three cases in both
+     dtypes (10 chained iterations), with the launch counts read around it,
+     and its table.
   4. slice: init_model("PSMNet/scene_flow_f32", seed=0) on cuda (random
      weights from the seed, full width) and inference_stereo over three
      random 375x1242 pairs padded to 384x1248, in both eval modes
@@ -56,8 +64,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA cores, dense
+# bfloat16 on the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # (Cin, Cout, (D, H, W), launches per forward) of the 13 stride-1
@@ -87,6 +97,8 @@ SMALL = {"model.max_disp": 32,
          "model.losses.l1_loss.max_disp": 32,
          "data.batch_size_per_device": 2}
 OVERFIT_STEPS = 24
+# the packed-conv microbench: pack and chained iterations per row
+MICRO_PACK, MICRO_ITERS = 4, 10
 
 # Tolerances. The kernels and their plain versions both compute in float32
 # and differ only in the order of their sums.
@@ -104,6 +116,8 @@ ARGMIN_GRAD_RTOL = 1e-4  # of max|plain|: the expectation E from the online
                        # in alpha * g * p_d * (v_d - E)
 TRAIN_LOSS_RTOL = 1e-3   # card vs CPU loss, cuDNN vs CPU convolutions
 TRAIN_GRAD_COS = 0.999   # card vs CPU per-parameter gradient cosine
+BF16_STEP = 2.0 ** -7  # of max|plain|: in bfloat16 the kernel and the plain
+                       # version each round their float32 result once
 
 SOURCES = {
     "fused_conv3d": ("cuda", "densematchingbenchmark_tpu_torch/csrc/conv3d_kernel.cu",
@@ -117,12 +131,14 @@ SOURCES = {
                                    "densematchingbenchmark_tpu/ops/pallas/soft_argmin_kernel.py:34"),
     "conv3d_packed_s1": ("cuda", "densematchingbenchmark_tpu_torch/csrc/packed_conv3d_kernel.cu",
                          "densematchingbenchmark_tpu/ops/pallas/packed_conv3d_kernel.py:197"),
+    "conv3d_packed_s1_v2": ("cuda", "densematchingbenchmark_tpu_torch/csrc/packed_conv3d_v2_kernel.cu",
+                            "densematchingbenchmark_tpu/ops/pallas/packed_conv3d_kernel.py:382"),
 }
 
 
-def bound_ms(flops, nbytes):
+def bound_ms(flops, nbytes, peak_flops=PEAK_F32_FLOPS):
     """Least time for the work on the card, and what sets it."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -453,6 +469,102 @@ def check_soft_argmin_backward(device, gen):
             "bound_by": b_by}
 
 
+def check_packed_v2(device, gen):
+    """K5 and K4's bfloat16 route against conv3d_packed_s1_plain at the
+    microbench's cases (pack 4), both dtypes, every epilogue form and ReLU
+    both ways; times of the microbench's call (unit scale, no ReLU). Returns
+    K5's float32 row over the three cases."""
+    from densematchingbenchmark_tpu_torch.ops.conv3d import pack_volume
+    from densematchingbenchmark_tpu_torch.ops.cuda import (
+        conv3d_packed_s1, conv3d_packed_s1_plain, conv3d_packed_s1_v2)
+    from densematchingbenchmark_tpu_torch.tools.microbench_packed import CASES
+    pack = MICRO_PACK
+    rows = []
+    for dtype, peak in ((torch.float32, PEAK_F32_FLOPS),
+                        (torch.bfloat16, PEAK_BF16_FLOPS)):
+        step = BF16_STEP if dtype == torch.bfloat16 else 0.0
+        for name, (b, d, h, w), cin, cout in CASES:
+            x = torch.randn((b, d, h, w, cin), device=device,
+                            generator=gen).to(dtype)
+            k = (torch.randn((3, 3, 3, cin, cout), device=device,
+                             generator=gen) * (27 * cin) ** -0.5).to(dtype)
+            xp = pack_volume(x, pack).contiguous()
+            err = {"K5": 0.0, "K4": 0.0}
+            for form in ("scalar", "co", "pco"):
+                for relu in (True, False):
+                    scale, bias = epilogue(form, pack, cout, device, gen)
+                    want = conv3d_packed_s1_plain(xp, k, scale, bias, pack,
+                                                  relu)
+                    tol = (CONV_RTOL + step) * want.abs().max().item()
+                    for label, fn in (("K5", conv3d_packed_s1_v2),
+                                      ("K4", conv3d_packed_s1)):
+                        if label == "K4" and dtype == torch.float32:
+                            continue        # K4 float32: the kernels phase
+                        got = fn(xp, k, scale, bias, pack=pack, relu=relu)
+                        torch.cuda.synchronize()
+                        assert got.dtype == dtype, (label, got.dtype)
+                        e = (got.float() - want.float()).abs().max().item()
+                        assert e <= tol, (label, name, dtype, form, relu, e,
+                                          tol)
+                        err[label] = max(err[label], e)
+                    del want
+            w_oi = k.permute(4, 3, 0, 1, 2).contiguous(
+                memory_format=torch.channels_last_3d)
+            x_cf = x.movedim(-1, 1)      # channels_last_3d storage, no copy
+            ms = time_ms(lambda: conv3d_packed_s1_v2(xp, k, pack=pack))
+            k4 = time_ms(lambda: conv3d_packed_s1(xp, k, pack=pack))
+            plain = time_ms(lambda: conv3d_packed_s1_plain(xp, k, pack=pack),
+                            3)
+            lib = time_ms(lambda: F.conv3d(x_cf, w_oi, padding=1))
+            vox = b * d * h * w
+            b_ms, b_by = bound_ms(2 * 27 * cin * cout * vox,
+                                  x.element_size() * (vox * (cin + cout)
+                                                      + k.numel())
+                                  + 4 * 2 * pack * cout, peak)
+            dt = str(dtype).replace("torch.", "")
+            print(f"K5 conv3d_packed_s1_v2 {name} {cin}->{cout} "
+                  f"{b}x{d}x{h}x{w} pack {pack} {dt}: {ms:.3f} ms, K4 "
+                  f"{k4:.3f}, plain {plain:.3f}, F.conv3d {lib:.3f}, bound "
+                  f"{b_ms:.3f} ({b_by}), max_abs_err K5 {err['K5']:.3g}"
+                  + (f" K4 {err['K4']:.3g}" if dtype == torch.bfloat16
+                     else ""))
+            rows.append((dt, ms, plain, lib, b_ms, err["K5"], k4, b_by))
+            del x, k, xp, x_cf
+    for dt in ("float32", "bfloat16"):
+        sel = [r for r in rows if r[0] == dt]
+        total = lambda i: sum(r[i] for r in sel)
+        print(f"K5 over the three cases, {dt}: {total(1):.3f} ms, K4 "
+              f"{total(6):.3f}, plain {total(2):.3f}, F.conv3d "
+              f"{total(3):.3f}, bound {total(4):.3f}")
+    sel = [r for r in rows if r[0] == "float32"]
+    total = lambda i: sum(r[i] for r in sel)
+    return {"unit": "per microbench case set (3 cases, pack 4, float32)",
+            "max_abs_err": max(r[5] for r in sel), "ms": total(1),
+            "plain_ms": total(2), "library_ms": total(3),
+            "bound_ms": total(4),
+            "bound_by": max(sel, key=lambda r: r[4])[7]}
+
+
+def microbench_phase():
+    """The port's packed-conv microbench on its three cases in both dtypes;
+    returns the launch counts of the run."""
+    from densematchingbenchmark_tpu_torch.ops import cuda as kernels
+    from densematchingbenchmark_tpu_torch.tools import microbench_packed
+    kernels.reset_launch_counts()
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        rows += microbench_packed.run(dtype=dtype, pack=MICRO_PACK,
+                                      iters=MICRO_ITERS, device="cuda")
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    print(f"microbench_packed: pack {MICRO_PACK}, {MICRO_ITERS} chained "
+          f"iterations per row; launches {counts}")
+    for r in rows:
+        print(f"  {r['dtype']:<8} {microbench_packed.format_row(r)}")
+    assert all(np.isfinite(r["ms"]) and r["ms"] > 0 for r in rows), rows
+    return counts
+
+
 def random_pairs(rng, n, shape):
     return [{"leftImage": rng.rand(*shape, 3).astype(np.float32) * 255,
              "rightImage": rng.rand(*shape, 3).astype(np.float32) * 255}
@@ -559,7 +671,7 @@ def train_phase():
     assert per_step == {"fused_conv3d": 0, "fused_soft_argmin": 3,
                         "fused_soft_argmin_backward": 3,
                         "fused_upsample_soft_argmin": 0,
-                        "conv3d_packed_s1": 13}, counts
+                        "conv3d_packed_s1": 13, "conv3d_packed_s1_v2": 0}, counts
     losses = [r["train/loss"] for r in records]
     assert [r["step"] for r in records] == list(range(1, TRAIN_STEPS + 1))
     assert np.isfinite(losses).all(), losses
@@ -764,9 +876,14 @@ def main():
              "fused_upsample_soft_argmin": check_upsample("cuda", gen),
              "conv3d_packed_s1": check_packed_conv("cuda", gen),
              "fused_soft_argmin_backward": check_soft_argmin_backward(
-                 "cuda", gen)}
+                 "cuda", gen),
+             "conv3d_packed_s1_v2": check_packed_v2("cuda", gen)}
+    torch.cuda.empty_cache()
+    micro = microbench_phase()
     torch.cuda.empty_cache()
     launches, models = slice_phase()
+    for name, n in micro.items():
+        launches[name] += n
     if "--profile" in sys.argv[1:]:
         profile_phase(models)
     del models

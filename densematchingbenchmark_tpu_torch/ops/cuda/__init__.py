@@ -10,7 +10,8 @@ first launch. Nothing here imports triton or needs nvcc at import time.
 """
 
 from .conv3d_kernel import conv3d_plain, fused_conv3d
-from .packed_conv3d_kernel import conv3d_packed_s1, conv3d_packed_s1_plain
+from .packed_conv3d_kernel import (conv3d_packed_s1, conv3d_packed_s1_plain,
+                                   conv3d_packed_s1_v2)
 from .soft_argmin_kernel import (fused_soft_argmin,
                                  fused_soft_argmin_backward,
                                  soft_argmin_plain)
@@ -18,7 +19,7 @@ from .upsample_argmin_kernel import (fused_upsample_soft_argmin,
                                      upsample_soft_argmin_plain)
 
 KERNELS = (fused_conv3d, fused_soft_argmin, fused_soft_argmin_backward,
-           fused_upsample_soft_argmin, conv3d_packed_s1)
+           fused_upsample_soft_argmin, conv3d_packed_s1, conv3d_packed_s1_v2)
 
 
 def reset_launch_counts():
@@ -31,7 +32,7 @@ def launch_counts():
 
 
 __all__ = ["conv3d_plain", "fused_conv3d", "conv3d_packed_s1",
-           "conv3d_packed_s1_plain", "fused_soft_argmin",
+           "conv3d_packed_s1_plain", "conv3d_packed_s1_v2", "fused_soft_argmin",
            "fused_soft_argmin_backward", "soft_argmin_plain",
            "fused_upsample_soft_argmin", "upsample_soft_argmin_plain",
            "KERNELS", "reset_launch_counts", "launch_counts"]

@@ -17,7 +17,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("conv3d_kernel", "packed_conv3d_kernel", "upsample_argmin_kernel")
+SOURCES = ("conv3d_kernel", "packed_conv3d_kernel", "packed_conv3d_v2_kernel",
+           "upsample_argmin_kernel")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -7,8 +7,10 @@ no JAX, so it runs on a GPU machine that has none; from the repository root:
 
 (``--noconftest``: tests/conftest.py sets up JAX for the CPU suite.) Shapes
 are small and ragged (edges that no block size divides). The kernels and
-the plain versions both compute in float32 and differ in the order of their
-sums; tolerances are stated per test.
+the plain versions both sum in float32 and differ in the order of their
+sums; in bfloat16 both round their float32 result once, so they may differ
+by one bfloat16 step (2^-7 of the largest output) besides. Tolerances are
+stated per test.
 """
 
 import copy
@@ -25,10 +27,12 @@ from densematchingbenchmark_tpu_torch.models import build_model
 from densematchingbenchmark_tpu_torch.ops import cuda as kernels
 from densematchingbenchmark_tpu_torch.ops.cost_volume import (
     disp_sample_values)
+from densematchingbenchmark_tpu_torch.tools import microbench_packed
 from densematchingbenchmark_tpu_torch.trainer import (TrainState,
                                                       build_optimizer,
                                                       make_train_step)
 
+BF16_STEP = 2.0 ** -7
 TINY = {"model.max_disp": 64,
         "model.cost_processor.cost_computation.max_disp": 16,
         "model.cost_processor.cost_aggregator.max_disp": 64,
@@ -131,16 +135,18 @@ def test_tiny_slice_on_card_matches_cpu(cuda, fused):
         np.testing.assert_allclose(g, w, atol=1e-2)
 
 
-def packed_inputs(shape, pack, cout, form, seed, device):
-    """xp [B, R, H, W, pack*Ci], kernel, and a scalar / [Co] / [pack*Co]
-    scale and bias."""
+def packed_inputs(shape, pack, cout, form, seed, device,
+                  dtype=torch.float32):
+    """xp [B, R, H, W, pack*Ci] and kernel in ``dtype``, and a float32
+    scalar / [Co] / [pack*Co] scale and bias."""
     rng = np.random.RandomState(seed)
     cin = shape[-1] // pack
     n = {"scalar": (), "co": (cout,), "pco": (pack * cout,)}[form]
     arrays = (rng.randn(*shape), rng.randn(3, 3, 3, cin, cout) * 0.1,
               rng.rand(*n) + 0.5, rng.randn(*n))
-    return [torch.tensor(a, dtype=torch.float32, device=device)
-            for a in arrays]
+    return [torch.tensor(a, dtype=dt, device=device)
+            for a, dt in zip(arrays, (dtype, dtype, torch.float32,
+                                      torch.float32))]
 
 
 @pytest.mark.cuda
@@ -196,6 +202,91 @@ def test_packed_conv3d_backward_matches_autograd_on_card(cuda, shape, pack,
         # sums of up to B*D*H*W cotangent products in another order
         tol = 1e-4 * w.abs().max().item()
         assert (g - w).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pack,cout,form,relu", [
+    ((1, 3, 7, 45, 2 * 4), 2, 8, "scalar", True),    # Cin 4, D 6: a short
+                                                     # last depth chunk
+    ((2, 5, 5, 33, 4 * 4), 4, 12, "co", False),      # D 20: five chunks
+    ((1, 3, 9, 40, 4 * 8), 4, 36, "pco", True),      # two Cout blocks, ragged
+    ((1, 1, 4, 5, 4 * 4), 4, 8, "co", True),         # one packed row
+])
+def test_packed_conv3d_v2_kernel_matches_plain_on_card(cuda, shape, pack,
+                                                       cout, form, relu,
+                                                       dtype):
+    xp, k, scale, bias = packed_inputs(shape, pack, cout, form, shape[3],
+                                       cuda, dtype)
+    before = kernels.conv3d_packed_s1_v2.launches
+    got = kernels.conv3d_packed_s1_v2(xp, k, scale, bias, pack=pack,
+                                      relu=relu)
+    want = kernels.conv3d_packed_s1_plain(xp, k, scale, bias, pack, relu)
+    torch.cuda.synchronize()
+    assert kernels.conv3d_packed_s1_v2.launches == before + 1
+    assert got.dtype == want.dtype == dtype
+    assert got.shape == want.shape == (*shape[:-1], pack * cout)
+    # 27 * Ci products summed in another order; in bfloat16 one rounding
+    # step of the result besides
+    step = BF16_STEP if dtype == torch.bfloat16 else 0.0
+    tol = (1e-4 + step) * want.abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,pack,cout,form,relu", [
+    ((2, 3, 7, 78, 32), 1, 32, "co", True),
+    ((1, 2, 5, 9, 4 * 8), 4, 12, "pco", False),
+])
+def test_packed_conv3d_bf16_matches_plain_on_card(cuda, shape, pack, cout,
+                                                  form, relu):
+    xp, k, scale, bias = packed_inputs(shape, pack, cout, form, shape[2],
+                                       cuda, torch.bfloat16)
+    leaves = [xp, k, scale, bias]
+    for t in leaves:
+        t.requires_grad_()
+    out = kernels.conv3d_packed_s1(xp, k, scale, bias, pack=pack, relu=relu)
+    want = kernels.conv3d_packed_s1_plain(xp, k, scale, bias, pack, relu)
+    assert out.dtype == want.dtype == torch.bfloat16
+    tol = (1e-4 + BF16_STEP) * want.abs().max().item()
+    assert (out.float() - want.float()).abs().max().item() <= tol
+    ct = torch.randn(out.shape, device=cuda).bfloat16()
+    got = torch.autograd.grad(out, leaves, ct)
+    # the plain side takes the kernel's ReLU mask (see the float32 test)
+    plain = kernels.conv3d_packed_s1_plain(xp, k, scale, bias, pack)
+    want = torch.autograd.grad(plain, leaves, ct * (out > 0) if relu else ct)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        # cuDNN's bfloat16 gradient convolutions take the cotangent times
+        # the scale rounded to bfloat16 and round their result: a few
+        # bfloat16 steps of the largest gradient
+        tol = 4 * BF16_STEP * w.abs().max().item()
+        assert (g.float() - w.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_packed_conv3d_v2_is_forward_only_on_card(cuda):
+    xp, k, scale, bias = packed_inputs((1, 2, 4, 5, 8), 2, 4, "co", 0, cuda)
+    k.requires_grad_()
+    with pytest.raises(RuntimeError, match="forward only"):
+        kernels.conv3d_packed_s1_v2(xp, k, scale, bias, pack=2)
+    before = kernels.conv3d_packed_s1_v2.launches
+    with torch.no_grad():
+        kernels.conv3d_packed_s1_v2(xp, k, scale, bias, pack=2)
+    assert kernels.conv3d_packed_s1_v2.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_microbench_runs_on_card(cuda, dtype):
+    kernels.reset_launch_counts()
+    rows = microbench_packed.run(cases=(("small", (1, 8, 20, 40), 8, 8),),
+                                 dtype=dtype, pack=4, iters=2, device=cuda)
+    counts = kernels.launch_counts()
+    # the chain of two calls once untimed, then timed
+    assert counts["conv3d_packed_s1"] == counts["conv3d_packed_s1_v2"] == 4
+    assert [r["row"] for r in rows] == list(microbench_packed.ROWS)
+    assert all(r["device"] == "cuda" and r["ms"] > 0 for r in rows)
 
 
 @pytest.mark.cuda
@@ -280,7 +371,7 @@ def test_tiny_train_step_on_card_matches_cpu(cuda):
     assert counts == {"fused_conv3d": 0, "fused_soft_argmin": 6,
                       "fused_soft_argmin_backward": 6,
                       "fused_upsample_soft_argmin": 0,
-                      "conv3d_packed_s1": 26}, counts
+                      "conv3d_packed_s1": 26, "conv3d_packed_s1_v2": 0}, counts
     g_cpu, m_cpu, p_cpu = grads_and_step(cpu, batch, cfg)
     for k in m_cpu:
         # cuDNN vs the CPU's convolutions, float32

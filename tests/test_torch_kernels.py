@@ -137,4 +137,4 @@ def test_reset_and_read_launch_counts():
     assert kernels.launch_counts() == {
         "fused_conv3d": 0, "fused_soft_argmin": 0,
         "fused_soft_argmin_backward": 0, "fused_upsample_soft_argmin": 0,
-        "conv3d_packed_s1": 0}
+        "conv3d_packed_s1": 0, "conv3d_packed_s1_v2": 0}

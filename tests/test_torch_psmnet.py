@@ -108,7 +108,8 @@ def test_scale_factor_and_crop_run_on_the_port():
 
 
 def test_port_imports_no_jax():
-    # inference, then one training step, with every module of the port
+    # inference, one training step and the packed-conv microbench, with
+    # every module of the port
     train = dict(TINY, **{"model.losses.l1_loss.max_disp": 64,
                           "data.batch_size_per_device": 1})
     code = f"""
@@ -124,6 +125,7 @@ import densematchingbenchmark_tpu_torch.ops.cuda
 import densematchingbenchmark_tpu_torch.utils
 import densematchingbenchmark_tpu_torch.utils.checkpoint
 import densematchingbenchmark_tpu_torch.utils.logging
+from densematchingbenchmark_tpu_torch.tools import microbench_packed
 model = init_model("PSMNet/scene_flow_f32", device="cpu", **{TINY!r})
 rng = np.random.RandomState(0)
 img = rng.rand(64, 64, 3).astype(np.float32) * 255
@@ -132,6 +134,8 @@ ds = SyntheticStereoDataset(length=1, height=32, width=64, max_disp=8)
 ds.transform = transforms.make_train_transform((32, 64), (128.,) * 3, (64.,) * 3)
 train_matcher(get_config("PSMNet/scene_flow_f32", **{train!r}),
               tempfile.mkdtemp(), train_dataset=ds, max_steps=1, device="cpu")
+microbench_packed.run(cases=(("tiny", (1, 8, 4, 6), 8, 4),), iters=1,
+                      device="cpu")
 names = ("jax", "flax", "optax", "orbax", "densematchingbenchmark_tpu")
 bad = [m for m in sys.modules if m in names
        or m.startswith(tuple(n + "." for n in names))]
