@@ -16,14 +16,16 @@ PyTorch version on the card. Phases, each fatal on failure:
      backward and the K2 backward at the 256x512 batch-3 training shapes),
      with its time, its plain version's time, a one-call library yardstick
      where there is one, and its bound.
-  3b. packed: K5 (conv3d_packed_s1_v2) and K4's bfloat16 route against
+  3b. packed: K5 (conv3d_packed_s1_v2) and K4 against
      conv3d_packed_s1_plain at the three cases of the packed-conv
      microbench (pack 4), in float32 and bfloat16, with every epilogue form
-     and ReLU on and off; times beside bounds (float32 on the CUDA cores,
-     bfloat16 at the tensor-core rate) and cuDNN's F.conv3d.
+     and ReLU on and off; K5's float32 times beside its bound and cuDNN's
+     F.conv3d.
   3c. microbench: tools.microbench_packed.run on its three cases in both
-     dtypes (10 chained iterations), with the launch counts read around it,
-     and its table.
+     dtypes (10 chained iterations), with its launch counts asserted (K4
+     and K5 120 each, the others none), its table, and its totals beside
+     the bounds (float32 on the CUDA cores, bfloat16 at the tensor-core
+     rate).
   4. slice: init_model("PSMNet/scene_flow_f32", seed=0) on cuda (random
      weights from the seed, full width) and inference_stereo over three
      random 375x1242 pairs padded to 384x1248, in both eval modes
@@ -469,20 +471,33 @@ def check_soft_argmin_backward(device, gen):
             "bound_by": b_by}
 
 
+def packed_bound(shape, cin, cout, dtype):
+    """bound_ms of the microbench's call (pack MICRO_PACK, unit scale, no
+    ReLU): the true MACs at the dtype's peak; x and the output in the dtype,
+    read and written once, the kernel once, the float32 epilogue terms."""
+    vox = int(np.prod(shape))
+    size = torch.finfo(dtype).bits // 8
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    return bound_ms(2 * 27 * cin * cout * vox,
+                    size * (vox * (cin + cout) + 27 * cin * cout)
+                    + 4 * 2 * MICRO_PACK * cout, peak)
+
+
 def check_packed_v2(device, gen):
-    """K5 and K4's bfloat16 route against conv3d_packed_s1_plain at the
-    microbench's cases (pack 4), both dtypes, every epilogue form and ReLU
-    both ways; times of the microbench's call (unit scale, no ReLU). Returns
-    K5's float32 row over the three cases."""
+    """K5 and K4 against conv3d_packed_s1_plain at the microbench's cases
+    (pack 4), in both dtypes, with every epilogue form and ReLU both ways,
+    and K5's float32 times of the microbench's call (unit scale, no ReLU).
+    Returns K5's float32 row over the three cases; K4's times and the
+    bfloat16 times are the microbench phase's."""
     from densematchingbenchmark_tpu_torch.ops.conv3d import pack_volume
     from densematchingbenchmark_tpu_torch.ops.cuda import (
         conv3d_packed_s1, conv3d_packed_s1_plain, conv3d_packed_s1_v2)
     from densematchingbenchmark_tpu_torch.tools.microbench_packed import CASES
     pack = MICRO_PACK
     rows = []
-    for dtype, peak in ((torch.float32, PEAK_F32_FLOPS),
-                        (torch.bfloat16, PEAK_BF16_FLOPS)):
+    for dtype in (torch.float32, torch.bfloat16):
         step = BF16_STEP if dtype == torch.bfloat16 else 0.0
+        dt = str(dtype).replace("torch.", "")
         for name, (b, d, h, w), cin, cout in CASES:
             x = torch.randn((b, d, h, w, cin), device=device,
                             generator=gen).to(dtype)
@@ -498,8 +513,6 @@ def check_packed_v2(device, gen):
                     tol = (CONV_RTOL + step) * want.abs().max().item()
                     for label, fn in (("K5", conv3d_packed_s1_v2),
                                       ("K4", conv3d_packed_s1)):
-                        if label == "K4" and dtype == torch.float32:
-                            continue        # K4 float32: the kernels phase
                         got = fn(xp, k, scale, bias, pack=pack, relu=relu)
                         torch.cuda.synchronize()
                         assert got.dtype == dtype, (label, got.dtype)
@@ -508,46 +521,35 @@ def check_packed_v2(device, gen):
                                           tol)
                         err[label] = max(err[label], e)
                     del want
-            w_oi = k.permute(4, 3, 0, 1, 2).contiguous(
-                memory_format=torch.channels_last_3d)
-            x_cf = x.movedim(-1, 1)      # channels_last_3d storage, no copy
-            ms = time_ms(lambda: conv3d_packed_s1_v2(xp, k, pack=pack))
-            k4 = time_ms(lambda: conv3d_packed_s1(xp, k, pack=pack))
-            plain = time_ms(lambda: conv3d_packed_s1_plain(xp, k, pack=pack),
-                            3)
-            lib = time_ms(lambda: F.conv3d(x_cf, w_oi, padding=1))
-            vox = b * d * h * w
-            b_ms, b_by = bound_ms(2 * 27 * cin * cout * vox,
-                                  x.element_size() * (vox * (cin + cout)
-                                                      + k.numel())
-                                  + 4 * 2 * pack * cout, peak)
-            dt = str(dtype).replace("torch.", "")
-            print(f"K5 conv3d_packed_s1_v2 {name} {cin}->{cout} "
-                  f"{b}x{d}x{h}x{w} pack {pack} {dt}: {ms:.3f} ms, K4 "
-                  f"{k4:.3f}, plain {plain:.3f}, F.conv3d {lib:.3f}, bound "
-                  f"{b_ms:.3f} ({b_by}), max_abs_err K5 {err['K5']:.3g}"
-                  + (f" K4 {err['K4']:.3g}" if dtype == torch.bfloat16
-                     else ""))
-            rows.append((dt, ms, plain, lib, b_ms, err["K5"], k4, b_by))
-            del x, k, xp, x_cf
-    for dt in ("float32", "bfloat16"):
-        sel = [r for r in rows if r[0] == dt]
-        total = lambda i: sum(r[i] for r in sel)
-        print(f"K5 over the three cases, {dt}: {total(1):.3f} ms, K4 "
-              f"{total(6):.3f}, plain {total(2):.3f}, F.conv3d "
-              f"{total(3):.3f}, bound {total(4):.3f}")
-    sel = [r for r in rows if r[0] == "float32"]
-    total = lambda i: sum(r[i] for r in sel)
+            line = (f"K5 conv3d_packed_s1_v2 {name} {b}x{d}x{h}x{w} pack "
+                    f"{pack} {dt}: max_abs_err K5 {err['K5']:.3g} K4 "
+                    f"{err['K4']:.3g}")
+            if dtype == torch.float32:
+                w_oi = k.permute(4, 3, 0, 1, 2).contiguous(
+                    memory_format=torch.channels_last_3d)
+                x_cf = x.movedim(-1, 1)  # channels_last_3d storage, no copy
+                ms = time_ms(lambda: conv3d_packed_s1_v2(xp, k, pack=pack))
+                plain = time_ms(lambda: conv3d_packed_s1_plain(xp, k,
+                                                               pack=pack), 3)
+                lib = time_ms(lambda: F.conv3d(x_cf, w_oi, padding=1))
+                b_ms, b_by = packed_bound((b, d, h, w), cin, cout, dtype)
+                line += (f"; {ms:.3f} ms, plain {plain:.3f}, F.conv3d "
+                         f"{lib:.3f}, bound {b_ms:.3f} ({b_by})")
+                rows.append((ms, plain, lib, b_ms, err["K5"], b_by))
+                del x_cf
+            print(line)
+            del x, k, xp
+    total = lambda i: sum(r[i] for r in rows)
     return {"unit": "per microbench case set (3 cases, pack 4, float32)",
-            "max_abs_err": max(r[5] for r in sel), "ms": total(1),
-            "plain_ms": total(2), "library_ms": total(3),
-            "bound_ms": total(4),
-            "bound_by": max(sel, key=lambda r: r[4])[7]}
+            "max_abs_err": max(r[4] for r in rows), "ms": total(0),
+            "plain_ms": total(1), "library_ms": total(2),
+            "bound_ms": total(3),
+            "bound_by": max(rows, key=lambda r: r[3])[5]}
 
 
 def microbench_phase():
-    """The port's packed-conv microbench on its three cases in both dtypes;
-    returns the launch counts of the run."""
+    """The port's packed-conv microbench on its three cases in both dtypes,
+    with its launch counts asserted; returns them."""
     from densematchingbenchmark_tpu_torch.ops import cuda as kernels
     from densematchingbenchmark_tpu_torch.tools import microbench_packed
     kernels.reset_launch_counts()
@@ -562,6 +564,22 @@ def microbench_phase():
     for r in rows:
         print(f"  {r['dtype']:<8} {microbench_packed.format_row(r)}")
     assert all(np.isfinite(r["ms"]) and r["ms"] > 0 for r in rows), rows
+    # K4 and K5 each: 2 dtypes x the cases x 2 chains (warm-up and timed)
+    per_kernel = 2 * len(microbench_packed.CASES) * 2 * MICRO_ITERS
+    want = {name: 0 for name in counts}
+    want["conv3d_packed_s1"] = want["conv3d_packed_s1_v2"] = per_kernel
+    assert counts == want, (counts, want)
+    ms = {(r["dtype"], r["case"], r["row"]): r["ms"] for r in rows}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).replace("torch.", "")
+        total = lambda row: sum(ms[dt, c[0], row]
+                                for c in microbench_packed.CASES)
+        bound = sum(packed_bound(shape, cin, cout, dtype)[0]
+                    for _, shape, cin, cout in microbench_packed.CASES)
+        print(f"microbench over the three cases, {dt}: K5 {total('K5'):.3f} "
+              f"ms, K4 {total('K4'):.3f}, cuDNN unpacked "
+              f"{total('unpacked'):.3f}, cuDNN dense packed "
+              f"{total('dense packed'):.3f}, bound {bound:.3f}")
     return counts
 
 
