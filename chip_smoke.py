@@ -10,7 +10,9 @@ PyTorch version on the card. Phases, each fatal on failure:
   1. device: needs CUDA; prints the card's name and power limit
      (nvidia-smi) and turns TF32 off for matmuls and cuDNN convolutions.
   2. build: compiles the CUDA C++ kernels from csrc/ (one nvcc per source,
-     all at once) and prints the build seconds and ptxas's report.
+     all at once) and prints the build seconds and ptxas's report; asserts
+     HGMMA (wgmma) instructions in the SASS of the bfloat16 K4 and K5
+     kernels and none in the CUDA-core kernels (K1, float32 K4 and K5).
   3. kernels: each kernel against its plain version at the shapes of its
      path (K1, K2, K3 at the 384x1248 inference shapes; K4 forward and
      backward and the K2 backward at the 256x512 batch-3 training shapes),
@@ -18,14 +20,16 @@ PyTorch version on the card. Phases, each fatal on failure:
      where there is one, and its bound.
   3b. packed: K5 (conv3d_packed_s1_v2) and K4 against
      conv3d_packed_s1_plain at the three cases of the packed-conv
-     microbench (pack 4), in float32 and bfloat16, with every epilogue form
-     and ReLU on and off; K5's float32 times beside its bound and cuDNN's
-     F.conv3d.
-  3c. microbench: tools.microbench_packed.run on its three cases in both
-     dtypes (10 chained iterations), with its launch counts asserted (K4
-     and K5 120 each, the others none), its table, and its totals beside
-     the bounds (float32 on the CUDA cores, bfloat16 at the tensor-core
-     rate).
+     microbench (pack 4), in float32 and bfloat16 (the tensor-core route),
+     with every epilogue form and ReLU on and off, and K4 in bfloat16 at
+     pack 1 at the training trunk shapes; K5's float32 times beside its
+     bound and cuDNN's F.conv3d, the plain version's time in both dtypes.
+  3c. microbench: tools.microbench_packed.run on its three cases in each
+     dtype (10 chained iterations), with each run's launch counts asserted
+     (K4 and K5 60 each, all of them bfloat16 in the bfloat16 run, the
+     others none), its table, its totals beside the bounds (float32 on the
+     CUDA cores, bfloat16 at the tensor-core rate) and, per case, the
+     bfloat16 kernels' ratio to cuDNN's bf16 conv and share of the bound.
   4. slice: init_model("PSMNet/scene_flow_f32", seed=0) on cuda (random
      weights from the seed, full width) and inference_stereo over three
      random 375x1242 pairs padded to 384x1248, in both eval modes
@@ -45,8 +49,9 @@ PyTorch version on the card. Phases, each fatal on failure:
      crop 64x96, lr 2e-3, no warmup); the loss must fall below 0.7x its
      first value and the batch's EPE must fall.
 
-Prints a JSON line of per-kernel numbers before the last line, and as the
-last line {"ok": true, "device": {...}}. Imports nothing of JAX.
+Prints a JSON line of per-kernel numbers before the last line (K4's and
+K5's bfloat16 routes in rows of their own, ``*_bf16``), and as the last
+line {"ok": true, "device": {...}}. Imports nothing of JAX.
 
     python3 chip_smoke.py --profile
 
@@ -136,6 +141,12 @@ SOURCES = {
     "conv3d_packed_s1_v2": ("cuda", "densematchingbenchmark_tpu_torch/csrc/packed_conv3d_v2_kernel.cu",
                             "densematchingbenchmark_tpu/ops/pallas/packed_conv3d_kernel.py:382"),
 }
+# the bfloat16 routes of K4 and K5 (the wgmma block), rows of their own
+BF16_SOURCES = {
+    "conv3d_packed_s1": ("conv3d_packed_s1_bf16", "K4"),
+    "conv3d_packed_s1_v2": ("conv3d_packed_s1_v2_bf16", "K5"),
+}
+WGMMA_SOURCE = "densematchingbenchmark_tpu_torch/csrc/conv3d_wgmma.cuh"
 
 
 def bound_ms(flops, nbytes, peak_flops=PEAK_F32_FLOPS):
@@ -177,6 +188,24 @@ def device_phase():
     return smi
 
 
+def hgmma_counts(library):
+    """{kernel function: HGMMA instructions} in the library's SASS
+    (cuobjdump -sass)."""
+    import shutil
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(library)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def build_phase():
     from densematchingbenchmark_tpu_torch.ops.cuda import _build
     t0 = time.perf_counter()
@@ -185,8 +214,24 @@ def build_phase():
           f"{sorted(logs) or 'nothing (already built)'}")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    # the bfloat16 K4 and K5 kernels run on the tensor cores (HGMMA is
+    # wgmma's SASS); the CUDA-core kernels, K1 among them, have none
+    for name in ("conv3d_kernel", "packed_conv3d_kernel",
+                 "packed_conv3d_v2_kernel"):
+        counts = hgmma_counts(_build.library_path(name))
+        wgmma = {f: n for f, n in counts.items() if "conv3d_wgmma" in f}
+        others = {f: n for f, n in counts.items() if f not in wgmma}
+        assert all(n == 0 for n in others.values()), (name, others)
+        if name == "conv3d_kernel":
+            assert not wgmma, (name, wgmma)
+        else:
+            assert wgmma and all(n > 0 for n in wgmma.values()), (name,
+                                                                  counts)
+        print(f"  {name}: HGMMA in {len(wgmma)} bf16 kernels "
+              f"({sorted(wgmma.values())}), none in its {len(others)} "
+              "CUDA-core kernels")
 
 
 def check_conv(device, gen):
@@ -486,15 +531,19 @@ def packed_bound(shape, cin, cout, dtype):
 def check_packed_v2(device, gen):
     """K5 and K4 against conv3d_packed_s1_plain at the microbench's cases
     (pack 4), in both dtypes, with every epilogue form and ReLU both ways,
-    and K5's float32 times of the microbench's call (unit scale, no ReLU).
-    Returns K5's float32 row over the three cases; K4's times and the
-    bfloat16 times are the microbench phase's."""
+    and K4 in bfloat16 at pack 1 at the training trunk shapes (where a bf16
+    PSMNet would call it); K5's float32 times of the microbench's call
+    (unit scale, no ReLU) and the plain version's bfloat16 time. Returns
+    K5's float32 row over the three cases and, for the bfloat16 rows, each
+    kernel's max_abs_err and the plain version's ms per case set; K4's
+    times and the bfloat16 kernel times are the microbench phase's."""
     from densematchingbenchmark_tpu_torch.ops.conv3d import pack_volume
     from densematchingbenchmark_tpu_torch.ops.cuda import (
         conv3d_packed_s1, conv3d_packed_s1_plain, conv3d_packed_s1_v2)
     from densematchingbenchmark_tpu_torch.tools.microbench_packed import CASES
     pack = MICRO_PACK
     rows = []
+    bf16 = {"K5": 0.0, "K4": 0.0, "plain_ms": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         step = BF16_STEP if dtype == torch.bfloat16 else 0.0
         dt = str(dtype).replace("torch.", "")
@@ -524,63 +573,116 @@ def check_packed_v2(device, gen):
             line = (f"K5 conv3d_packed_s1_v2 {name} {b}x{d}x{h}x{w} pack "
                     f"{pack} {dt}: max_abs_err K5 {err['K5']:.3g} K4 "
                     f"{err['K4']:.3g}")
+            plain = time_ms(lambda: conv3d_packed_s1_plain(xp, k, pack=pack),
+                            3)
             if dtype == torch.float32:
                 w_oi = k.permute(4, 3, 0, 1, 2).contiguous(
                     memory_format=torch.channels_last_3d)
                 x_cf = x.movedim(-1, 1)  # channels_last_3d storage, no copy
                 ms = time_ms(lambda: conv3d_packed_s1_v2(xp, k, pack=pack))
-                plain = time_ms(lambda: conv3d_packed_s1_plain(xp, k,
-                                                               pack=pack), 3)
                 lib = time_ms(lambda: F.conv3d(x_cf, w_oi, padding=1))
                 b_ms, b_by = packed_bound((b, d, h, w), cin, cout, dtype)
                 line += (f"; {ms:.3f} ms, plain {plain:.3f}, F.conv3d "
                          f"{lib:.3f}, bound {b_ms:.3f} ({b_by})")
                 rows.append((ms, plain, lib, b_ms, err["K5"], b_by))
                 del x_cf
+            else:
+                line += f"; plain {plain:.3f} ms"
+                bf16["plain_ms"] += plain
+                for label in ("K4", "K5"):
+                    bf16[label] = max(bf16[label], err[label])
             print(line)
             del x, k, xp
+    # K4 in bfloat16 at pack 1 at the training trunk shapes, batch 3
+    for cin, cout, (d, h, w), _ in TRAIN_CONV_SHAPES:
+        x = torch.randn((TRAIN_BATCH, d, h, w, cin), device=device,
+                        generator=gen).bfloat16()
+        k = (torch.randn((3, 3, 3, cin, cout), device=device, generator=gen)
+             * (27 * cin) ** -0.5).bfloat16()
+        err = 0.0
+        for form, relu in (("scalar", False), ("co", True), ("co", False)):
+            scale, bias = epilogue(form, 1, cout, device, gen)
+            want = conv3d_packed_s1_plain(x, k, scale, bias, 1, relu).float()
+            got = conv3d_packed_s1(x, k, scale, bias, pack=1, relu=relu)
+            torch.cuda.synchronize()
+            e = (got.float() - want).abs().max().item()
+            tol = (CONV_RTOL + BF16_STEP) * want.abs().max().item()
+            assert e <= tol, (cin, cout, d, h, w, form, relu, e, tol)
+            err = max(err, e)
+        bf16["K4"] = max(bf16["K4"], err)
+        print(f"K4 conv3d_packed_s1 bfloat16 {cin}->{cout} "
+              f"{TRAIN_BATCH}x{d}x{h}x{w} pack 1: max_abs_err {err:.3g}")
+        del x, k, got, want
     total = lambda i: sum(r[i] for r in rows)
     return {"unit": "per microbench case set (3 cases, pack 4, float32)",
             "max_abs_err": max(r[4] for r in rows), "ms": total(0),
             "plain_ms": total(1), "library_ms": total(2),
             "bound_ms": total(3),
-            "bound_by": max(rows, key=lambda r: r[3])[5]}
+            "bound_by": max(rows, key=lambda r: r[3])[5]}, bf16
 
 
 def microbench_phase():
-    """The port's packed-conv microbench on its three cases in both dtypes,
-    with its launch counts asserted; returns them."""
+    """The port's packed-conv microbench on its three cases in each dtype,
+    with the launch counts of each dtype's run asserted. Returns the counts
+    of both runs, their bfloat16 part, and each bfloat16 route's ms per
+    case set beside cuDNN's bf16 unpacked conv and the bound."""
     from densematchingbenchmark_tpu_torch.ops import cuda as kernels
     from densematchingbenchmark_tpu_torch.tools import microbench_packed
-    kernels.reset_launch_counts()
+    cases = microbench_packed.CASES
+    # K4 and K5 each: the cases x 2 chains (warm-up and timed)
+    per_kernel = len(cases) * 2 * MICRO_ITERS
+    counts = {name: 0 for name in kernels.launch_counts()}
+    bf16_counts = {name: 0 for name in kernels.bf16_launch_counts()}
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
+        kernels.reset_launch_counts()
         rows += microbench_packed.run(dtype=dtype, pack=MICRO_PACK,
                                       iters=MICRO_ITERS, device="cuda")
-    torch.cuda.synchronize()
-    counts = kernels.launch_counts()
-    print(f"microbench_packed: pack {MICRO_PACK}, {MICRO_ITERS} chained "
-          f"iterations per row; launches {counts}")
+        torch.cuda.synchronize()
+        got, got_bf16 = kernels.launch_counts(), kernels.bf16_launch_counts()
+        want = {name: 0 for name in got}
+        want["conv3d_packed_s1"] = want["conv3d_packed_s1_v2"] = per_kernel
+        n_bf16 = per_kernel if dtype == torch.bfloat16 else 0
+        assert got == want, (dtype, got, want)
+        assert got_bf16 == {name: n_bf16 for name in got_bf16}, (dtype,
+                                                                 got_bf16)
+        print(f"microbench_packed {dtype}: pack {MICRO_PACK}, {MICRO_ITERS} "
+              f"chained iterations per row; launches {got}, bf16 {got_bf16}")
+        for name in counts:
+            counts[name] += got[name]
+        for name in bf16_counts:
+            bf16_counts[name] += got_bf16[name]
     for r in rows:
         print(f"  {r['dtype']:<8} {microbench_packed.format_row(r)}")
     assert all(np.isfinite(r["ms"]) and r["ms"] > 0 for r in rows), rows
-    # K4 and K5 each: 2 dtypes x the cases x 2 chains (warm-up and timed)
-    per_kernel = 2 * len(microbench_packed.CASES) * 2 * MICRO_ITERS
-    want = {name: 0 for name in counts}
-    want["conv3d_packed_s1"] = want["conv3d_packed_s1_v2"] = per_kernel
-    assert counts == want, (counts, want)
     ms = {(r["dtype"], r["case"], r["row"]): r["ms"] for r in rows}
+    bounds = {}
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype).replace("torch.", "")
-        total = lambda row: sum(ms[dt, c[0], row]
-                                for c in microbench_packed.CASES)
-        bound = sum(packed_bound(shape, cin, cout, dtype)[0]
-                    for _, shape, cin, cout in microbench_packed.CASES)
+        total = lambda row: sum(ms[dt, c[0], row] for c in cases)
+        bounds[dt] = {c[0]: packed_bound(c[1], c[2], c[3], dtype)[0]
+                      for c in cases}
         print(f"microbench over the three cases, {dt}: K5 {total('K5'):.3f} "
               f"ms, K4 {total('K4'):.3f}, cuDNN unpacked "
               f"{total('unpacked'):.3f}, cuDNN dense packed "
-              f"{total('dense packed'):.3f}, bound {bound:.3f}")
-    return counts
+              f"{total('dense packed'):.3f}, bound "
+              f"{sum(bounds[dt].values()):.3f}")
+    for name, *_ in cases:
+        lib, bound = ms["bfloat16", name, "unpacked"], bounds["bfloat16"][name]
+        print(f"  bfloat16 {name}: " + ", ".join(
+            f"{row} {ms['bfloat16', name, row]:.3f} ms "
+            f"({ms['bfloat16', name, row] / lib:.2f}x cuDNN unpacked, "
+            f"{100 * bound / ms['bfloat16', name, row]:.1f}% of bound)"
+            for row in ("K4", "K5")) + f"; cuDNN {lib:.3f}, bound {bound:.3f}")
+    by = packed_bound(*max(cases, key=lambda c: bounds["bfloat16"][c[0]])[1:],
+                      torch.bfloat16)[1]
+    bf16 = {row: {"ms": sum(ms["bfloat16", c[0], row] for c in cases),
+                  "library_ms": sum(ms["bfloat16", c[0], "unpacked"]
+                                    for c in cases),
+                  "bound_ms": sum(bounds["bfloat16"].values()),
+                  "bound_by": by}
+            for row in ("K4", "K5")}
+    return counts, bf16_counts, bf16
 
 
 def random_pairs(rng, n, shape):
@@ -894,10 +996,10 @@ def main():
              "fused_upsample_soft_argmin": check_upsample("cuda", gen),
              "conv3d_packed_s1": check_packed_conv("cuda", gen),
              "fused_soft_argmin_backward": check_soft_argmin_backward(
-                 "cuda", gen),
-             "conv3d_packed_s1_v2": check_packed_v2("cuda", gen)}
+                 "cuda", gen)}
+    stats["conv3d_packed_s1_v2"], bf16_check = check_packed_v2("cuda", gen)
     torch.cuda.empty_cache()
-    micro = microbench_phase()
+    micro, micro_bf16, bf16_times = microbench_phase()
     torch.cuda.empty_cache()
     launches, models = slice_phase()
     for name, n in micro.items():
@@ -914,10 +1016,22 @@ def main():
     for k in kernels.KERNELS:
         name = k.__name__
         route, source, replaces = SOURCES[name]
-        assert launches[name] > 0, f"{name} never launched on a main path"
+        # the float32 (CUDA-core) row; a bfloat16 route has its own row
+        n = launches[name] - micro_bf16.get(name, 0)
+        assert n > 0, f"{name} never launched on a main path"
         rows.append({"name": name, "route": route, "source": source,
-                     "replaces": replaces, "launches": launches[name],
-                     **stats[name]})
+                     "replaces": replaces, "launches": n, **stats[name]})
+        if name in BF16_SOURCES:
+            row_name, label = BF16_SOURCES[name]
+            assert micro_bf16[name] > 0, f"{row_name} never launched"
+            rows.append({"name": row_name, "route": "cuda",
+                         "source": WGMMA_SOURCE, "replaces": replaces,
+                         "launches": micro_bf16[name],
+                         "unit": "per microbench case set (3 cases, pack 4, "
+                                 "bfloat16)",
+                         "max_abs_err": bf16_check[label],
+                         "plain_ms": bf16_check["plain_ms"],
+                         **bf16_times[label]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,9 @@
 // One block of the 3x3x3 stride-1 SAME conv3d with a fused per-channel
-// scale/bias (+ReLU) epilogue: the implicit GEMM shared by conv3d_kernel.cu
-// (K1, plain NDHWC, float32) and packed_conv3d_kernel.cu (K4, the D-packed
-// layout, float32 or bfloat16 operands). The operands are read in their own
-// type T and staged as float32; sums and the epilogue are float32; the
-// output is stored in its own type O, rounded once (the load and store
-// helpers below are shared with K5, packed_conv3d_v2_kernel.cu).
+// scale/bias (+ReLU) epilogue: the float32 implicit GEMM on the CUDA cores
+// shared by conv3d_kernel.cu (K1, plain NDHWC) and packed_conv3d_kernel.cu
+// (K4's float32 route, the D-packed layout), float32 in and out (the load
+// and store helpers below are shared with K5's float32 route,
+// packed_conv3d_v2_kernel.cu); the bfloat16 routes are conv3d_wgmma.cuh.
 //
 // Layout: the input is read as xp[b, r, h, w, p * Cin + c] = x[b, r * P + p,
 // h, w, c] for P = pack and the output written the same way with Cout, so
@@ -14,9 +13,7 @@
 // 2*27*Cin*Cout flops per output voxel against (Cin + Cout) * 4 bytes of
 // activations, i.e. 2-4 Kflop per 1 KB, far above the card's f32
 // flop-per-byte ratio, so the float32 FMA rate (67 TFLOP/s without the
-// tensor cores) is the ceiling for this CUDA-core route. bfloat16 operands
-// halve the bytes but not the FMAs: on this route they are no faster than
-// float32; only the tensor cores (989 TFLOP/s bf16) would be.
+// tensor cores) is the ceiling for this CUDA-core route.
 //
 // What the design does about it: an implicit GEMM on the CUDA cores with a
 // register tile of 4 output voxels x 8 output channels per thread (32 FMAs
@@ -31,51 +28,23 @@
 // input depth z is read at packed row z / P, channel offset (z % P) * Cin,
 // and output depth d written at row d / P, offset (d % P) * Cout, so no
 // padded, unpacked or widened copy of a packed volume is made. A later
-// revision moves the contraction onto wgmma (TF32 / bf16) with a TMA
-// pipeline.
+// revision moves the float32 contraction onto wgmma (TF32, where the
+// float32 contract allows it) with a TMA pipeline.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace conv3d_tile {
 
-// Four consecutive values as float32: one 16-byte load of float32, one
-// 8-byte load of bfloat16 (p 16- or 8-byte aligned).
+// Four consecutive float32 values: one 16-byte load (p 16-byte aligned).
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float bf16_lo(unsigned u) {
-  return __bfloat162float(__ushort_as_bfloat16(
-      static_cast<unsigned short>(u & 0xffffu)));
-}
-
-__device__ __forceinline__ float bf16_hi(unsigned u) {
-  return __bfloat162float(__ushort_as_bfloat16(
-      static_cast<unsigned short>(u >> 16)));
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
-}
-
-// Four float32 values stored in the output type, rounded to nearest even.
+// Four float32 values: one 16-byte store.
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
-  return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
-         (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16(hi)))
-          << 16);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  *reinterpret_cast<uint2*>(p) =
-      make_uint2(bf16_pair(v.x, v.y), bf16_pair(v.z, v.w));
 }
 
 constexpr int TH = 4;            // output rows per block
@@ -96,14 +65,13 @@ inline dim3 grid(int B, int D, int H, int W, int Cout) {
 
 // The block (blockIdx.x: H/W tile, blockIdx.y: b * D + d with D = R * P,
 // blockIdx.z: Cout block) of the conv of x [B, R, H, W, P*Cin] with w
-// [3, 3, 3, Cin, Cout] (both of type T) into out [B, R, H, W, P*Cout] of
-// type O; scale and bias are float32.
-template <typename T, typename O>
-__device__ __forceinline__ void run(const T* __restrict__ x,
-                                    const T* __restrict__ w,
+// [3, 3, 3, Cin, Cout] into out [B, R, H, W, P*Cout], all float32, as are
+// scale and bias.
+__device__ __forceinline__ void run(const float* __restrict__ x,
+                                    const float* __restrict__ w,
                                     const float* __restrict__ scale,
                                     const float* __restrict__ bias,
-                                    O* __restrict__ out, int R, int P,
+                                    float* __restrict__ out, int R, int P,
                                     int H, int W, int Cin, int Cout,
                                     int relu) {
   __shared__ float in_s[HR * HC * XS];
@@ -134,7 +102,7 @@ __device__ __forceinline__ void run(const T* __restrict__ x,
     if (z < 0 || z >= D) continue;           // uniform over the block
     // packed row z / P, slot z % P
     const long long plane = ((long long)b * R + z / P) * H;
-    const T* xs = x + (z % P) * Cin;
+    const float* xs = x + (z % P) * Cin;
     for (int c0 = 0; c0 < Cin; c0 += CK) {
       __syncthreads();                       // previous step's readers done
       // halo of this depth tap and channel slice, zero outside the volume

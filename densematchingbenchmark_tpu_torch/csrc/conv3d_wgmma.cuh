@@ -1,0 +1,547 @@
+// The bfloat16 3x3x3 stride-1 SAME conv3d on the D-packed layout, on
+// Hopper's tensor cores: one block, shared by K4 (packed_conv3d_kernel.cu,
+// one output depth per block) and K5 (packed_conv3d_v2_kernel.cu, a chunk
+// of output depths walked inside the block). The two differ only in their
+// loop order (the template argument NACC, the output depths a block sums at
+// once) and in the depth chunk of the launch plan.
+//
+// Function: xp [B, R, H, W, P*Ci] and the true kernel [3, 3, 3, Ci, Co]
+// (passed as its shared-memory image, below), both bfloat16; products
+// summed in float32 (bf16 x bf16 is exact in float32), then out = sum *
+// scale + bias per packed channel (float32, [P*Co]), optional ReLU, one
+// rounding to bfloat16. The packing is addressing: input depth z at packed
+// row z / P, channel slot z % P.
+//
+// What bounds it on an H100: at the microbench's shapes (32->32 and 64->32
+// at 48x96x312, 64->64 at 24x48x156) the operations take 0.080, 0.161 and
+// 0.040 ms at 989 TFLOP/s (bf16 dense) and one read of x plus one write of
+// y 0.055, 0.082 and 0.014 ms at 3.35 TB/s: the two are close, so both the
+// products and the traffic have to be fed. A CUDA-core route tops out at
+// the float32 FMA rate (67 TFLOP/s); only wgmma reaches the tensor cores.
+//
+// The design:
+// - Implicit GEMM on wgmma.m64n32k16 (bf16 operands, float32 accumulators
+//   in registers). A block owns TH = 4 output rows x TW = 64 columns x
+//   N = 32 output channels; M is one output row (64 voxels), N the Cout
+//   tile, K = 27 taps x Ci in steps of 16 channels. Two consumer
+//   warpgroups own two rows each.
+// - A from registers (route (a)): for tap (dh, dw) the 64 rows of A are
+//   halo row i + dh, columns dw .. dw + 63 of the staged input plane, a
+//   window that starts at any voxel. ldmatrix.x4 reads it from the halo
+//   with per-lane addresses, so the shift is plain addressing; the halo is
+//   stored with TMA's 32/64/128-byte swizzle (the width of one position's
+//   CK channels), which keeps the eight 16-byte rows of each ldmatrix
+//   matrix on distinct banks for any start column. One commit group per
+//   (dh, dw) tap; the next tap's fragments are read into a second register
+//   buffer while the group runs.
+// - B, the weights, is resident in shared memory for the whole block: all
+//   27 taps x Ci for the block's 32 output channels (55 KB at Ci 32, 111 KB
+//   at Ci 64) in the no-swizzle K-major canonical layout (8 x 16-byte core
+//   matrices), read by descriptor. The wrapper lays the kernel out in that
+//   image once per call (wgmma_weights), so a block fetches its Cout
+//   tile's weights with one bulk copy, beside its first halo loads, and no
+//   thread spends instructions transposing them (a K4 block reads only
+//   three planes, so its prologue counts).
+// - The halo ring: a stage is one (input plane, CK-channel slice) tile of
+//   (TH + 2) x (TW + 2) positions, loaded by one TMA copy from a 5-D tensor
+//   map over the packed volume [B, R, H, W, P*Ci] with the box [CK, 66, 6,
+//   1, 1] at (slot * Ci + c0, w0 - 1, h0 - 1, row, b). Out-of-bounds box
+//   elements are zero-filled, which is the SAME halo at every H / W border,
+//   with no padded copy. Planes outside the volume are never loaded (their
+//   taps are skipped). The ring holds 2-4 stages, guarded by full (TMA
+//   transaction bytes) and empty (all 256 threads) mbarriers; thread 0
+//   issues the first stages beside the weights' copy and refills a slot
+//   as soon as it has been read, so loads run while the products of
+//   the earlier stages run. There is no producer warp: a ninth warp caps
+//   the registers at 168 a thread (three warps on one of the SM's four
+//   register files), which made K5's three accumulators spill.
+// - K5's order (NACC = 3): a block walks the input planes of its chunk of
+//   output depths once; each staged plane z feeds three accumulators, for
+//   outputs z - 1, z and z + 1 (depth taps 2, 1 and 0), the A fragments
+//   loaded once for all three. When plane z is consumed, output z - 1 goes
+//   through the epilogue. K4's order (NACC = 1): one output depth per block
+//   reads its three planes; the launch puts depth fastest in the grid, so
+//   blocks of neighbouring depths of one tile run together and the plane a
+//   block re-reads comes from L2.
+// - Epilogue from the accumulator fragments: scale and bias of packed
+//   channel (d % P) * Co + c in float32, optional ReLU, two channels
+//   rounded to one bf16x2 store, masked at the ragged H, W and Co edges.
+// Needs Ci % 16 == 0 (k16 steps), Co % 8 == 0 (core-matrix rows and
+// output pairs) and the weights plus two stages within the 227 KB of
+// shared memory (Ci <= 112); the caller checks.
+
+#pragma once
+
+#include <cuda.h>            // CUtensorMap and its enums (types only)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace conv3d_wgmma {
+
+constexpr int TH = 4;               // output rows per block
+constexpr int TW = 64;              // output columns per block (wgmma M)
+constexpr int N = 32;               // output channels per block (wgmma N)
+constexpr int HR = TH + 2;          // halo rows
+constexpr int HC = TW + 2;          // halo columns
+constexpr int THREADS = 256;        // two warpgroups
+constexpr int ALIGN = 1024;         // stage alignment (128-byte swizzle)
+constexpr int MAX_SMEM = 232448;    // dynamic shared memory a block may have
+// One B slab: 16 input channels of one tap for the N output channels, as
+// N / 8 x 2 core matrices of 8 rows x 16 bytes: K-direction (LBO) and
+// N-direction (SBO) byte strides between core matrices.
+constexpr int LBO = 128;
+constexpr int SBO = 256;
+constexpr int SLAB = N * 16 * 2;
+
+// The launch geometry, as the wrapper's plan computed it.
+struct Geometry {
+  int B, R, P, H, W, Ci, Co, relu;
+  int dc, chunks, tiles_h, tiles_w, stages;
+};
+
+__host__ __device__ constexpr int round_up(int v, int m) {
+  return (v + m - 1) / m * m;
+}
+
+// The block's dynamic shared memory, in this order from the first ALIGN
+// boundary: the weights (27 * Ci x N bf16), then `stages` halo tiles of
+// (HR x HC x CK) bf16, each ALIGN aligned, then the full and empty barriers
+// of each stage and the weights' barrier. The kernel addresses it through
+// these; smem_bytes adds ALIGN bytes of slack for the first boundary.
+__host__ __device__ constexpr int weight_bytes(int ci) {
+  return round_up(27 * ci * N * 2, ALIGN);
+}
+__host__ __device__ constexpr int stage_bytes(int ck) {
+  return round_up(HR * HC * ck * 2, ALIGN);
+}
+__host__ __device__ constexpr int smem_bytes(int ci, int ck, int stages) {
+  return ALIGN + weight_bytes(ci) + stages * stage_bytes(ck) +
+         16 * stages + 8;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One TMA copy of a box of the 5-D tensor map into shared memory,
+// completing on the barrier.
+__device__ __forceinline__ void tma_load_5d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr));
+}
+
+// One bulk copy of `bytes` (a multiple of 16) contiguous bytes into shared
+// memory, completing on the barrier.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Descriptor of a B slab at shared address `addr`: no swizzle, K-major.
+__device__ __forceinline__ uint64_t slab_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(LBO >> 4) << 16) |
+         (static_cast<uint64_t>(SBO >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most `pending` commit groups are still running.
+template <int pending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(pending)
+               : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators
+// across the asynchronous products.
+__device__ __forceinline__ void fence_acc(float (&d)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d += A (registers, 64 x 16 bf16) * B (slab descriptor, 16 x 32 bf16).
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// Epilogue of output depth od from the accumulators a[r] of this
+// warpgroup's rows: fragment element (row g or g + 8, column 8j + 2t, +1)
+// of d[4j ..] for g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void store_depth(
+    float (&a)[2][16], __nv_bfloat16* __restrict__ out,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    const Geometry& g, int b, int od, int y0, int x0, int co0, int wg,
+    int warp, int lane) {
+  const long long vox = static_cast<long long>(g.P) * g.Co;
+  const long long plane = (static_cast<long long>(b) * g.R + od / g.P) * g.H;
+  const int slot = (od % g.P) * g.Co;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int yy = y0 + wg * 2 + r;
+    if (yy >= g.H) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int xx = x0 + warp * 16 + (lane >> 2) + 8 * h;
+      if (xx >= g.W) continue;
+      __nv_bfloat16* const o = out + ((plane + yy) * g.W + xx) * vox + slot;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const int co = co0 + 8 * j + 2 * (lane & 3);
+        if (co >= g.Co) continue;             // Co % 8 == 0: both or none
+        float v0 = fmaf(a[r][4 * j + 2 * h], scale[slot + co], bias[slot + co]);
+        float v1 = fmaf(a[r][4 * j + 2 * h + 1], scale[slot + co + 1],
+                        bias[slot + co + 1]);
+        if (g.relu) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(o + co) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    }
+  }
+}
+
+// The block. NACC = 3: K5's order (a chunk of dc output depths, three
+// accumulators); NACC = 1: K4's (dc = 1). Block index, fastest first:
+// depth chunk, batch item, W tile, H tile, Cout tile.
+template <int CK, int NACC>
+__global__ void __launch_bounds__(THREADS, 1)
+conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                    const __nv_bfloat16* __restrict__ w,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ bias,
+                    __nv_bfloat16* __restrict__ out, const Geometry g) {
+  static_assert(CK == 16 || CK == 32 || CK == 64, "CK: 16, 32 or 64");
+  constexpr int STAGE = HR * HC * CK * 2;           // bytes of one stage
+  constexpr int STRIDE = stage_bytes(CK);
+  constexpr int KS = CK / 16;                       // k16 steps per stage
+  constexpr int SWZ = CK / 8 - 1;                   // swizzle row mask
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t wsm = (raw + ALIGN - 1) & ~static_cast<uint32_t>(ALIGN - 1);
+  const int ci16 = g.Ci / 16;                       // slabs per tap
+  const uint32_t halo = wsm + weight_bytes(g.Ci);
+  // full barriers, then empty ones, then the weights'
+  const uint32_t bars = halo + g.stages * STRIDE;
+
+  int idx = blockIdx.x;
+  const int chunk = idx % g.chunks; idx /= g.chunks;
+  const int b = idx % g.B; idx /= g.B;
+  const int x0 = (idx % g.tiles_w) * TW; idx /= g.tiles_w;
+  const int y0 = (idx % g.tiles_h) * TH; idx /= g.tiles_h;
+  const int co0 = idx * N;
+  const int D = g.R * g.P;
+  const int d0 = chunk * g.dc;                      // outputs d0 .. d1 - 1
+  const int d1 = min(d0 + g.dc, D);
+  const int zs = max(d0 - 1, 0);                    // input planes zs .. ze
+  const int ze = min(d1, D - 1);
+  const int slices = g.Ci / CK;
+  const int steps = (ze - zs + 1) * slices;
+  const int t = threadIdx.x;
+
+  // thread 0 keeps the ring full: the first stages now, beside the
+  // weights' copy, each later one as soon as every thread has read the
+  // stage before it from its slot
+  auto load_stage = [&](int s) {
+    const int slot = s % g.stages;
+    const int z = zs + s / slices;
+    mbar_expect_tx(bars + 8 * slot, STAGE);
+    tma_load_5d(halo + slot * STRIDE, &xmap, bars + 8 * slot,
+                (z % g.P) * g.Ci + (s % slices) * CK, x0 - 1, y0 - 1, z / g.P,
+                b);
+  };
+  const uint32_t wbar = bars + 16 * g.stages;       // the weights' barrier
+  const int wbytes = 27 * g.Ci * N * 2;
+  if (t == 0) {
+    for (int s = 0; s < g.stages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (g.stages + s), THREADS);
+    }
+    mbar_init(wbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // the block's Cout tile of the weight image, one bulk copy
+    mbar_expect_tx(wbar, wbytes);
+    bulk_load(wsm, w + static_cast<long long>(co0 / N) * (wbytes / 2),
+              wbytes, wbar);
+    for (int s = 0; s < min(g.stages, steps); ++s) load_stage(s);
+  }
+  __syncthreads();                                  // barriers initialised
+
+  // warpgroup wg owns block rows 2 wg and 2 wg + 1
+  const int wg = t / 128;
+  const int warp = (t / 32) % 4;
+  const int lane = t % 32;
+  // this lane's ldmatrix row (A row m) and 16-byte half of a k16 step
+  const int m = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int half = lane >> 4;
+
+  float acc[NACC][2][16];
+#pragma unroll
+  for (int j = 0; j < NACC; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[j][r][i] = 0.f;
+
+  mbar_wait(wbar, 0);
+  for (int s = 0; s < steps; ++s) {
+    // step s - 1's slot is free once all threads have read it: refill it
+    // with step s - 1 + stages
+    if (t == 0 && s > 0 && s - 1 + g.stages < steps) {
+      mbar_wait(bars + 8 * (g.stages + (s - 1) % g.stages),
+                ((s - 1) / g.stages) & 1);
+      load_stage(s - 1 + g.stages);
+    }
+    const int slot = s % g.stages;
+    const int z = zs + s / slices;
+    const int sl = s % slices;
+    // depth tap feeding each accumulator from plane z (-1: none); uniform
+    // over the block. K5: acc[j] sums output z - 1 + j; K4: output d0.
+    int dd[NACC];
+#pragma unroll
+    for (int j = 0; j < NACC; ++j) {
+      const int o = NACC == 1 ? d0 : z - 1 + j;
+      dd[j] = (o >= d0 && o < d1) ? z - o + 1 : -1;
+    }
+    mbar_wait(bars + 8 * slot, (s / g.stages) & 1);
+    const uint32_t hs = halo + slot * STRIDE;
+    // the A fragments of tap `tap`, both rows, all k16 steps of the stage
+    auto load_a = [&](uint32_t (&a)[KS][2][4], int tap) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int pos = (wg * 2 + r + tap / 3) * HC + m + tap % 3;
+          uint32_t off = pos * (CK * 2) + (2 * ks + half) * 16;
+          off ^= ((off >> 7) & SWZ) << 4;             // TMA's swizzle
+          ldmatrix_x4(a[ks][r], hs + off);
+        }
+    };
+    // one commit group per (dh, dw) tap; the next tap's fragments are read
+    // into the other buffer while this tap's products run
+    uint32_t a[2][KS][2][4];
+    load_a(a[0], 0);
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < NACC; ++j) {
+        if (dd[j] < 0) continue;
+        const uint32_t slab0 =
+            wsm + ((dd[j] * 9 + tap) * ci16 + sl * KS) * SLAB;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          const uint64_t desc = slab_desc(slab0 + ks * SLAB);
+          wgmma_m64n32k16(acc[j][0], a[tap % 2][ks][0], desc);
+          wgmma_m64n32k16(acc[j][1], a[tap % 2][ks][1], desc);
+        }
+      }
+      wgmma_commit();
+      if (tap < 8) {
+        wgmma_wait<1>();          // tap - 1's group, the other buffer's reader
+        load_a(a[(tap + 1) % 2], tap + 1);
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < NACC; ++j) {
+      fence_acc(acc[j][0]);
+      fence_acc(acc[j][1]);
+    }
+    mbar_arrive(bars + 8 * (g.stages + slot));      // stage read
+    if constexpr (NACC == 3) {
+      if (sl == slices - 1) {
+        // plane z consumed: output z - 1 is complete
+        if (z - 1 >= d0)
+          store_depth(acc[0], out, scale, bias, g, b, z - 1, y0, x0, co0, wg,
+                      warp, lane);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            acc[0][r][i] = acc[1][r][i];
+            acc[1][r][i] = acc[2][r][i];
+            acc[2][r][i] = 0.f;
+          }
+      }
+    }
+  }
+  // K4: output d0; K5: the last plane was D - 1 < d1, so output D - 1
+  // (now in acc[0]) had no plane after it
+  if (NACC == 1 || ze < d1)
+    store_depth(acc[0], out, scale, bias, g, b, NACC == 1 ? d0 : ze, y0, x0,
+                co0, wg, warp, lane);
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
+// (no link against libcuda).
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// Error codes beside CUDA's: no entry point found, or the tensor map
+// refused (1000 + the CUresult).
+constexpr int NO_ENCODE = 999;
+
+template <int CK, int NACC>
+int launch_ck(const __nv_bfloat16* x, const __nv_bfloat16* w,
+              const float* scale, const float* bias, __nv_bfloat16* out,
+              const Geometry& g, int blocks, int smem, cudaStream_t stream) {
+  // a plan whose shared memory is short of what the block addresses would
+  // put the barriers outside the allocation
+  if (g.Ci % CK != 0 || g.stages < 1 || smem < smem_bytes(g.Ci, CK, g.stages)
+      || smem > MAX_SMEM)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return NO_ENCODE;
+  // the packed volume, innermost first: channels, W, H, packed rows, batch
+  const cuuint64_t vox = static_cast<cuuint64_t>(g.P) * g.Ci;
+  const cuuint64_t dims[5] = {vox, static_cast<cuuint64_t>(g.W),
+                              static_cast<cuuint64_t>(g.H),
+                              static_cast<cuuint64_t>(g.R),
+                              static_cast<cuuint64_t>(g.B)};
+  const cuuint64_t strides[4] = {vox * 2, vox * 2 * g.W, vox * 2 * g.W * g.H,
+                                 vox * 2 * g.W * g.H * g.R};
+  const cuuint32_t box[5] = {CK, HC, HR, 1, 1};
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      CK == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+               : (CK == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B);
+  CUtensorMap map;
+  const CUresult res = encode(
+      &map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5,
+      const_cast<__nv_bfloat16*>(x), dims, strides, box, ones,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (res != CUDA_SUCCESS) return 1000 + static_cast<int>(res);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      conv3d_wgmma_kernel<CK, NACC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  conv3d_wgmma_kernel<CK, NACC><<<blocks, THREADS, smem, stream>>>(
+      map, w, scale, bias, out, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch with the channel slice ck (16, 32 or 64) of the plan.
+template <int NACC>
+int launch(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* scale,
+           const float* bias, __nv_bfloat16* out, const Geometry& g, int ck,
+           int blocks, int smem, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (ck) {
+    case 64:
+      return launch_ck<64, NACC>(x, w, scale, bias, out, g, blocks, smem, s);
+    case 32:
+      return launch_ck<32, NACC>(x, w, scale, bias, out, g, blocks, smem, s);
+    case 16:
+      return launch_ck<16, NACC>(x, w, scale, bias, out, g, blocks, smem, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Registers a thread of the block with channel slice ck, as ptxas gave
+// them; minus the CUDA error code when they cannot be read.
+template <int NACC>
+int registers(int ck) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (ck) {
+    case 64: err = cudaFuncGetAttributes(&a, conv3d_wgmma_kernel<64, NACC>);
+      break;
+    case 32: err = cudaFuncGetAttributes(&a, conv3d_wgmma_kernel<32, NACC>);
+      break;
+    case 16: err = cudaFuncGetAttributes(&a, conv3d_wgmma_kernel<16, NACC>);
+      break;
+  }
+  return err == cudaSuccess ? a.numRegs : -static_cast<int>(err);
+}
+
+}  // namespace conv3d_wgmma

@@ -1,7 +1,7 @@
 // 3x3x3 stride-1 SAME conv3d on the D-packed volume layout, with a fused
-// per-packed-channel scale/bias (+ReLU) epilogue: float32 in and out
-// (packed_conv3d_f32), or bfloat16 operands and output with float32 sums and
-// epilogue (packed_conv3d_bf16).
+// per-packed-channel scale/bias (+ReLU) epilogue: float32 in and out on the
+// CUDA cores (packed_conv3d_f32), or bfloat16 operands and output on the
+// tensor cores with float32 sums and epilogue (packed_conv3d_bf16).
 //
 // Replaces the TPU kernel densematchingbenchmark_tpu/ops/pallas/
 // packed_conv3d_kernel.py::conv3d_packed_s1_pallas (body _kernel, launched
@@ -10,59 +10,80 @@
 // P = pack (pack 1 is plain NDHWC); the output is packed the same way.
 //
 // The TPU kernel widens its lanes by packing depth into channels and pays
-// for it with a windowed weight matrix; on the CUDA cores lane width costs
-// nothing, so this kernel does only the true MACs with K1's implicit-GEMM
-// block (conv3d_tile::run, which says what bounds it and how the design
-// meets it) and takes the packing as addressing: input depth z at packed
-// row z / P, slot z % P, output depth d at row d / P, slot d % P, the
-// epilogue's scale and bias by the same packed channel.
+// for it with a windowed weight matrix; on Hopper lane width costs nothing,
+// so both routes do only the true MACs and take the packing as addressing:
+// input depth z at packed row z / P, slot z % P, output depth d at row
+// d / P, slot d % P, the epilogue's scale and bias by the same packed
+// channel.
+// - float32: K1's implicit-GEMM block on the CUDA cores (conv3d_tile::run,
+//   which says what bounds it and how the design meets it).
+// - bfloat16: the wgmma block of conv3d_wgmma.cuh in K4's order, one output
+//   depth per block with its three input planes staged through the TMA
+//   ring; the launch plan (ops/cuda/packed_conv3d_kernel.py::wgmma_plan)
+//   puts depth fastest in the grid, so the blocks of neighbouring depths of
+//   one H / W tile run together and each plane's second and third reads
+//   come from L2 rather than HBM (at the microbench's full-resolution cases
+//   three HBM reads would cost 0.110 and 0.192 ms, above the operation
+//   bounds of 0.080 and 0.161 ms). conv3d_wgmma.cuh says what bounds it.
 
 #include "conv3d_tile.cuh"
+#include "conv3d_wgmma.cuh"
 
 namespace {
 
-template <typename T>
 __global__ void __launch_bounds__(conv3d_tile::NT)
-packed_conv3d_kernel(const T* __restrict__ x, const T* __restrict__ w,
+packed_conv3d_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      const float* __restrict__ scale,
-                     const float* __restrict__ bias, T* __restrict__ out,
+                     const float* __restrict__ bias, float* __restrict__ out,
                      int R, int P, int H, int W, int Cin, int Cout,
                      int relu) {
   conv3d_tile::run(x, w, scale, bias, out, R, P, H, W, Cin, Cout, relu);
 }
 
-template <typename T>
-int launch(const T* x, const T* w, const float* scale, const float* bias,
-           T* out, int B, int R, int P, int H, int W, int Cin, int Cout,
-           int relu, void* stream) {
-  packed_conv3d_kernel<T><<<conv3d_tile::grid(B, R * P, H, W, Cout),
-                            conv3d_tile::NT, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      x, w, scale, bias, out, R, P, H, W, Cin, Cout, relu);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // xp [B, R, H, W, P*Cin], w [3, 3, 3, Cin, Cout] (true, unpacked), out
-// [B, R, H, W, P*Cout], all of one type (float32 or bfloat16); scale / bias
-// [P*Cout] float32; all contiguous, 16-byte aligned, with Cin % 4 == 0,
-// Cout % 4 == 0 and B * R * P <= 65535 (checked by the caller). Returns the
-// CUDA error code of the launch (0 on success).
+// [B, R, H, W, P*Cout], all float32; scale / bias [P*Cout] float32; all
+// contiguous, 16-byte aligned, with Cin % 4 == 0, Cout % 4 == 0 and
+// B * R * P <= 65535 (checked by the caller). Returns the CUDA error code of
+// the launch (0 on success).
 extern "C" int packed_conv3d_f32(const float* x, const float* w,
                                  const float* scale, const float* bias,
                                  float* out, int B, int R, int P, int H,
                                  int W, int Cin, int Cout, int relu,
                                  void* stream) {
-  return launch(x, w, scale, bias, out, B, R, P, H, W, Cin, Cout, relu,
-                stream);
+  packed_conv3d_kernel<<<conv3d_tile::grid(B, R * P, H, W, Cout),
+                         conv3d_tile::NT, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      x, w, scale, bias, out, R, P, H, W, Cin, Cout, relu);
+  return static_cast<int>(cudaGetLastError());
 }
 
+// The same function in bfloat16 (x, out, and w as the wrapper's
+// shared-memory image of the kernel, ops/cuda/packed_conv3d_kernel.py::
+// wgmma_weights), on the tensor cores, with the caller's launch plan:
+// channel slice ck, ring stages, tiles, blocks and dynamic shared memory
+// bytes (one output depth per block). Needs Cin % 16 == 0, Cout % 8 == 0
+// and 16-byte aligned operands (checked by the caller). Returns the CUDA
+// error code of the launch (cudaErrorInvalidValue, launching nothing, when
+// smem is short of the block's layout), or 999 / 1000 + the CUresult when
+// the TMA tensor map cannot be made.
 extern "C" int packed_conv3d_bf16(const __nv_bfloat16* x,
                                   const __nv_bfloat16* w, const float* scale,
                                   const float* bias, __nv_bfloat16* out,
                                   int B, int R, int P, int H, int W, int Cin,
-                                  int Cout, int relu, void* stream) {
-  return launch(x, w, scale, bias, out, B, R, P, H, W, Cin, Cout, relu,
-                stream);
+                                  int Cout, int relu, int ck, int stages,
+                                  int tiles_h, int tiles_w, int blocks,
+                                  int smem, void* stream) {
+  const conv3d_wgmma::Geometry g{B, R, P, H, W, Cin, Cout, relu,
+                                 1, R * P, tiles_h, tiles_w, stages};
+  return conv3d_wgmma::launch<1>(x, w, scale, bias, out, g, ck, blocks, smem,
+                                 stream);
+}
+
+// Registers a thread of the packed_conv3d_bf16 kernel of channel slice ck
+// (16, 32 or 64), for the launch plan's residency; minus the CUDA error
+// code when they cannot be read.
+extern "C" int packed_conv3d_bf16_regs(int ck) {
+  return conv3d_wgmma::registers<1>(ck);
 }

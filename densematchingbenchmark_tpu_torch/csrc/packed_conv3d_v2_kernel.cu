@@ -1,7 +1,11 @@
 // K5: 3x3x3 stride-1 SAME conv3d on the D-packed volume layout with a fused
 // per-packed-channel scale/bias (+ReLU) epilogue, walking depth inside the
-// block: float32 in and out (packed_conv3d_v2_f32), or bfloat16 operands and
-// output with float32 sums and epilogue (packed_conv3d_v2_bf16).
+// block: float32 in and out on the CUDA cores (packed_conv3d_v2_f32, the
+// kernel below), or bfloat16 operands and output on the tensor cores with
+// float32 sums and epilogue (packed_conv3d_v2_bf16: the wgmma block of
+// conv3d_wgmma.cuh in K5's order, three accumulators fed by each plane of
+// a depth chunk staged once through the TMA ring; that header says what
+// bounds it and how the design meets it).
 //
 // Replaces the TPU kernel densematchingbenchmark_tpu/ops/pallas/
 // packed_conv3d_kernel.py::conv3d_packed_s1_pallas_v2 (body _kernel_v2,
@@ -26,10 +30,11 @@
 // prefetch. The packing is addressing, as in K4: input depth z at packed
 // row z / P, slot z % P.
 //
-// What bounds it on an H100: arithmetic, as K4 (conv3d_tile.cuh): 2*27*Cin*
-// Cout flops per output voxel on the CUDA cores (67 TFLOP/s float32). The
-// ring's saving is traffic, which does not bound this route, so K5 is
-// expected near K4's time; bfloat16 halves the bytes but not the FMAs.
+// What bounds the float32 route on an H100: arithmetic, as K4
+// (conv3d_tile.cuh): 2*27*Cin*Cout flops per output voxel on the CUDA cores
+// (67 TFLOP/s float32). The ring's saving is traffic, which does not bound
+// this route; it does bound the bfloat16 one, whose products run on the
+// tensor cores.
 //
 // Design choices against the three limits of this card:
 // (a) Occupancy. Taking depth off the grid leaves few blocks (the 64->64
@@ -47,13 +52,10 @@
 //     case dc = 12 (240 blocks, one wave, where dc = 8 leaves a second
 //     wave of 96 blocks).
 // (b) Shared memory. One stage is 6*34*8 halo values + 27*8*32 weights: 33.4
-//     KB in float32, 16.7 KB in bfloat16; two stages need 66.8 KB / 33.4 KB,
-//     above the 48 KB of static shared memory, so it is dynamic shared memory
-//     with cudaFuncSetAttribute. Operands stay in their own type in shared
-//     memory (cp.async copies, it does not convert) and become float32 in
-//     registers. A thread reads 8 channels of a halo position in one
-//     16-byte (bf16) or two 16-byte (f32) loads, so no bank padding is
-//     needed.
+//     KB; two stages need 66.8 KB, above the 48 KB of static shared
+//     memory, so it is dynamic shared memory with cudaFuncSetAttribute. A
+//     thread reads 8 channels of a halo position in two 16-byte loads, so
+//     no bank padding is needed.
 // (c) Registers. Three accumulators of 4 rows x 8 channels (96) beside 4 x 8
 //     staged inputs and the weights that the compiler loads ahead: ptxas
 //     gives 255 registers and no spills, so 2 blocks (8 warps) per SM; a
@@ -62,11 +64,10 @@
 // H, W, Cin and Cout edges are masked.
 
 #include "conv3d_tile.cuh"
+#include "conv3d_wgmma.cuh"
 
 namespace {
 
-using conv3d_tile::bf16_hi;
-using conv3d_tile::bf16_lo;
 using conv3d_tile::load4;
 using conv3d_tile::store4;
 
@@ -81,14 +82,13 @@ constexpr int HC = TW + 2;       // halo columns
 constexpr int HALO = HR * HC * CK;         // values per stage: halo
 constexpr int STAGE = HALO + 27 * CK * CO_B;   // halo + weights
 
-template <typename T>
-constexpr int smem_bytes() { return 2 * STAGE * static_cast<int>(sizeof(T)); }
+constexpr int SMEM_BYTES = 2 * STAGE * static_cast<int>(sizeof(float));
 
-// 4 values of T from global to shared memory, asynchronously; zeros where
-// !valid (nothing is read then).
-template <typename T>
-__device__ __forceinline__ void cp_async4(T* dst, const T* src, bool valid) {
-  constexpr int N = 4 * sizeof(T);
+// 4 float32 values from global to shared memory, asynchronously; zeros
+// where !valid (nothing is read then).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  constexpr int N = 4 * sizeof(float);
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
                "l"(src), "n"(N), "r"(valid ? N : 0)
@@ -103,7 +103,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// 8 consecutive values of shared memory (16- / 32-byte aligned) as float32.
+// 8 consecutive float32 values of shared memory (32-byte aligned).
 __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
@@ -111,20 +111,11 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  v[0] = bf16_lo(u.x); v[1] = bf16_hi(u.x);
-  v[2] = bf16_lo(u.y); v[3] = bf16_hi(u.y);
-  v[4] = bf16_lo(u.z); v[5] = bf16_hi(u.z);
-  v[6] = bf16_lo(u.w); v[7] = bf16_hi(u.w);
-}
-
 // Epilogue of one output depth d's sums a (this thread's column xx, rows
 // y0 .., channels co0 + cg * CO_T ..): out = a * scale + bias per packed
-// channel, optional ReLU, stored in the output type.
-template <typename T>
+// channel, optional ReLU.
 __device__ __forceinline__ void store_depth(
-    const float (&a)[TH][CO_T], T* __restrict__ out,
+    const float (&a)[TH][CO_T], float* __restrict__ out,
     const float* __restrict__ scale, const float* __restrict__ bias, int d,
     int b, int R, int P, int H, int W, int Cout, int y0, int xx, int co0,
     int cg, int relu) {
@@ -162,9 +153,9 @@ __device__ __forceinline__ void store_depth(
 // does depth tap ONLY alone (a halo plane of the chunk, whose other taps
 // feed outputs outside it); a compile-time choice, so the unrolled FMAs
 // carry no branch.
-template <int ONLY, typename T>
-__device__ __forceinline__ void compute_stage(const T* __restrict__ hs,
-                                              const T* __restrict__ ws,
+template <int ONLY>
+__device__ __forceinline__ void compute_stage(const float* __restrict__ hs,
+                                              const float* __restrict__ ws,
                                               float (&acc)[3][TH][CO_T],
                                               int vx, int cg) {
 #pragma unroll 1
@@ -192,15 +183,16 @@ __device__ __forceinline__ void compute_stage(const T* __restrict__ hs,
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(NT)
-packed_conv3d_v2_kernel(const T* __restrict__ x, const T* __restrict__ w,
+packed_conv3d_v2_kernel(const float* __restrict__ x,
+                        const float* __restrict__ w,
                         const float* __restrict__ scale,
-                        const float* __restrict__ bias, T* __restrict__ out,
+                        const float* __restrict__ bias,
+                        float* __restrict__ out,
                         int R, int P, int H, int W, int Cin, int Cout,
                         int relu, int dc, int chunks) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const smem = reinterpret_cast<T*>(smem_raw);
+  float* const smem = reinterpret_cast<float*>(smem_raw);
 
   const int D = R * P;                          // true depth
   const int t = threadIdx.x;
@@ -224,10 +216,10 @@ packed_conv3d_v2_kernel(const T* __restrict__ x, const T* __restrict__ w,
   auto load_stage = [&](int s) {
     const int z = zs + s / slices;
     const int c0 = (s % slices) * CK;
-    T* const hs = smem + (s & 1) * STAGE;
-    T* const ws = hs + HALO;
+    float* const hs = smem + (s & 1) * STAGE;
+    float* const ws = hs + HALO;
     const long long plane = ((long long)b * R + z / P) * H;
-    const T* const xs = x + (z % P) * Cin;
+    const float* const xs = x + (z % P) * Cin;
     for (int e = t; e < HR * HC * (CK / 4); e += NT) {
       const int q = e % (CK / 4);
       const int pos = e / (CK / 4);
@@ -266,7 +258,7 @@ packed_conv3d_v2_kernel(const T* __restrict__ x, const T* __restrict__ w,
     cp_async_wait_all();
     __syncthreads();      // stage s landed for all; stage s - 1 is read
     if (s + 1 < steps) load_stage(s + 1);
-    const T* const hs = smem + (s & 1) * STAGE;
+    const float* const hs = smem + (s & 1) * STAGE;
     const int z = zs + s / slices;
     // the halo planes d0 - 1 and d1 feed one output of the chunk each;
     // planes d0 and d1 - 1 feed one output outside it, whose sums are
@@ -319,14 +311,21 @@ inline int depth_chunk(int D, long long tiles, int slots) {
   return best;
 }
 
-template <typename T>
-int launch(const T* x, const T* w, const float* scale, const float* bias,
-           T* out, int B, int R, int P, int H, int W, int Cin, int Cout,
-           int relu, void* stream) {
-  constexpr int bytes = smem_bytes<T>();
+}  // namespace
+
+// xp [B, R, H, W, P*Cin], w [3, 3, 3, Cin, Cout] (true, unpacked), out
+// [B, R, H, W, P*Cout], all float32; scale / bias [P*Cout] float32; all
+// contiguous, 16-byte aligned, with Cin % 4 == 0, Cout % 4 == 0 and
+// B * R * P <= 65535 (checked by the caller).
+// Returns the CUDA error code of the launch (0 on success).
+extern "C" int packed_conv3d_v2_f32(const float* x, const float* w,
+                                    const float* scale, const float* bias,
+                                    float* out, int B, int R, int P, int H,
+                                    int W, int Cin, int Cout, int relu,
+                                    void* stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      packed_conv3d_v2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      packed_conv3d_v2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   // resident blocks on the card: SMs x blocks per SM (registers bound it)
   static int slots = 0;
@@ -335,7 +334,7 @@ int launch(const T* x, const T* w, const float* scale, const float* bias,
     cudaGetDevice(&device);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, packed_conv3d_v2_kernel<T>, NT, bytes);
+        &per_sm, packed_conv3d_v2_kernel, NT, SMEM_BYTES);
     slots = sms * per_sm > 0 ? sms * per_sm : 1;
   }
   const int D = R * P;
@@ -346,34 +345,38 @@ int launch(const T* x, const T* w, const float* scale, const float* bias,
   const int chunks = (D + dc - 1) / dc;
   const dim3 grid(((H + TH - 1) / TH) * ((W + TW - 1) / TW), B * chunks,
                   (Cout + CO_B - 1) / CO_B);
-  packed_conv3d_v2_kernel<T><<<grid, NT, bytes,
-                               static_cast<cudaStream_t>(stream)>>>(
+  packed_conv3d_v2_kernel<<<grid, NT, SMEM_BYTES,
+                            static_cast<cudaStream_t>(stream)>>>(
       x, w, scale, bias, out, R, P, H, W, Cin, Cout, relu, dc, chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// xp [B, R, H, W, P*Cin], w [3, 3, 3, Cin, Cout] (true, unpacked), out
-// [B, R, H, W, P*Cout], all of one type (float32 or bfloat16); scale / bias
-// [P*Cout] float32; all contiguous, 16-byte aligned, with Cin % 4 == 0,
-// Cout % 4 == 0 and B * R * P <= 65535 (checked by the caller).
-// Returns the CUDA error code of the launch (0 on success).
-extern "C" int packed_conv3d_v2_f32(const float* x, const float* w,
-                                    const float* scale, const float* bias,
-                                    float* out, int B, int R, int P, int H,
-                                    int W, int Cin, int Cout, int relu,
-                                    void* stream) {
-  return launch(x, w, scale, bias, out, B, R, P, H, W, Cin, Cout, relu,
-                stream);
-}
-
+// The same function in bfloat16 (x, out, and w as the wrapper's
+// shared-memory image of the kernel, ops/cuda/packed_conv3d_kernel.py::
+// wgmma_weights), on the tensor cores, with the caller's launch plan:
+// channel slice ck, ring stages, depth chunk dc and chunks, tiles, blocks
+// and dynamic shared memory bytes. Needs Cin % 16 == 0, Cout % 8 == 0 and
+// 16-byte aligned operands (checked by the caller).
+// Returns the CUDA error code of the launch (cudaErrorInvalidValue,
+// launching nothing, when smem is short of the block's layout), or 999 /
+// 1000 + the CUresult when the TMA tensor map cannot be made.
 extern "C" int packed_conv3d_v2_bf16(const __nv_bfloat16* x,
                                      const __nv_bfloat16* w,
                                      const float* scale, const float* bias,
                                      __nv_bfloat16* out, int B, int R, int P,
                                      int H, int W, int Cin, int Cout,
-                                     int relu, void* stream) {
-  return launch(x, w, scale, bias, out, B, R, P, H, W, Cin, Cout, relu,
-                stream);
+                                     int relu, int ck, int stages, int dc,
+                                     int chunks, int tiles_h, int tiles_w,
+                                     int blocks, int smem, void* stream) {
+  const conv3d_wgmma::Geometry g{B, R, P, H, W, Cin, Cout, relu,
+                                 dc, chunks, tiles_h, tiles_w, stages};
+  return conv3d_wgmma::launch<3>(x, w, scale, bias, out, g, ck, blocks, smem,
+                                 stream);
+}
+
+// Registers a thread of the packed_conv3d_v2_bf16 kernel of channel slice ck
+// (16, 32 or 64), for the launch plan's residency; minus the CUDA error
+// code when they cannot be read.
+extern "C" int packed_conv3d_v2_bf16_regs(int ck) {
+  return conv3d_wgmma::registers<3>(ck);
 }

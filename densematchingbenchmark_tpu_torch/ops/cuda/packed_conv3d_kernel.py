@@ -6,17 +6,28 @@ ops/pallas/packed_conv3d_kernel.py::conv3d_packed_s1_pallas (forward
 ``_forward`` / ``_kernel``, custom VJP ``_pallas_vjp``): the stride-1 conv of
 the 13 trunk units of PSMNet's aggregator in training (pack 1, float32, 13
 launches per train step) and the v1 row of the packed-conv microbench
-(tools/microbench_packed.py, pack 4). Hopper kernel:
-``csrc/packed_conv3d_kernel.cu`` (CUDA C++, sm_90a), its own kernel and
-launch counter around K1's implicit-GEMM block (``csrc/conv3d_tile.cuh``)
-with the packed layout as addressing; the note there says what bounds it and
-how the design meets it.
+(tools/microbench_packed.py, pack 4). Hopper kernels
+(``csrc/packed_conv3d_kernel.cu``, CUDA C++, sm_90a), the packed layout as
+addressing in both: float32 on K1's implicit-GEMM block on the CUDA cores
+(``csrc/conv3d_tile.cuh``), bfloat16 on the tensor cores (``wgmma`` fed by
+a TMA ring, ``csrc/conv3d_wgmma.cuh``), one output depth per block.
 
 ``conv3d_packed_s1_v2`` (K5) replaces ``conv3d_packed_s1_pallas_v2`` (body
 ``_kernel_v2``, the rolling-DMA ring): the same function, forward only, as
-in JAX; its only caller is the microbench. Hopper kernel:
-``csrc/packed_conv3d_v2_kernel.cu``, which walks depth inside the block so
-that each input plane is staged once per H / W tile (its note says how).
+in JAX; its only caller is the microbench. Hopper kernels
+(``csrc/packed_conv3d_v2_kernel.cu``) walk depth inside the block so that
+each input plane is staged once per H / W tile: float32 on the CUDA cores,
+bfloat16 on the same ``wgmma`` block as K4's, with three accumulators.
+
+The route is picked by dtype alone. The bfloat16 route needs Ci % 16 == 0
+and Co % 8 == 0 (``wgmma``'s k16 steps, 8-channel core matrices) and
+Ci <= 112 (its weights and two ring stages in shared memory); a bfloat16
+CUDA tensor of another width raises. Its kernel operand is the weights'
+shared-memory image (``wgmma_weights``, built per call); ``wgmma_plan``
+computes its launch (channel slice, ring stages, depth chunk, grid, shared
+memory) from the shapes and the kernel's registers a thread, which the
+library reports as ptxas gave them. The kernel refuses a plan whose shared
+memory is short of its layout.
 
 Both take float32 or bfloat16 ``xp`` and return ``xp.dtype``, as JAX's
 contract: the kernel is cast to ``xp.dtype`` first (weights rounded once, as
@@ -45,18 +56,125 @@ from ..conv3d import pack_volume, unpack_volume
 from . import _build
 from .conv3d_kernel import conv3d_plain
 
-_SIGNATURE = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
-              ctypes.c_int)
 _TYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# wrapper name -> (library, symbol prefix)
-_LIBRARIES = {"conv3d_packed_s1": ("packed_conv3d_kernel", "packed_conv3d"),
+# the launch plan's ints after the shapes: K4 and K5 in bfloat16
+_PLAN_ARGS = {"K4": ("ck", "stages", "tiles_h", "tiles_w", "blocks", "smem"),
+              "K5": ("ck", "stages", "dc", "chunks", "tiles_h", "tiles_w",
+                     "blocks", "smem")}
+_POINTERS = [ctypes.c_void_p] * 5
+_SHAPES = [ctypes.c_int] * 8
+# wrapper name -> (library, symbol prefix, order of the bfloat16 block)
+_LIBRARIES = {"conv3d_packed_s1": ("packed_conv3d_kernel", "packed_conv3d",
+                                   "K4"),
               "conv3d_packed_s1_v2": ("packed_conv3d_v2_kernel",
-                                      "packed_conv3d_v2")}
+                                      "packed_conv3d_v2", "K5")}
+
+# The bfloat16 block (csrc/conv3d_wgmma.cuh): output rows, columns and
+# channels per block, threads (two warpgroups), the dynamic shared memory a
+# block may have, what an SM has (1 KB of it kept per resident block), and
+# K5's depth chunks.
+WGMMA_TH, WGMMA_TW, WGMMA_N = 4, 64, 32
+WGMMA_THREADS = 256
+SMEM_PER_BLOCK = 232448
+SMEM_PER_SM = 233472
+DEPTH_CHUNKS = (16, 12, 8, 6, 4)
+# (symbol prefix, channel slice) -> registers a thread of that bf16 kernel
+_REGISTERS = {}
+
+
+def _round_up(v, m):
+    return -(-v // m) * m
+
+
+def check_wgmma_widths(ci, co, what="bfloat16 route"):
+    """Raise unless the bfloat16 (``wgmma``) route takes Ci and Co."""
+    if ci % 16 or co % 8:
+        raise ValueError(f"{what}: Cin {ci} must be a multiple of 16 and "
+                         f"Cout {co} a multiple of 8 (wgmma k16 steps, "
+                         "8-channel core matrices)")
+    if _wgmma_smem(ci, 2) > SMEM_PER_BLOCK:
+        raise ValueError(f"{what}: Cin {ci} above 112 (the weights and two "
+                         "ring stages exceed shared memory)")
+
+
+def _wgmma_ck(ci):
+    """Input channels per ring stage: one TMA box of 32, 64 or 128 bytes."""
+    return 64 if ci % 64 == 0 else 32 if ci % 32 == 0 else 16
+
+
+def _wgmma_smem(ci, stages):
+    """Dynamic shared memory of a block, as the kernel lays it out
+    (``smem_bytes`` in csrc/conv3d_wgmma.cuh, which refuses less): 1 KB of
+    alignment slack, the weights (27 * Ci x N bf16), ``stages`` halo tiles
+    of (TH + 2) x (TW + 2) x CK bf16, each 1 KB aligned, two mbarriers a
+    stage and the weights' one."""
+    stage = (WGMMA_TH + 2) * (WGMMA_TW + 2) * _wgmma_ck(ci) * 2
+    return (1024 + _round_up(27 * ci * WGMMA_N * 2, 1024)
+            + stages * _round_up(stage, 1024) + 16 * stages + 8)
+
+
+def wgmma_weights(kernel, cout_tiles):
+    """The kernel [3, 3, 3, Ci, Co] as the bfloat16 block's shared-memory
+    image of its weights, one per Cout tile of N channels: [cout_tiles, 27
+    taps, Ci / 16 slabs, N / 8, 2, 8, 8], a slab being the 16 input
+    channels of one tap as N / 8 x 2 core matrices (8 output channels x 8
+    input channels, input channel fastest), the wgmma B operand's no-swizzle
+    K-major layout; channels past Co are zero."""
+    ci, co = kernel.shape[-2:]
+    k = F.pad(kernel.reshape(27, ci, co), (0, cout_tiles * WGMMA_N - co))
+    return k.view(27, ci // 16, 2, 8, cout_tiles, WGMMA_N // 8, 8).permute(
+        4, 0, 1, 5, 2, 6, 3).contiguous()
+
+
+def wgmma_plan(order, b, r, pack, h, w, ci, co, sms, regs):
+    """Launch plan of the bfloat16 block for ``order`` "K4" (one output
+    depth per block, depth fastest in the grid) or "K5" (a chunk of output
+    depths per block) on xp [b, r, h, w, pack*ci] -> pack*co channels, on a
+    card of ``sms`` SMs, for a kernel of ``regs`` registers a thread.
+
+    Ring stages: as many (2 to 4) as keep the blocks resident per SM that
+    two stages allow. K5's depth chunk: of DEPTH_CHUNKS, the one that
+    minimises waves x (3 * chunk + 2) depth taps (its two halo planes run
+    one tap each), a wave being the blocks resident on the card (estimated
+    from shared memory, threads and registers); on a tie the larger chunk.
+    Returns {ck, stages, dc, chunks, tiles_h, tiles_w, cout_tiles, blocks,
+    smem}.
+    """
+    check_wgmma_widths(ci, co)
+    # registers are allocated to a warp in units of 256: 8 a thread
+    per_sm = min(2048 // WGMMA_THREADS,
+                 65536 // (WGMMA_THREADS * _round_up(regs, 8)),
+                 SMEM_PER_SM // (_wgmma_smem(ci, 2) + 1024))
+    stages = max(s for s in (2, 3, 4) if _wgmma_smem(ci, s) <= SMEM_PER_BLOCK
+                 and SMEM_PER_SM // (_wgmma_smem(ci, s) + 1024) >= per_sm)
+    tiles_h, tiles_w = -(-h // WGMMA_TH), -(-w // WGMMA_TW)
+    cout_tiles = -(-co // WGMMA_N)
+    tiles = b * tiles_h * tiles_w * cout_tiles
+    d = r * pack
+    if order == "K4":
+        dc = 1
+    else:
+        slots = sms * per_sm
+        dc = min(DEPTH_CHUNKS, key=lambda c: (
+            -(-tiles * -(-d // c) // slots) * (3 * min(c, d) + 2), -c))
+    chunks = -(-d // dc)
+    blocks = tiles * chunks
+    if blocks >= 2 ** 31:
+        raise ValueError(f"bfloat16 route: {blocks} blocks exceed the grid")
+    return {"ck": _wgmma_ck(ci), "stages": stages, "dc": dc,
+            "chunks": chunks, "tiles_h": tiles_h, "tiles_w": tiles_w,
+            "cout_tiles": cout_tiles, "blocks": blocks,
+            "smem": _wgmma_smem(ci, stages)}
 
 
 def full_epilogue(v, pack, co, device):
     """A scalar, [Co] or [pack*Co] epilogue term -> float32 [pack*Co], as
-    JAX's ``_full_epilogue``; differentiable in ``v`` when it is a tensor."""
+    JAX's ``_full_epilogue``; differentiable in ``v`` when it is a tensor.
+    A Python number is filled on ``device``: a copy from the host would make
+    every launch wait for the work queued before it."""
+    if isinstance(v, (int, float)):
+        return torch.full((pack * co,), float(v), dtype=torch.float32,
+                          device=device)
     v = torch.as_tensor(v, dtype=torch.float32, device=device)
     if v.numel() == 1 and v.dim() <= 1:
         return v.reshape(()).expand(pack * co)
@@ -93,12 +211,14 @@ def _checked(name, xp, kernel, scale, bias, pack):
         raise ValueError(f"{name}: xp {tuple(xp.shape)} and kernel "
                          f"{tuple(kernel.shape)} are not [B,R,H,W,{pack}*Ci] "
                          "and [3,3,3,Ci,Co]")
-    if cin % 4 or co % 4:
-        raise ValueError(f"{name}: Cin {cin} and Cout {co} must be multiples "
-                         "of 4 (4-value vector loads)")
     if xp.dtype not in _TYPES or kernel.dtype not in _TYPES:
         raise ValueError(f"{name}: xp and kernel must be float32 or "
                          f"bfloat16, not {xp.dtype} and {kernel.dtype}")
+    if xp.dtype == torch.bfloat16:
+        check_wgmma_widths(cin, co, f"{name} in bfloat16")
+    elif cin % 4 or co % 4:
+        raise ValueError(f"{name}: Cin {cin} and Cout {co} must be multiples "
+                         "of 4 (4-value vector loads)")
     kernel = kernel.to(xp.dtype)
     scale, bias = scale.contiguous(), bias.contiguous()
     for t in (xp, kernel, scale, bias):
@@ -114,6 +234,18 @@ def _checked(name, xp, kernel, scale, bias, pack):
     return kernel, scale, bias
 
 
+def _registers(lib, prefix, ck):
+    """Registers a thread of the library's bfloat16 kernel of channel slice
+    ``ck``, read once from the built kernel."""
+    if (prefix, ck) not in _REGISTERS:
+        n = getattr(lib, f"{prefix}_bf16_regs")(ck)
+        if n <= 0:
+            raise RuntimeError(f"{prefix}_bf16: CUDA error {-n} reading the "
+                               "kernel's registers")
+        _REGISTERS[prefix, ck] = n
+    return _REGISTERS[prefix, ck]
+
+
 def _launch(wrapper, xp, kernel, scale, bias, pack, relu):
     """Launch ``wrapper``'s kernel on checked operands; counts the launch on
     ``wrapper``."""
@@ -123,16 +255,29 @@ def _launch(wrapper, xp, kernel, scale, bias, pack, relu):
                       device=xp.device)
     if out.numel() == 0:
         return out
-    library, prefix = _LIBRARIES[wrapper.__name__]
-    symbol = f"{prefix}_{_TYPES[xp.dtype]}"
-    lib = _build.load(library, {f"{prefix}_{t}": _SIGNATURE
-                                for t in _TYPES.values()})
-    err = getattr(lib, symbol)(
+    library, prefix, order = _LIBRARIES[wrapper.__name__]
+    lib = _build.load(library, {
+        f"{prefix}_f32": (_POINTERS + _SHAPES + [ctypes.c_void_p],
+                          ctypes.c_int),
+        f"{prefix}_bf16": (_POINTERS + _SHAPES
+                           + [ctypes.c_int] * len(_PLAN_ARGS[order])
+                           + [ctypes.c_void_p], ctypes.c_int),
+        f"{prefix}_bf16_regs": ([ctypes.c_int], ctypes.c_int)})
+    plan = []
+    if xp.dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(xp.device).multi_processor_count
+        regs = _registers(lib, prefix, _wgmma_ck(cin))
+        p = wgmma_plan(order, b, r, pack, h, w, cin, cout, sms, regs)
+        plan = [p[k] for k in _PLAN_ARGS[order]]
+        kernel = wgmma_weights(kernel, p["cout_tiles"])
+    err = getattr(lib, f"{prefix}_{_TYPES[xp.dtype]}")(
         xp.data_ptr(), kernel.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), b, r, pack, h, w, cin, cout, int(bool(relu)),
+        out.data_ptr(), b, r, pack, h, w, cin, cout, int(bool(relu)), *plan,
         _build.current_stream())
     _build.check_launch(err, wrapper.__name__)
     wrapper.launches += 1
+    if xp.dtype == torch.bfloat16:
+        wrapper.bf16_launches += 1
     return out
 
 
@@ -233,5 +378,5 @@ def conv3d_packed_s1_v2(xp, kernel, scale=1.0, bias=0.0, pack=4,
     return _launch(conv3d_packed_s1_v2, xp, kernel, scale, bias, pack, relu)
 
 
-conv3d_packed_s1.launches = 0
-conv3d_packed_s1_v2.launches = 0
+conv3d_packed_s1.launches = conv3d_packed_s1.bf16_launches = 0
+conv3d_packed_s1_v2.launches = conv3d_packed_s1_v2.bf16_launches = 0

@@ -25,6 +25,8 @@ from densematchingbenchmark_tpu_torch.losses import (make_loss_evaluator,
                                                      total_loss)
 from densematchingbenchmark_tpu_torch.models import build_model
 from densematchingbenchmark_tpu_torch.ops import cuda as kernels
+from densematchingbenchmark_tpu_torch.ops.cuda import (
+    packed_conv3d_kernel as pk)
 from densematchingbenchmark_tpu_torch.ops.cost_volume import (
     disp_sample_values)
 from densematchingbenchmark_tpu_torch.tools import microbench_packed
@@ -205,13 +207,18 @@ def test_packed_conv3d_backward_matches_autograd_on_card(cuda, shape, pack,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,pack,cout,form,relu", [
-    ((1, 3, 7, 45, 2 * 4), 2, 8, "scalar", True),    # Cin 4, D 6: a short
-                                                     # last depth chunk
-    ((2, 5, 5, 33, 4 * 4), 4, 12, "co", False),      # D 20: five chunks
-    ((1, 3, 9, 40, 4 * 8), 4, 36, "pco", True),      # two Cout blocks, ragged
-    ((1, 1, 4, 5, 4 * 4), 4, 8, "co", True),         # one packed row
+@pytest.mark.parametrize("shape,pack,cout,form,relu,dtype", [
+    ((1, 3, 7, 45, 2 * 4), 2, 8, "scalar", True, torch.float32),  # Cin 4,
+                                                     # D 6: a short last chunk
+    ((2, 5, 5, 33, 4 * 4), 4, 12, "co", False, torch.float32),   # D 20
+    ((1, 3, 9, 40, 4 * 8), 4, 36, "pco", True, torch.float32),   # two Cout
+                                                     # blocks, ragged
+    ((1, 1, 4, 5, 4 * 4), 4, 8, "co", True, torch.float32),      # one row
+    # bfloat16 (the tensor cores) takes Cin % 16 == 0, Cout % 8 == 0
+    ((1, 3, 7, 45, 2 * 16), 2, 8, "scalar", True, torch.bfloat16),
+    ((2, 5, 5, 33, 4 * 16), 4, 16, "co", False, torch.bfloat16),
+    ((1, 3, 9, 40, 4 * 32), 4, 40, "pco", True, torch.bfloat16),
+    ((1, 1, 4, 5, 4 * 16), 4, 8, "co", True, torch.bfloat16),
 ])
 def test_packed_conv3d_v2_kernel_matches_plain_on_card(cuda, shape, pack,
                                                        cout, form, relu,
@@ -234,9 +241,38 @@ def test_packed_conv3d_v2_kernel_matches_plain_on_card(cuda, shape, pack,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["conv3d_packed_s1",
+                                     "conv3d_packed_s1_v2"])
+@pytest.mark.parametrize("shape,pack,cout,form,relu", [
+    ((1, 6, 8, 64, 16), 1, 8, "scalar", False),      # Ci 16, Co 8
+    ((2, 5, 7, 70, 32), 1, 32, "co", True),          # H % 4, W % 64 ragged
+    ((1, 4, 6, 100, 2 * 64), 2, 40, "pco", True),    # Co 40: two Cout tiles
+    ((1, 5, 9, 130, 4 * 16), 4, 64, "co", False),    # D 20, W 2 * 64 + 2
+    ((1, 1, 4, 5, 4 * 32), 4, 32, "pco", False),     # one packed row
+    ((1, 17, 5, 33, 32), 1, 40, "scalar", True),     # D 17: past one chunk
+    ((2, 3, 3, 64, 2 * 48), 2, 8, "co", True),       # Ci 48 (16-ch stages)
+])
+def test_packed_conv3d_wgmma_matches_plain_on_card(cuda, wrapper, shape,
+                                                   pack, cout, form, relu):
+    fn = getattr(kernels, wrapper)
+    xp, k, scale, bias = packed_inputs(shape, pack, cout, form, shape[3],
+                                       cuda, torch.bfloat16)
+    before, bf16 = fn.launches, fn.bf16_launches
+    got = fn(xp, k, scale, bias, pack=pack, relu=relu)
+    want = kernels.conv3d_packed_s1_plain(xp, k, scale, bias, pack, relu)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.bf16_launches) == (before + 1, bf16 + 1)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape == (*shape[:-1], pack * cout)
+    # float32 sums in another order, then one bfloat16 rounding each
+    tol = (1e-4 + BF16_STEP) * want.abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,pack,cout,form,relu", [
     ((2, 3, 7, 78, 32), 1, 32, "co", True),
-    ((1, 2, 5, 9, 4 * 8), 4, 12, "pco", False),
+    ((1, 2, 5, 9, 4 * 16), 4, 16, "pco", False),     # bf16: Ci % 16 == 0
 ])
 def test_packed_conv3d_bf16_matches_plain_on_card(cuda, shape, pack, cout,
                                                   form, relu):
@@ -265,6 +301,43 @@ def test_packed_conv3d_bf16_matches_plain_on_card(cuda, shape, pack, cout,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["conv3d_packed_s1",
+                                     "conv3d_packed_s1_v2"])
+@pytest.mark.parametrize("cin,cout", [(4, 8), (16, 12), (128, 32)])
+def test_packed_conv3d_bf16_rejects_unsupported_widths_on_card(cuda, wrapper,
+                                                               cin, cout):
+    xp, k, scale, bias = packed_inputs((1, 2, 4, 8, 2 * cin), 2, cout, "co",
+                                       0, cuda, torch.bfloat16)
+    fn = getattr(kernels, wrapper)
+    before = fn.launches
+    with pytest.raises(ValueError, match="bfloat16"):
+        fn(xp, k, scale, bias, pack=2)
+    assert fn.launches == before
+    # the float32 route takes these widths (Ci % 4, Co % 4)
+    fn(xp.float(), k.float(), scale, bias, pack=2)
+    assert fn.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["conv3d_packed_s1",
+                                     "conv3d_packed_s1_v2"])
+def test_wgmma_kernel_refuses_a_plan_short_of_its_layout_on_card(
+        cuda, wrapper, monkeypatch):
+    # csrc/conv3d_wgmma.cuh checks the plan's shared memory against the
+    # block's own layout: one byte short and nothing is launched
+    plan = pk.wgmma_plan
+    monkeypatch.setattr(pk, "wgmma_plan", lambda *a: dict(
+        plan(*a), smem=plan(*a)["smem"] - 1))
+    xp, k, scale, bias = packed_inputs((1, 2, 4, 8, 2 * 16), 2, 8, "co", 0,
+                                       cuda, torch.bfloat16)
+    fn = getattr(kernels, wrapper)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="CUDA error 1 at launch"):
+        fn(xp, k, scale, bias, pack=2)
+    assert fn.launches == before
+
+
+@pytest.mark.cuda
 def test_packed_conv3d_v2_is_forward_only_on_card(cuda):
     xp, k, scale, bias = packed_inputs((1, 2, 4, 5, 8), 2, 4, "co", 0, cuda)
     k.requires_grad_()
@@ -280,11 +353,16 @@ def test_packed_conv3d_v2_is_forward_only_on_card(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_microbench_runs_on_card(cuda, dtype):
     kernels.reset_launch_counts()
-    rows = microbench_packed.run(cases=(("small", (1, 8, 20, 40), 8, 8),),
-                                 dtype=dtype, pack=4, iters=2, device=cuda)
+    width = 16 if dtype == torch.bfloat16 else 8   # bf16: Ci % 16 == 0
+    rows = microbench_packed.run(
+        cases=(("small", (1, 8, 20, 40), width, width),), dtype=dtype,
+        pack=4, iters=2, device=cuda)
     counts = kernels.launch_counts()
     # the chain of two calls once untimed, then timed
     assert counts["conv3d_packed_s1"] == counts["conv3d_packed_s1_v2"] == 4
+    n_bf16 = 4 if dtype == torch.bfloat16 else 0
+    assert kernels.bf16_launch_counts() == {"conv3d_packed_s1": n_bf16,
+                                            "conv3d_packed_s1_v2": n_bf16}
     assert [r["row"] for r in rows] == list(microbench_packed.ROWS)
     assert all(r["device"] == "cuda" and r["ms"] > 0 for r in rows)
 
