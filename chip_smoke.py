@@ -12,18 +12,27 @@ PyTorch version on the card. Phases, each fatal on failure:
   2. build: compiles the CUDA C++ kernels from csrc/ (one nvcc per source,
      all at once) and prints the build seconds and ptxas's report; asserts
      HGMMA (wgmma) instructions in the SASS of the bfloat16 K4 and K5
-     kernels and none in the CUDA-core kernels (K1, float32 K4 and K5).
+     kernels and none in the CUDA-core kernels (K1, float32 K4 and K5);
+     prints the float32 K5 kernel's registers and blocks per SM as built.
   3. kernels: each kernel against its plain version at the shapes of its
      path (K1, K2, K3 at the 384x1248 inference shapes; K4 forward and
      backward and the K2 backward at the 256x512 batch-3 training shapes),
      with its time, its plain version's time, a one-call library yardstick
-     where there is one, and its bound.
+     where there is one, and its bound (K3's counts its exponentials at the
+     special-function units' rate beside its FMAs, and says which binds).
   3b. packed: K5 (conv3d_packed_s1_v2) and K4 against
      conv3d_packed_s1_plain at the three cases of the packed-conv
      microbench (pack 4), in float32 and bfloat16 (the tensor-core route),
      with every epilogue form and ReLU on and off, and K4 in bfloat16 at
      pack 1 at the training trunk shapes; K5's float32 times beside its
-     bound and cuDNN's F.conv3d, the plain version's time in both dtypes.
+     bound and cuDNN's F.conv3d, the plain version's time in both dtypes;
+     K5's float32 result against a float64 reference (the plain version on
+     float64 operands): its error at most 2x the float32 plain version's
+     plus CONV_RTOL of the reference's largest value.
+  3d. no synchronising copy: torch.cuda.set_sync_debug_mode("error")
+     around a second call (the first fills the caches) of K3, the K2
+     forward and backward, upsample_3d, K5 in float32, and the eval forward
+     of a tiny PSMNet in each eval mode on inputs already on the card.
   3c. microbench: tools.microbench_packed.run on its three cases in each
      dtype (10 chained iterations), with each run's launch counts asserted
      (K4 and K5 60 each, all of them bfloat16 in the bfloat16 run, the
@@ -72,10 +81,13 @@ import torch
 import torch.nn.functional as F
 
 # H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA cores, dense
-# bfloat16 on the tensor cores, HBM3.
+# bfloat16 on the tensor cores, HBM3; and the special-function units'
+# exponentials (MUFU.EX2), 16 a clock on each SM (at the SM clock that
+# nvidia-smi reports as clocks.max.sm).
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+EX2_PER_CLOCK_PER_SM = 16
 
 # (Cin, Cout, (D, H, W), launches per forward) of the 13 stride-1
 # conv+BN(+ReLU) units of PSMAggregator at 384x1248 (D = 192 / 4).
@@ -104,6 +116,11 @@ SMALL = {"model.max_disp": 32,
          "model.losses.l1_loss.max_disp": 32,
          "data.batch_size_per_device": 2}
 OVERFIT_STEPS = 24
+# the tiny configuration of the no-synchronisation guard's PSMNet forward
+SYNC_TINY = {"model.max_disp": 64,
+             "model.cost_processor.cost_computation.max_disp": 16,
+             "model.cost_processor.cost_aggregator.max_disp": 64,
+             "model.disp_predictor.max_disp": 64}
 # the packed-conv microbench: pack and chained iterations per row
 MICRO_PACK, MICRO_ITERS = 4, 10
 
@@ -154,6 +171,29 @@ def bound_ms(flops, nbytes, peak_flops=PEAK_F32_FLOPS):
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def sm_clock_hz():
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm)."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
+def chained_ms(fn, n=20):
+    """Device time of one call of ``fn`` over ``n`` calls in a row, after
+    one warm-up call (CUDA events around the run)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def time_ms(fn, reps=5, warmup=1):
@@ -232,6 +272,12 @@ def build_phase():
         print(f"  {name}: HGMMA in {len(wgmma)} bf16 kernels "
               f"({sorted(wgmma.values())}), none in its {len(others)} "
               "CUDA-core kernels")
+    from densematchingbenchmark_tpu_torch.ops.cuda import packed_conv3d_kernel
+    res = packed_conv3d_kernel.library(
+        "conv3d_packed_s1_v2").packed_conv3d_v2_f32_residency()
+    assert res > 0, f"K5 float32 residency: CUDA error {-res}"
+    print(f"  K5 float32 kernel: {res // 1000} registers a thread, "
+          f"{res % 1000} blocks of 256 threads an SM")
 
 
 def check_conv(device, gen):
@@ -335,16 +381,27 @@ def check_upsample(device, gen):
         return (torch.softmax(full, 1) * vals.view(1, -1, 1, 1)).sum(1)
 
     lib = time_ms(library, 3)
+    chain = chained_ms(lambda: fused_upsample_soft_argmin(low, out_d, out_h,
+                                                          out_w))
     # per output pixel: 3 lerps (3 flops each) for each of the D' source
     # depths, then per upsampled depth a lerp, the scale, subtract, exp,
-    # sum and multiply-add (8)
+    # sum and multiply-add (8) on the FMA pipes; and one exponential per
+    # upsampled cost on the special-function units
     pixels = b * out_h * out_w
     b_ms, b_by = bound_ms(pixels * (9 * d_in + 8 * out_d),
                           4 * (low.numel() + pixels + 4 * out_d
                                + 3 * (out_h + out_w)))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ex2_ms = pixels * out_d / (EX2_PER_CLOCK_PER_SM * sms
+                               * sm_clock_hz()) * 1e3
+    binds = "exponentials (SFU)" if ex2_ms > b_ms else f"FMAs ({b_by})"
+    if ex2_ms > b_ms:
+        b_ms, b_by = ex2_ms, "operations"
     print(f"K3 fused_upsample_soft_argmin {list(UPSAMPLE_LOW)} -> "
-          f"{list(UPSAMPLE_OUT)} (x3/fwd): {ms:.3f} ms, plain {plain:.3f}, "
-          f"interpolate+softmax {lib:.3f}, bound {b_ms:.3f} ({b_by}), "
+          f"{list(UPSAMPLE_OUT)} (x3/fwd): {ms:.3f} ms, chained "
+          f"{chain:.3f} ms a launch, plain {plain:.3f}, interpolate+softmax "
+          f"{lib:.3f}, bound {b_ms:.3f}: exponentials {ex2_ms:.4f} ms at "
+          f"{EX2_PER_CLOCK_PER_SM}/clock/SM on {sms} SMs, bound by {binds}, "
           f"max_abs_err {err:.3g}")
     return {"unit": "per launch", "max_abs_err": err, "ms": ms,
             "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
@@ -528,6 +585,27 @@ def packed_bound(shape, cin, cout, dtype):
                     + 4 * 2 * MICRO_PACK * cout, peak)
 
 
+def check_packed_v2_f64(xp, k, pack):
+    """K5's float32 result for the microbench's call (unit scale, no ReLU)
+    against a float64 reference, conv3d_packed_s1_plain on float64
+    operands: its error must be at most twice the float32 plain version's
+    plus CONV_RTOL of the reference's largest value. Returns the line's
+    text."""
+    from densematchingbenchmark_tpu_torch.ops.cuda import (
+        conv3d_packed_s1_plain, conv3d_packed_s1_v2)
+    ref = conv3d_packed_s1_plain(xp.double(), k.double(), pack=pack)
+    got = conv3d_packed_s1_v2(xp, k, pack=pack)
+    plain = conv3d_packed_s1_plain(xp, k, pack=pack)
+    torch.cuda.synchronize()
+    e_got = (got.double() - ref).abs().max().item()
+    e_plain = (plain.double() - ref).abs().max().item()
+    tol = 2 * e_plain + CONV_RTOL * ref.abs().max().item()
+    assert e_got <= tol, ("float64", e_got, e_plain, tol)
+    del ref, got, plain
+    return (f"vs float64: K5 {e_got:.3g}, float32 plain {e_plain:.3g} "
+            f"(tolerance {tol:.3g})")
+
+
 def check_packed_v2(device, gen):
     """K5 and K4 against conv3d_packed_s1_plain at the microbench's cases
     (pack 4), in both dtypes, with every epilogue form and ReLU both ways,
@@ -576,6 +654,7 @@ def check_packed_v2(device, gen):
             plain = time_ms(lambda: conv3d_packed_s1_plain(xp, k, pack=pack),
                             3)
             if dtype == torch.float32:
+                line += "; " + check_packed_v2_f64(xp, k, pack)
                 w_oi = k.permute(4, 3, 0, 1, 2).contiguous(
                     memory_format=torch.channels_last_3d)
                 x_cf = x.movedim(-1, 1)  # channels_last_3d storage, no copy
@@ -619,6 +698,59 @@ def check_packed_v2(device, gen):
             "plain_ms": total(1), "library_ms": total(2),
             "bound_ms": total(3),
             "bound_by": max(rows, key=lambda r: r[3])[5]}, bf16
+
+
+def guarded(label, fn):
+    """Call ``fn`` once to build its kernels and fill its caches, then
+    again with torch.cuda.set_sync_debug_mode("error"), under which a
+    synchronising call (a copy from pageable host memory, a read of a
+    device value) raises."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"  no synchronising call: {label}")
+
+
+def sync_guard_phase(gen):
+    """The kernels and ops of the regression path and K5 in float32, and a
+    tiny PSMNet's eval forward in both modes, issue no synchronising call
+    once their caches are filled."""
+    from densematchingbenchmark_tpu_torch.apis import init_model
+    from densematchingbenchmark_tpu_torch.ops.conv3d import pack_volume
+    from densematchingbenchmark_tpu_torch.ops.cuda import (
+        conv3d_packed_s1_v2, fused_soft_argmin, fused_upsample_soft_argmin)
+    from densematchingbenchmark_tpu_torch.ops.interpolate import upsample_3d
+    out_d, out_h, out_w = UPSAMPLE_OUT
+    low = torch.randn(UPSAMPLE_LOW, device="cuda", generator=gen)
+    guarded("K3 fused_upsample_soft_argmin",
+            lambda: fused_upsample_soft_argmin(low, out_d, out_h, out_w))
+    guarded("upsample_3d", lambda: upsample_3d(low, out_d, out_h, out_w))
+    b, d, h, w = TRAIN_ARGMIN_SHAPE
+    cost = torch.randn((1, d, h, w), device="cuda",
+                       generator=gen).requires_grad_()
+    g = torch.randn((1, h, w, 1), device="cuda", generator=gen)
+    guarded("K2 fused_soft_argmin forward and backward",
+            lambda: torch.autograd.grad(fused_soft_argmin(cost, d), cost, g))
+    x = torch.randn((1, 16, 48, 156, 32), device="cuda", generator=gen)
+    k = torch.randn((3, 3, 3, 32, 32), device="cuda", generator=gen) * 0.06
+    scale = torch.rand(32, device="cuda", generator=gen) + 0.5
+    xp = pack_volume(x, MICRO_PACK).contiguous()
+    guarded("K5 conv3d_packed_s1_v2 float32",
+            lambda: (conv3d_packed_s1_v2(xp, k, pack=MICRO_PACK),
+                     conv3d_packed_s1_v2(xp, k, scale, 0.5, pack=MICRO_PACK,
+                                         relu=True)))
+    image = torch.randn((1, 64, 128, 3), device="cuda", generator=gen)
+    for fused in (False, True):
+        model = init_model("PSMNet/scene_flow_f32", device="cuda", seed=0,
+                           **dict(SYNC_TINY, **{
+                               "model.eval.fused_upsample_argmin": fused}))
+        guarded(f"PSMNet eval forward, fused_upsample_argmin={fused}",
+                lambda: model.forward(image, image))
 
 
 def microbench_phase():
@@ -998,6 +1130,9 @@ def main():
              "fused_soft_argmin_backward": check_soft_argmin_backward(
                  "cuda", gen)}
     stats["conv3d_packed_s1_v2"], bf16_check = check_packed_v2("cuda", gen)
+    torch.cuda.empty_cache()
+    print("sync guard (torch.cuda.set_sync_debug_mode('error')):")
+    sync_guard_phase(gen)
     torch.cuda.empty_cache()
     micro, micro_bf16, bf16_times = microbench_phase()
     torch.cuda.empty_cache()

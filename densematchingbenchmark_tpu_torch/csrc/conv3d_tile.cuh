@@ -27,9 +27,7 @@
 // with Cin % 4 == 0 and Cout % 4 == 0 runs. The packing is pure addressing:
 // input depth z is read at packed row z / P, channel offset (z % P) * Cin,
 // and output depth d written at row d / P, offset (d % P) * Cout, so no
-// padded, unpacked or widened copy of a packed volume is made. A later
-// revision moves the float32 contraction onto wgmma (TF32, where the
-// float32 contract allows it) with a TMA pipeline.
+// padded, unpacked or widened copy of a packed volume is made.
 
 #pragma once
 

@@ -16,52 +16,53 @@
 //
 // The counterpart here: a block owns a 4 x 32 (rows x columns) output tile,
 // 32 output channels and a chunk of dc consecutive output depths d0 ..
-// d1 - 1 of one batch item (dc of 4 to 16, see (a)), and walks the input
-// depth planes z = d0 - 1 .. d1 in order. Each input plane, with its H / W
-// halo, is staged in shared memory once and feeds the three outputs it
-// touches: z + 1 (depth tap 0), z (tap 1) and z - 1 (tap 2), whose sums
-// stay in registers. When plane z has been consumed, output z - 1 is
-// complete and goes through the epilogue. K4, by contrast, stages each
-// input plane once per output depth tap (three times). The stages are
-// (plane, 8-channel slice of Cin) pairs: the zero-masked (4+2) x (32+2) x 8
-// halo and the 27 weight taps of that slice for the block's 32 output
-// channels, double-buffered and loaded with cp.async (zero-filled where
-// masked) while the previous stage computes: the counterpart of the ring's
-// prefetch. The packing is addressing, as in K4: input depth z at packed
-// row z / P, slot z % P.
+// d1 - 1 of one batch item, and walks the input depth planes z = d0 - 1 ..
+// d1 in order. Each input plane, with its H / W halo, is staged in shared
+// memory once and feeds the three outputs it touches: z + 1 (depth tap 0),
+// z (tap 1) and z - 1 (tap 2), whose sums stay in registers. When plane z
+// has been consumed, output z - 1 is complete and goes through the
+// epilogue. K4, by contrast, stages each input plane once per output depth
+// tap (three times). The packing is addressing, as in K4: input depth z at
+// packed row z / P, slot z % P.
 //
-// What bounds the float32 route on an H100: arithmetic, as K4
-// (conv3d_tile.cuh): 2*27*Cin*Cout flops per output voxel on the CUDA cores
-// (67 TFLOP/s float32). The ring's saving is traffic, which does not bound
-// this route; it does bound the bfloat16 one, whose products run on the
-// tensor cores.
+// What bounds the float32 route on an H100: arithmetic, 2*27*Cin*Cout flops
+// per output voxel on the CUDA cores (67 TFLOP/s float32; TF32 is outside
+// the float32 contract), 4.15 ms for the packed-conv microbench's three
+// cases. Each FMA needs its input and its weight from shared memory, so
+// what decides how close a block comes is how few instructions it issues
+// beside the FMAs and how well its warps hide the shared-memory loads.
 //
-// Design choices against the three limits of this card:
-// (a) Occupancy. Taking depth off the grid leaves few blocks (the 64->64
-//     microbench case, 1 x 24 x 48 x 156, has 60 tiles x 2 Cout blocks), so
-//     depth is cut into chunks, each restaging a two-plane halo (dc + 2
-//     planes staged for dc outputs, against K4's 3 per output). The two
-//     halo planes run only the one depth tap that feeds the chunk (a
-//     compile-time variant of the stage, since a branch among the unrolled
-//     FMAs ran slower on the card than doing the extra taps); planes d0 and
-//     d1 - 1 run one tap whose sums are never stored, so a chunk does the
-//     products of 3 * dc + 2 taps for 3 * dc. The launcher picks dc from
-//     16, 12, 8, 6, 4 to minimise waves x (3 * dc + 2), a wave being the
-//     blocks resident on the card at once: at the microbench's
-//     full-resolution cases that is dc = 16 (720 blocks), at its 64->64
-//     case dc = 12 (240 blocks, one wave, where dc = 8 leaves a second
-//     wave of 96 blocks).
-// (b) Shared memory. One stage is 6*34*8 halo values + 27*8*32 weights: 33.4
-//     KB; two stages need 66.8 KB, above the 48 KB of static shared
-//     memory, so it is dynamic shared memory with cudaFuncSetAttribute. A
-//     thread reads 8 channels of a halo position in two 16-byte loads, so
-//     no bank padding is needed.
-// (c) Registers. Three accumulators of 4 rows x 8 channels (96) beside 4 x 8
-//     staged inputs and the weights that the compiler loads ahead: ptxas
-//     gives 255 registers and no spills, so 2 blocks (8 warps) per SM; a
-//     cap of 168 (3 blocks) spilled and ran slower on the card.
-// Needs Cin % 4 == 0 and Cout % 4 == 0 (4-value cp.async chunks); ragged
-// H, W, Cin and Cout edges are masked.
+// The design (redesigned from a 128-thread block whose threads computed
+// cp.async addresses and masks for the staging):
+// - The ring is fed by the Tensor Memory Accelerator, as the bf16 block's
+//   (conv3d_wgmma.cuh): a stage is one (input plane, 16-channel slice)
+//   pair, its (4+2) x (32+2) x 16 halo loaded by one TMA copy from a 5-D
+//   tensor map over the packed volume seen as [B*R, H, W, P, Cin], box
+//   [16, 1, 34, 6, 1], and its 27 x 16 x 32 weights by one bulk copy of the
+//   wrapper's image (packed_v2_weights: [Cout tiles, Cin slices, 27, 16,
+//   32], zero past Cin and Cout). Out-of-bounds box elements are
+//   zero-filled, which is the SAME halo at every H / W border and zeroes
+//   the channels past Cin of a ragged last slice: they are never read from
+//   the next packed slot. Three stages (68.4 KB each) are guarded by full
+//   (transaction bytes) and empty (all threads) mbarriers, and thread 0
+//   refills a slot as soon as every thread has read it, so no thread
+//   computes an address or a mask for the staging.
+// - A thread sums 4 rows x 4 output channels x 3 output depths (48
+//   accumulators); a block has 256 threads (32 columns x 8 channel groups,
+//   the channel group fastest, so that a warp's weight loads are one
+//   128-byte row and its input loads four broadcast positions). Per tap a
+//   thread issues 64 16-byte shared loads for 768 FMAs. The block may take
+//   up to 255 registers (ptxas gives it 152) and one block runs on an SM:
+//   the same tile capped at 128 registers, two blocks and 16 warps an SM,
+//   ran slower on the card, as did 8-channel stages.
+// - The depth chunk, as before: the two halo planes of a chunk run only
+//   the one depth tap that feeds it (a compile-time variant of the stage),
+//   so a chunk does the products of 3 * dc + 2 taps for 3 * dc. The
+//   launcher picks dc from 16, 12, 8, 6, 4 to minimise waves x (3 * dc +
+//   2), a wave being the blocks resident on the card at once, read from the
+//   built kernel (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+// Needs Cin % 4 == 0 and Cout % 4 == 0 (TMA's 16-byte strides, 16-byte
+// epilogue stores); ragged H, W, D, Cin and Cout edges are masked.
 
 #include "conv3d_tile.cuh"
 #include "conv3d_wgmma.cuh"
@@ -70,84 +71,59 @@ namespace {
 
 using conv3d_tile::load4;
 using conv3d_tile::store4;
+namespace wg = conv3d_wgmma;
 
-constexpr int TH = 4;            // output rows per block
+constexpr int TH = 4;            // output rows per block and per thread
 constexpr int TW = 32;           // output columns per block
 constexpr int CO_B = 32;         // output channels per block
-constexpr int CO_T = 8;          // output channels per thread
-constexpr int NT = 128;          // threads: 32 columns x 4 channel groups
-constexpr int CK = 8;            // input channels per stage
+constexpr int CO_T = 4;          // output channels per thread
+constexpr int NT = 256;          // threads: 32 columns x 8 channel groups
+constexpr int CK = 16;           // input channels per stage
 constexpr int HR = TH + 2;       // halo rows
 constexpr int HC = TW + 2;       // halo columns
-constexpr int HALO = HR * HC * CK;         // values per stage: halo
-constexpr int STAGE = HALO + 27 * CK * CO_B;   // halo + weights
-
-constexpr int SMEM_BYTES = 2 * STAGE * static_cast<int>(sizeof(float));
-
-// 4 float32 values from global to shared memory, asynchronously; zeros
-// where !valid (nothing is read then).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  constexpr int N = 4 * sizeof(float);
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
-               "l"(src), "n"(N), "r"(valid ? N : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// 8 consecutive float32 values of shared memory (32-byte aligned).
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
+constexpr int HALO_BYTES = HR * HC * CK * 4;       // 13,056
+constexpr int W_FLOATS = 27 * CK * CO_B;           // one slice's weights
+constexpr int W_BYTES = W_FLOATS * 4;              // 55,296
+constexpr int STAGE_BYTES = HALO_BYTES + W_BYTES;  // 68,352
+constexpr int STAGES = 3;
+constexpr int ALIGN = 128;       // TMA destination alignment
+// the stages, then a full and an empty barrier per stage
+constexpr int SMEM_BYTES = ALIGN + STAGES * STAGE_BYTES + 16 * STAGES;
+static_assert(STAGE_BYTES % ALIGN == 0 && HALO_BYTES % 16 == 0,
+              "stage layout");
 
 // Epilogue of one output depth d's sums a (this thread's column xx, rows
-// y0 .., channels co0 + cg * CO_T ..): out = a * scale + bias per packed
-// channel, optional ReLU.
+// y0 .., channels co ..): out = a * scale + bias per packed channel,
+// optional ReLU.
 __device__ __forceinline__ void store_depth(
     const float (&a)[TH][CO_T], float* __restrict__ out,
     const float* __restrict__ scale, const float* __restrict__ bias, int d,
-    int b, int R, int P, int H, int W, int Cout, int y0, int xx, int co0,
-    int cg, int relu) {
-  if (xx >= W) return;
+    int b, int R, int P, int H, int W, int Cout, int y0, int xx, int co,
+    int relu) {
+  if (xx >= W || co >= Cout) return;       // Cout % 4 == 0: all 4 or none
   const long long out_vox = (long long)P * Cout;
   const long long out_plane = ((long long)b * R + d / P) * H;
   const int slot = (d % P) * Cout;
+  const float4 s = load4(scale + slot + co);
+  const float4 o = load4(bias + slot + co);
 #pragma unroll
-  for (int g = 0; g < CO_T / 4; ++g) {
-    const int co = co0 + cg * CO_T + g * 4;
-    if (co >= Cout) continue;                   // Cout % 4 == 0: all 4 or none
-    const float4 s = load4(scale + slot + co);
-    const float4 o = load4(bias + slot + co);
-#pragma unroll
-    for (int i = 0; i < TH; ++i) {
-      const int yy = y0 + i;
-      if (yy >= H) break;
-      float4 v;
-      v.x = fmaf(a[i][g * 4 + 0], s.x, o.x);
-      v.y = fmaf(a[i][g * 4 + 1], s.y, o.y);
-      v.z = fmaf(a[i][g * 4 + 2], s.z, o.z);
-      v.w = fmaf(a[i][g * 4 + 3], s.w, o.w);
-      if (relu) {
-        v.x = fmaxf(v.x, 0.f); v.y = fmaxf(v.y, 0.f);
-        v.z = fmaxf(v.z, 0.f); v.w = fmaxf(v.w, 0.f);
-      }
-      store4(out + ((out_plane + yy) * W + xx) * out_vox + slot + co, v);
+  for (int i = 0; i < TH; ++i) {
+    const int yy = y0 + i;
+    if (yy >= H) break;
+    float4 v;
+    v.x = fmaf(a[i][0], s.x, o.x);
+    v.y = fmaf(a[i][1], s.y, o.y);
+    v.z = fmaf(a[i][2], s.z, o.z);
+    v.w = fmaf(a[i][3], s.w, o.w);
+    if (relu) {
+      v.x = fmaxf(v.x, 0.f); v.y = fmaxf(v.y, 0.f);
+      v.z = fmaxf(v.z, 0.f); v.w = fmaxf(v.w, 0.f);
     }
+    store4(out + ((out_plane + yy) * W + xx) * out_vox + slot + co, v);
   }
 }
 
-// One stage's products: the staged halo hs and weights ws (one 8-channel
+// One stage's products: the staged halo hs and weights ws (one 16-channel
 // slice of input plane z) into acc[j], the sums of output z - 1 + j; input
 // plane z, depth tap dd feeds output z + 1 - dd = acc[2 - dd]. ONLY >= 0
 // does depth tap ONLY alone (a halo plane of the chunk, whose other taps
@@ -165,26 +141,36 @@ __device__ __forceinline__ void compute_stage(const float* __restrict__ hs,
     float a[TH][CK];
 #pragma unroll
     for (int i = 0; i < TH; ++i)
-      load8(hs + ((i + dh) * HC + vx + dw) * CK, a[i]);
+#pragma unroll
+      for (int q = 0; q < CK / 4; ++q) {
+        const float4 v = load4(hs + ((i + dh) * HC + vx + dw) * CK + 4 * q);
+        a[i][4 * q] = v.x;
+        a[i][4 * q + 1] = v.y;
+        a[i][4 * q + 2] = v.z;
+        a[i][4 * q + 3] = v.w;
+      }
 #pragma unroll
     for (int c = 0; c < CK; ++c) {
 #pragma unroll
       for (int dd = 0; dd < 3; ++dd) {
         if (ONLY >= 0 && dd != ONLY) continue;
-        float wv[CO_T];
-        load8(ws + ((dd * 9 + tap) * CK + c) * CO_B + cg * CO_T, wv);
+        const float4 wv =
+            load4(ws + ((dd * 9 + tap) * CK + c) * CO_B + cg * CO_T);
 #pragma unroll
-        for (int i = 0; i < TH; ++i)
-#pragma unroll
-          for (int k = 0; k < CO_T; ++k)
-            acc[2 - dd][i][k] = fmaf(a[i][c], wv[k], acc[2 - dd][i][k]);
+        for (int i = 0; i < TH; ++i) {
+          float (&o)[CO_T] = acc[2 - dd][i];
+          o[0] = fmaf(a[i][c], wv.x, o[0]);
+          o[1] = fmaf(a[i][c], wv.y, o[1]);
+          o[2] = fmaf(a[i][c], wv.z, o[2]);
+          o[3] = fmaf(a[i][c], wv.w, o[3]);
+        }
       }
     }
   }
 }
 
-__global__ void __launch_bounds__(NT)
-packed_conv3d_v2_kernel(const float* __restrict__ x,
+__global__ void __launch_bounds__(NT, 1)
+packed_conv3d_v2_kernel(const __grid_constant__ CUtensorMap xmap,
                         const float* __restrict__ w,
                         const float* __restrict__ scale,
                         const float* __restrict__ bias,
@@ -192,12 +178,17 @@ packed_conv3d_v2_kernel(const float* __restrict__ x,
                         int R, int P, int H, int W, int Cin, int Cout,
                         int relu, int dc, int chunks) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* const smem = reinterpret_cast<float*>(smem_raw);
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t base = (raw + ALIGN - 1) & ~static_cast<uint32_t>(ALIGN - 1);
+  const float* const smem =
+      reinterpret_cast<const float*>(smem_raw + (base - raw));
+  // full barriers, then empty ones
+  const uint32_t bars = base + STAGES * STAGE_BYTES;
 
   const int D = R * P;                          // true depth
   const int t = threadIdx.x;
-  const int cg = t & 3;                         // channel group: CO_T channels
-  const int vx = t >> 2;                        // output column in the tile
+  const int cg = t & 7;                         // channel group: CO_T channels
+  const int vx = t >> 3;                        // output column in the tile
   const int tiles_w = (W + TW - 1) / TW;
   const int y0 = (blockIdx.x / tiles_w) * TH;
   const int x0 = (blockIdx.x % tiles_w) * TW;
@@ -205,44 +196,36 @@ packed_conv3d_v2_kernel(const float* __restrict__ x,
   const int d0 = (blockIdx.y % chunks) * dc;    // outputs d0 .. d1 - 1
   const int d1 = min(d0 + dc, D);
   const int co0 = blockIdx.z * CO_B;
-  const long long in_vox = (long long)P * Cin;  // values per packed voxel
   const int zs = max(d0 - 1, 0);                // input planes zs .. ze
   const int ze = min(d1, D - 1);
   const int slices = (Cin + CK - 1) / CK;
   const int steps = (ze - zs + 1) * slices;
 
-  // stage `s` (plane zs + s / slices, channels (s % slices) * CK ...) into
-  // buffer s & 1
+  // stage s (plane zs + s / slices, channels (s % slices) * CK ..) into
+  // slot s % STAGES: the halo by TMA, the slice's weights by a bulk copy,
+  // both completing on the slot's full barrier
   auto load_stage = [&](int s) {
+    const int slot = s % STAGES;
     const int z = zs + s / slices;
-    const int c0 = (s % slices) * CK;
-    float* const hs = smem + (s & 1) * STAGE;
-    float* const ws = hs + HALO;
-    const long long plane = ((long long)b * R + z / P) * H;
-    const float* const xs = x + (z % P) * Cin;
-    for (int e = t; e < HR * HC * (CK / 4); e += NT) {
-      const int q = e % (CK / 4);
-      const int pos = e / (CK / 4);
-      const int yy = y0 + pos / HC - 1;
-      const int xx = x0 + pos % HC - 1;
-      const int c = c0 + q * 4;
-      const bool ok = yy >= 0 && yy < H && xx >= 0 && xx < W && c < Cin;
-      cp_async4(hs + pos * CK + q * 4,
-                ok ? xs + ((plane + yy) * W + xx) * in_vox + c : x, ok);
-    }
-    for (int e = t; e < 27 * CK * (CO_B / 4); e += NT) {
-      const int q = e % (CO_B / 4);
-      const int rest = e / (CO_B / 4);
-      const int c = rest % CK;
-      const int tap = rest / CK;                // dd * 9 + dh * 3 + dw
-      const int ci = c0 + c;
-      const int co = co0 + q * 4;
-      const bool ok = ci < Cin && co < Cout;
-      cp_async4(ws + (tap * CK + c) * CO_B + q * 4,
-                ok ? w + ((long long)tap * Cin + ci) * Cout + co : w, ok);
-    }
-    cp_async_commit();
+    const int sl = s % slices;
+    const uint32_t full = bars + 8 * slot;
+    const uint32_t dst = base + slot * STAGE_BYTES;
+    wg::mbar_expect_tx(full, STAGE_BYTES);
+    wg::tma_load_5d(dst, &xmap, full, sl * CK, z % P, x0 - 1, y0 - 1,
+                    b * R + z / P);
+    wg::bulk_load(dst + HALO_BYTES,
+                  w + ((long long)blockIdx.z * slices + sl) * W_FLOATS,
+                  W_BYTES, full);
   };
+  if (t == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      wg::mbar_init(bars + 8 * s, 1);
+      wg::mbar_init(bars + 8 * (STAGES + s), NT);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < min(STAGES, steps); ++s) load_stage(s);
+  }
+  __syncthreads();                              // barriers initialised
 
   // acc[j] sums output depth z - 1 + j while plane z is consumed
   float acc[3][TH][CO_T];
@@ -253,27 +236,34 @@ packed_conv3d_v2_kernel(const float* __restrict__ x,
 #pragma unroll
       for (int k = 0; k < CO_T; ++k) acc[j][i][k] = 0.f;
 
-  load_stage(0);
   for (int s = 0; s < steps; ++s) {
-    cp_async_wait_all();
-    __syncthreads();      // stage s landed for all; stage s - 1 is read
-    if (s + 1 < steps) load_stage(s + 1);
-    const float* const hs = smem + (s & 1) * STAGE;
+    // step s - 1's slot is free once every thread has read it: refill it
+    // with step s - 1 + STAGES
+    if (t == 0 && s > 0 && s - 1 + STAGES < steps) {
+      wg::mbar_wait(bars + 8 * (STAGES + (s - 1) % STAGES),
+                    ((s - 1) / STAGES) & 1);
+      load_stage(s - 1 + STAGES);
+    }
+    const int slot = s % STAGES;
+    wg::mbar_wait(bars + 8 * slot, (s / STAGES) & 1);
+    const float* const hs = smem + slot * (STAGE_BYTES / 4);
+    const float* const ws = hs + HALO_BYTES / 4;
     const int z = zs + s / slices;
     // the halo planes d0 - 1 and d1 feed one output of the chunk each;
     // planes d0 and d1 - 1 feed one output outside it, whose sums are
     // never stored
     if (z == d0 - 1)
-      compute_stage<0>(hs, hs + HALO, acc, vx, cg);
+      compute_stage<0>(hs, ws, acc, vx, cg);
     else if (z == d1)
-      compute_stage<2>(hs, hs + HALO, acc, vx, cg);
+      compute_stage<2>(hs, ws, acc, vx, cg);
     else
-      compute_stage<-1>(hs, hs + HALO, acc, vx, cg);
+      compute_stage<-1>(hs, ws, acc, vx, cg);
+    wg::mbar_arrive(bars + 8 * (STAGES + slot));  // stage read
     if (s % slices == slices - 1) {
       // plane z consumed: output z - 1 is complete
       if (z - 1 >= d0)
         store_depth(acc[0], out, scale, bias, z - 1, b, R, P, H, W, Cout, y0,
-                    x0 + vx, co0, cg, relu);
+                    x0 + vx, co0 + cg * CO_T, relu);
 #pragma unroll
       for (int i = 0; i < TH; ++i)
 #pragma unroll
@@ -287,7 +277,7 @@ packed_conv3d_v2_kernel(const float* __restrict__ x,
   // plane d1 lies past the volume: output d1 - 1 is complete in acc[0]
   if (ze == d1 - 1)
     store_depth(acc[0], out, scale, bias, d1 - 1, b, R, P, H, W, Cout, y0,
-                x0 + vx, co0, cg, relu);
+                x0 + vx, co0 + cg * CO_T, relu);
 }
 
 // Output depths per block: the chunk, of DCS, that minimises waves x taps
@@ -313,21 +303,44 @@ inline int depth_chunk(int D, long long tiles, int slots) {
 
 }  // namespace
 
-// xp [B, R, H, W, P*Cin], w [3, 3, 3, Cin, Cout] (true, unpacked), out
-// [B, R, H, W, P*Cout], all float32; scale / bias [P*Cout] float32; all
-// contiguous, 16-byte aligned, with Cin % 4 == 0, Cout % 4 == 0 and
-// B * R * P <= 65535 (checked by the caller).
-// Returns the CUDA error code of the launch (0 on success).
+// xp [B, R, H, W, P*Cin] and out [B, R, H, W, P*Cout] float32; w the
+// wrapper's image of the kernel (ops/cuda/packed_conv3d_kernel.py::
+// packed_v2_weights: [ceil(Cout / 32), ceil(Cin / 16), 27, 16, 32]
+// float32); scale / bias [P*Cout] float32; all contiguous, 16-byte aligned,
+// with Cin % 4 == 0, Cout % 4 == 0 and B * R * P <= 65535 (checked by the
+// caller). Returns the CUDA error code of the launch (0 on success), or
+// 999 / 1000 + the CUresult when the TMA tensor map cannot be made.
 extern "C" int packed_conv3d_v2_f32(const float* x, const float* w,
                                     const float* scale, const float* bias,
                                     float* out, int B, int R, int P, int H,
                                     int W, int Cin, int Cout, int relu,
                                     void* stream) {
+  const wg::EncodeTiled encode = wg::encode_tiled();
+  if (encode == nullptr) return wg::NO_ENCODE;
+  // the packed volume, innermost first: channels, slot, W, H, packed rows
+  // of every batch item
+  const cuuint64_t ci = static_cast<cuuint64_t>(Cin);
+  const cuuint64_t dims[5] = {ci, static_cast<cuuint64_t>(P),
+                              static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B) * R};
+  const cuuint64_t vox = ci * P * 4;            // bytes per packed voxel
+  const cuuint64_t strides[4] = {ci * 4, vox, vox * W, vox * W * H};
+  const cuuint32_t box[5] = {CK, 1, HC, HR, 1};
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  CUtensorMap map;
+  const CUresult res = encode(
+      &map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5, const_cast<float*>(x), dims,
+      strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (res != CUDA_SUCCESS) return 1000 + static_cast<int>(res);
   static const cudaError_t attr = cudaFuncSetAttribute(
       packed_conv3d_v2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  // resident blocks on the card: SMs x blocks per SM (registers bound it)
+  // resident blocks on the card: SMs x blocks per SM (the built kernel's
+  // registers and the shared memory bound it)
   static int slots = 0;
   if (slots == 0) {
     int device = 0, sms = 0, per_sm = 0;
@@ -347,8 +360,26 @@ extern "C" int packed_conv3d_v2_f32(const float* x, const float* w,
                   (Cout + CO_B - 1) / CO_B);
   packed_conv3d_v2_kernel<<<grid, NT, SMEM_BYTES,
                             static_cast<cudaStream_t>(stream)>>>(
-      x, w, scale, bias, out, R, P, H, W, Cin, Cout, relu, dc, chunks);
+      map, w, scale, bias, out, R, P, H, W, Cin, Cout, relu, dc, chunks);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers a thread and resident blocks an SM of the float32 kernel, as
+// built (residency from cudaOccupancyMaxActiveBlocksPerMultiprocessor with
+// its shared memory): regs * 1000 + blocks, or minus the CUDA error code.
+extern "C" int packed_conv3d_v2_f32_residency() {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, packed_conv3d_v2_kernel);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  err = cudaFuncSetAttribute(packed_conv3d_v2_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_BYTES);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, packed_conv3d_v2_kernel, NT, SMEM_BYTES);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return a.numRegs * 1000 + per_sm;
 }
 
 // The same function in bfloat16 (x, out, and w as the wrapper's

@@ -5,7 +5,10 @@ per-pixel ``disp_sample`` path arrives with the slice that ports
 ``ops/warp.py``.
 """
 
+import functools
+
 import numpy as np
+import torch
 
 
 def disp_sample_values(max_disp, start_disp=0, dilation=1):
@@ -19,6 +22,17 @@ def disp_sample_values(max_disp, start_disp=0, dilation=1):
     end_disp = start_disp + max_disp - 1
     num = (max_disp + dilation - 1) // dilation
     return np.linspace(start_disp, end_disp, num, dtype=np.float32)
+
+
+@functools.lru_cache(maxsize=256)
+def disp_sample_tensor(max_disp, start_disp, dilation, device):
+    """``disp_sample_values`` as a float32 tensor on ``device``, made once
+    per key and kept (a copy from the host per call would make every call
+    on the card wait for the work queued before it). Callers must not
+    write to it."""
+    with torch.inference_mode(False):   # usable later under autograd
+        return torch.as_tensor(
+            disp_sample_values(max_disp, start_disp, dilation), device=device)
 
 
 def cat_volume(reference_fm, target_fm, max_disp, start_disp=0, dilation=1):

@@ -98,6 +98,12 @@ def check_launch(err, what):
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def current_stream():
+def current_stream(device=None):
+    """The current CUDA stream of ``device`` (default: the current device)
+    as a pointer for a launch, read without making a Stream object (which
+    costs a launch several microseconds)."""
     import torch
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    index = getattr(device, "index", None)
+    if index is None:
+        index = torch.cuda.current_device()
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))

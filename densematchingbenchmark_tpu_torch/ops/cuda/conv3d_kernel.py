@@ -29,16 +29,17 @@ _SIGNATURES = {
 
 def conv3d_plain(x, kernel, scale, bias, relu):
     """Plain PyTorch version: x [B, D, H, W, Cin], kernel [3, 3, 3, Cin,
-    Cout], scale / bias [Cout] -> float32 [B, D, H, W, Cout]."""
+    Cout], scale / bias [Cout] -> float32 [B, D, H, W, Cout] (float64 for a
+    float64 x, which the card's checks take as a reference)."""
     b, d, h, w, _ = x.shape
-    x = x.float()
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
     xp = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
     out = x.new_zeros((b, d, h, w, kernel.shape[-1]))
     for dd in range(3):
         for dh in range(3):
             for dw in range(3):
                 out += xp[:, dd:dd + d, dh:dh + h, dw:dw + w] @ \
-                    kernel[dd, dh, dw].float()
+                    kernel[dd, dh, dw].to(x.dtype)
     out = out * scale + bias
     return out.clamp_min(0.0) if relu else out
 

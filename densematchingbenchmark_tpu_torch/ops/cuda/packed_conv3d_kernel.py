@@ -17,7 +17,9 @@ a TMA ring, ``csrc/conv3d_wgmma.cuh``), one output depth per block.
 in JAX; its only caller is the microbench. Hopper kernels
 (``csrc/packed_conv3d_v2_kernel.cu``) walk depth inside the block so that
 each input plane is staged once per H / W tile: float32 on the CUDA cores,
-bfloat16 on the same ``wgmma`` block as K4's, with three accumulators.
+fed by a TMA ring whose weights are the wrapper's image of the kernel
+(``packed_v2_weights``, built per call), bfloat16 on the same ``wgmma``
+block as K4's, with three accumulators.
 
 The route is picked by dtype alone. The bfloat16 route needs Ci % 16 == 0
 and Co % 8 == 0 (``wgmma``'s k16 steps, 8-channel core matrices) and
@@ -78,6 +80,9 @@ WGMMA_THREADS = 256
 SMEM_PER_BLOCK = 232448
 SMEM_PER_SM = 233472
 DEPTH_CHUNKS = (16, 12, 8, 6, 4)
+# K5's float32 block (csrc/packed_conv3d_v2_kernel.cu): input channels a
+# stage and output channels a block
+V2_CK, V2_CO_B = 16, 32
 # (symbol prefix, channel slice) -> registers a thread of that bf16 kernel
 _REGISTERS = {}
 
@@ -124,6 +129,19 @@ def wgmma_weights(kernel, cout_tiles):
     k = F.pad(kernel.reshape(27, ci, co), (0, cout_tiles * WGMMA_N - co))
     return k.view(27, ci // 16, 2, 8, cout_tiles, WGMMA_N // 8, 8).permute(
         4, 0, 1, 5, 2, 6, 3).contiguous()
+
+
+def packed_v2_weights(kernel):
+    """The float32 kernel [3, 3, 3, Ci, Co] as K5's float32 block fetches
+    it, one bulk copy a stage: [ceil(Co / 32) Cout tiles, ceil(Ci / 16)
+    input-channel slices, 27 taps, 16 input channels, 32 output channels],
+    zero past Ci and Co."""
+    ci, co = kernel.shape[-2:]
+    slices, tiles = -(-ci // V2_CK), -(-co // V2_CO_B)
+    k = F.pad(kernel.reshape(27, ci, co),
+              (0, tiles * V2_CO_B - co, 0, slices * V2_CK - ci))
+    return k.view(27, slices, V2_CK, tiles, V2_CO_B).permute(
+        3, 1, 0, 2, 4).contiguous()
 
 
 def wgmma_plan(order, b, r, pack, h, w, ci, co, sms, regs):
@@ -246,6 +264,21 @@ def _registers(lib, prefix, ck):
     return _REGISTERS[prefix, ck]
 
 
+def library(name):
+    """ctypes handle of wrapper ``name``'s library, built at first use."""
+    library_name, prefix, order = _LIBRARIES[name]
+    signatures = {
+        f"{prefix}_f32": (_POINTERS + _SHAPES + [ctypes.c_void_p],
+                          ctypes.c_int),
+        f"{prefix}_bf16": (_POINTERS + _SHAPES
+                           + [ctypes.c_int] * len(_PLAN_ARGS[order])
+                           + [ctypes.c_void_p], ctypes.c_int),
+        f"{prefix}_bf16_regs": ([ctypes.c_int], ctypes.c_int)}
+    if order == "K5":
+        signatures[f"{prefix}_f32_residency"] = ([], ctypes.c_int)
+    return _build.load(library_name, signatures)
+
+
 def _launch(wrapper, xp, kernel, scale, bias, pack, relu):
     """Launch ``wrapper``'s kernel on checked operands; counts the launch on
     ``wrapper``."""
@@ -255,14 +288,8 @@ def _launch(wrapper, xp, kernel, scale, bias, pack, relu):
                       device=xp.device)
     if out.numel() == 0:
         return out
-    library, prefix, order = _LIBRARIES[wrapper.__name__]
-    lib = _build.load(library, {
-        f"{prefix}_f32": (_POINTERS + _SHAPES + [ctypes.c_void_p],
-                          ctypes.c_int),
-        f"{prefix}_bf16": (_POINTERS + _SHAPES
-                           + [ctypes.c_int] * len(_PLAN_ARGS[order])
-                           + [ctypes.c_void_p], ctypes.c_int),
-        f"{prefix}_bf16_regs": ([ctypes.c_int], ctypes.c_int)})
+    lib = library(wrapper.__name__)
+    _, prefix, order = _LIBRARIES[wrapper.__name__]
     plan = []
     if xp.dtype == torch.bfloat16:
         sms = torch.cuda.get_device_properties(xp.device).multi_processor_count
@@ -270,6 +297,8 @@ def _launch(wrapper, xp, kernel, scale, bias, pack, relu):
         p = wgmma_plan(order, b, r, pack, h, w, cin, cout, sms, regs)
         plan = [p[k] for k in _PLAN_ARGS[order]]
         kernel = wgmma_weights(kernel, p["cout_tiles"])
+    elif order == "K5":
+        kernel = packed_v2_weights(kernel)
     err = getattr(lib, f"{prefix}_{_TYPES[xp.dtype]}")(
         xp.data_ptr(), kernel.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         out.data_ptr(), b, r, pack, h, w, cin, cout, int(bool(relu)), *plan,

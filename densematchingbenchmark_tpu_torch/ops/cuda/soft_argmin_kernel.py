@@ -31,7 +31,9 @@ cost and writes the gradient once: two passes over the volume in all, the
 least a backward that does not keep the probabilities can do. The [D]
 sample values come in as a tensor, as ``vals_ref`` does on the TPU,
 because they are a linspace and not start + i * dilation when
-dilation > 1. There is no H % 8 condition.
+dilation > 1; it is made on the device once per range and kept
+(``disp_sample_tensor``), so a call copies nothing from the host. There is
+no H % 8 condition.
 
 ``soft_argmin_plain`` is the same function in plain PyTorch; its autograd
 is the backward's plain version.
@@ -41,7 +43,7 @@ import os
 
 import torch
 
-from ..cost_volume import disp_sample_values
+from ..cost_volume import disp_sample_tensor
 from . import _build
 
 BLOCK_D = 32
@@ -230,8 +232,8 @@ def fused_soft_argmin(cost_volume, max_disp, start_disp=0, dilation=1,
     ``soft_argmin_plain`` (plain autograd); a CUDA tensor launches the
     Triton kernels (forward here, backward in the backward pass) or
     raises."""
-    vals = torch.as_tensor(disp_sample_values(max_disp, start_disp, dilation),
-                           device=cost_volume.device)
+    vals = disp_sample_tensor(max_disp, start_disp, dilation,
+                              cost_volume.device)
     _check(cost_volume, len(vals), "fused_soft_argmin")
     if cost_volume.device.type == "cpu":
         return soft_argmin_plain(cost_volume, vals, alpha)

@@ -9,7 +9,7 @@ CPU); the other cases are plain PyTorch.
 
 import torch
 
-from .cost_volume import disp_sample_values
+from .cost_volume import disp_sample_tensor
 from .cuda.soft_argmin_kernel import fused_soft_argmin
 
 
@@ -34,12 +34,12 @@ def soft_argmin(cost_volume, disp_sample=None, max_disp=None, start_disp=0,
         if normalize:
             return fused_soft_argmin(cost_volume, max_disp, start_disp,
                                      dilation, alpha)
-        vals = disp_sample_values(max_disp, start_disp, dilation)
+        vals = disp_sample_tensor(max_disp, start_disp, dilation,
+                                  cost_volume.device)
         if len(vals) != cost_volume.shape[1]:
             raise ValueError(f"cost volume has {cost_volume.shape[1]} "
                              f"samples, range defines {len(vals)}")
-        disp_sample = torch.as_tensor(
-            vals, device=cost_volume.device).reshape(1, -1, 1, 1)
+        disp_sample = vals.reshape(1, -1, 1, 1)
     prob = cost_volume.float() * alpha
     if normalize:
         prob = torch.softmax(prob, dim=1)

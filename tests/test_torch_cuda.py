@@ -117,6 +117,37 @@ def test_upsample_kernel_matches_plain_on_card(cuda, low_shape, out):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("low_shape,out,start,dilation,alpha,dtype", [
+    # out_h, out_w not multiples of a tile (16 x 64); D' 40, out_d / D'
+    # not an integer
+    ((1, 40, 13, 50), (150, 51, 197), 0, 1, 1.0, torch.float32),
+    ((2, 7, 9, 33), (30, 35, 130), 3, 2, 2.0, torch.float32),
+    ((1, 24, 6, 20), (64, 21, 79), -4, 2, -0.7, torch.float32),  # alpha < 0
+    ((1, 48, 10, 40), (192, 40, 160), 0, 1, 1.0, torch.bfloat16),
+    ((1, 3, 4, 70), (12, 4, 70), 1, 1, 1.5, torch.float32),     # no H/W
+                                                                # upsample
+    # a patch too large for shared memory (W downsampled 60x): the
+    # kernel's taps read device memory
+    ((1, 40, 3, 2400), (96, 5, 40), 0, 1, 1.0, torch.float32),
+])
+def test_upsample_kernel_ragged_on_card(cuda, low_shape, out, start,
+                                        dilation, alpha, dtype):
+    low = (torch.randn(low_shape, device=cuda) * 3).to(dtype)
+    vals = torch.as_tensor(
+        disp_sample_values(out[0] * dilation, start, dilation), device=cuda)
+    before = kernels.fused_upsample_soft_argmin.launches
+    got = kernels.fused_upsample_soft_argmin(low, *out, start_disp=start,
+                                             dilation=dilation, alpha=alpha)
+    want = kernels.upsample_soft_argmin_plain(low, *out, vals, alpha)
+    torch.cuda.synchronize()
+    assert kernels.fused_upsample_soft_argmin.launches == before + 1
+    assert got.dtype == torch.float32
+    assert got.shape == want.shape == (low_shape[0], *out[1:], 1)
+    # lerps in another order, softmax sums over D in another order: 1e-3 px
+    assert (got - want).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("fused", [False, True])
 def test_tiny_slice_on_card_matches_cpu(cuda, fused):
     over = dict(TINY, **{"model.eval.fused_upsample_argmin": fused})
@@ -238,6 +269,83 @@ def test_packed_conv3d_v2_kernel_matches_plain_on_card(cuda, shape, pack,
     step = BF16_STEP if dtype == torch.bfloat16 else 0.0
     tol = (1e-4 + step) * want.abs().max().item()
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,pack,cout,form,relu", [
+    ((1, 5, 7, 45, 4), 1, 4, "scalar", True),        # Ci 4: half a slice
+    ((2, 3, 9, 33, 2 * 12), 2, 40, "co", False),     # Ci 12: a ragged slice
+    ((1, 5, 6, 70, 4 * 36), 4, 64, "pco", True),     # Ci 36, D 20
+    ((1, 4, 5, 31, 4 * 64), 4, 4, "scalar", False),  # Ci 64, W < 32
+    ((1, 17, 10, 40, 64), 1, 40, "pco", False),      # D 17: past a chunk
+    ((2, 2, 3, 65, 2 * 4), 2, 64, "co", True),       # W 65: a third tile
+    ((1, 9, 13, 37, 4 * 12), 4, 4, "co", True),      # D 36, H 13
+    ((1, 1, 4, 5, 4 * 36), 4, 40, "scalar", True),   # one packed row
+])
+def test_packed_conv3d_v2_float32_widths_on_card(cuda, shape, pack, cout,
+                                                  form, relu):
+    xp, k, scale, bias = packed_inputs(shape, pack, cout, form, shape[3],
+                                       cuda)
+    before = kernels.conv3d_packed_s1_v2.launches
+    got = kernels.conv3d_packed_s1_v2(xp, k, scale, bias, pack=pack,
+                                      relu=relu)
+    want = kernels.conv3d_packed_s1_plain(xp, k, scale, bias, pack, relu)
+    torch.cuda.synchronize()
+    assert kernels.conv3d_packed_s1_v2.launches == before + 1
+    assert got.dtype == torch.float32
+    assert got.shape == want.shape == (*shape[:-1], pack * cout)
+    # 27 * Ci products summed in another order
+    tol = 1e-4 * want.abs().max().item()
+    assert (got - want).abs().max().item() <= tol
+
+
+def _sync_free(fn):
+    """Call ``fn`` once to build and fill its caches, then again under
+    torch.cuda.set_sync_debug_mode("error"), which raises on a
+    synchronising call (a copy from pageable host memory among them)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["upsample_argmin", "upsample_3d",
+                                  "soft_argmin", "packed_v2_f32"])
+def test_regression_ops_issue_no_synchronising_call_on_card(cuda, path):
+    from densematchingbenchmark_tpu_torch.ops.interpolate import upsample_3d
+    low = torch.randn((1, 12, 8, 30), device=cuda)
+    if path == "upsample_argmin":
+        _sync_free(lambda: kernels.fused_upsample_soft_argmin(
+            low, 48, 32, 120, start_disp=2, dilation=2, alpha=1.5))
+    elif path == "upsample_3d":
+        _sync_free(lambda: upsample_3d(low, 48, 32, 120))
+    elif path == "soft_argmin":
+        cost = torch.randn((2, 16, 8, 40), device=cuda, requires_grad=True)
+        _sync_free(lambda: torch.autograd.grad(
+            kernels.fused_soft_argmin(cost, 32, -2, 2, 2.0).sum(), cost))
+    else:
+        xp, k, scale, bias = packed_inputs((1, 3, 6, 40, 4 * 12), 4, 8, "co",
+                                           0, cuda)
+        _sync_free(lambda: (
+            kernels.conv3d_packed_s1_v2(xp, k, pack=4),
+            kernels.conv3d_packed_s1_v2(xp, k, scale, bias, pack=4,
+                                        relu=True)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_tiny_eval_forward_issues_no_synchronising_call_on_card(cuda,
+                                                                fused):
+    model = init_model("PSMNet/scene_flow_f32", device=cuda, seed=0,
+                       **dict(TINY, **{
+                           "model.eval.fused_upsample_argmin": fused}))
+    x = torch.randn((1, 64, 64, 3), device=cuda)
+    _sync_free(lambda: model.forward(x, x))
 
 
 @pytest.mark.cuda

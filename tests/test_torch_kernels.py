@@ -110,6 +110,49 @@ def test_axis_taps_match_pallas_interp_matrix(in_size, out_size):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("low,out,start,dilation", [
+    ((48, 96, 312), (192, 384, 1248), 0, 1),     # the PSMNet path
+    ((7, 9, 33), (30, 35, 130), 3, 2),
+    ((1, 1, 5), (4, 3, 9), 0, 1),
+    ((40, 3, 2400), (96, 5, 40), -2, 1)])
+def test_upsample_kernel_tables_are_exact_and_kept(low, out, start, dilation):
+    from densematchingbenchmark_tpu_torch.ops.cost_volume import (
+        disp_sample_values)
+    from densematchingbenchmark_tpu_torch.ops.cuda import (
+        upsample_argmin_kernel as uk)
+    cpu = torch.device("cpu")
+    got = uk.kernel_tables(*low, *out, start, dilation, cpu)
+    vals = disp_sample_values(out[0] * dilation, start, dilation)
+    for table, n_in, n_out, last in zip(got[:3], low, out,
+                                        (vals, None, None)):
+        i0, i1, w = _axis_taps(n_in, n_out, align_corners=True)
+        t = table.numpy()
+        assert table.dtype == torch.int32 and t.shape == (n_out, 4)
+        np.testing.assert_array_equal(t[:, 0], i0)
+        np.testing.assert_array_equal(t[:, 1], i1)
+        np.testing.assert_array_equal(t[:, 2], w.view(np.int32))
+        np.testing.assert_array_equal(
+            t[:, 3], 0 if last is None else last.view(np.int32))
+    # the largest source patch of one output tile, counted directly
+    for span, table, tile in ((got[3], got[1], uk._TY),
+                              (got[4], got[2], uk._TX)):
+        t = table.numpy()
+        assert span == max(t[min(s + tile, len(t)) - 1, 1] - t[s, 0] + 1
+                           for s in range(0, len(t), tile))
+    # each upsampled depth in the one source interval of its i0, in order,
+    # with the interval's first and last weights
+    itab, dtab = got[5].numpy(), got[0].numpy()
+    assert itab.shape == (max(low[0] - 1, 1), 4)
+    assert [j for ja, jb, _, _ in itab for j in range(ja, jb)] == \
+        list(range(out[0]))
+    for k, (ja, jb, fa, fb) in enumerate(itab):
+        if ja < jb:
+            assert (dtab[ja:jb, 0] == k).all()
+            assert (fa, fb) == (dtab[ja, 2], dtab[jb - 1, 2])
+    again = uk.kernel_tables(*low, *out, start, dilation, cpu)
+    assert all(a is b for a, b in zip(got, again))
+
+
 def test_wrappers_refuse_other_devices():
     # a tensor on neither the CPU nor a GPU: raise, never fall back
     with pytest.raises(ValueError):

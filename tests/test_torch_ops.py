@@ -124,6 +124,59 @@ def test_resize_linear_matches_jax(align_corners, in_shape, out_sizes):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("in_size,out_size,align_corners,dtype", [
+    (12, 48, True, torch.float32), (96, 384, True, torch.float32),
+    (7, 5, False, torch.float32), (5, 9, True, torch.float64)])
+def test_axis_taps_tensors_are_exact_and_kept(in_size, out_size,
+                                              align_corners, dtype):
+    # made once per (sizes, dtype, device), bit for bit _axis_taps' values
+    idx0, idx1, w1 = tinterp._axis_taps(in_size, out_size, align_corners)
+    got = tinterp.axis_taps_tensors(in_size, out_size, align_corners, dtype,
+                                    torch.device("cpu"))
+    assert got[0].dtype == got[1].dtype == torch.int64
+    assert got[2].dtype == dtype
+    np.testing.assert_array_equal(got[0].numpy(), idx0)
+    np.testing.assert_array_equal(got[1].numpy(), idx1)
+    assert torch.equal(got[2], torch.as_tensor(w1, dtype=dtype))
+    again = tinterp.axis_taps_tensors(in_size, out_size, align_corners,
+                                      dtype, torch.device("cpu"))
+    assert all(a is b for a, b in zip(got, again))
+
+
+def test_resize_linear_result_is_unchanged_by_the_kept_taps():
+    # the resize from kept taps equals, bit for bit, one from taps made
+    # afresh, and taps first made under inference_mode serve autograd
+    x = torch.from_numpy(np.random.RandomState(8).randn(2, 5, 6, 7, 3)
+                         .astype(np.float32))
+    sizes, axes = (11, 13, 9), (1, 2, 3)
+    with torch.inference_mode():
+        tinterp.resize_linear(x, (17, 19, 23), axes)
+    want = x
+    for axis, out_size in zip(axes, sizes):
+        i0, i1, w1 = tinterp._axis_taps(want.shape[axis], out_size, True)
+        shape = [1] * want.dim()
+        shape[axis] = out_size
+        w1 = torch.as_tensor(w1).reshape(shape)
+        want = (want.index_select(axis, torch.as_tensor(i0)) * (1 - w1)
+                + want.index_select(axis, torch.as_tensor(i1)) * w1)
+    got = tinterp.resize_linear(x, sizes, axes)
+    assert torch.equal(got, want)
+    y = x.clone().requires_grad_()
+    (grad,) = torch.autograd.grad(
+        tinterp.resize_linear(y, (17, 19, 23), axes).sum(), y)
+    assert torch.isfinite(grad).all()
+
+
+def test_disp_sample_tensor_is_exact_and_kept():
+    with torch.inference_mode():
+        vals = tcv.disp_sample_tensor(12, -3, 2, torch.device("cpu"))
+    assert not vals.is_inference() and vals.dtype == torch.float32
+    np.testing.assert_array_equal(
+        vals.numpy().view(np.int32),
+        tcv.disp_sample_values(12, -3, 2).view(np.int32))
+    assert tcv.disp_sample_tensor(12, -3, 2, torch.device("cpu")) is vals
+
+
 @pytest.mark.parametrize("window", [1, 2, 3, 5])
 def test_avg_pool2d_matches_jax(window):
     x = np.random.RandomState(window).randn(2, 11, 16, 3).astype(np.float32)
