@@ -13,13 +13,20 @@ PyTorch version on the card. Phases, each fatal on failure:
      all at once) and prints the build seconds and ptxas's report; asserts
      HGMMA (wgmma) instructions in the SASS of the bfloat16 K4 and K5
      kernels and none in the CUDA-core kernels (K1, float32 K4 and K5);
-     prints the float32 K5 kernel's registers and blocks per SM as built.
+     prints the float32 K5 kernel's registers and blocks per SM as built,
+     and the float32 block's (K1, K4) registers for each Cout tile.
   3. kernels: each kernel against its plain version at the shapes of its
      path (K1, K2, K3 at the 384x1248 inference shapes; K4 forward and
      backward and the K2 backward at the 256x512 batch-3 training shapes),
      with its time, its plain version's time, a one-call library yardstick
      where there is one, and its bound (K3's counts its exponentials at the
      special-function units' rate beside its FMAs, and says which binds).
+     K1 and K4 (the float32 block) print each shape's launch plan and are
+     also held against a float64 reference at one ragged shape (as K5,
+     below). K1, K4 and K2's forward also give their time over 20 calls in
+     a row (device time, the host's work overlapped), K2 at both of its
+     shapes, and K2's compiled PTX must hold no barrier (bar.sync): its
+     reduction over D stays inside each thread.
   3b. packed: K5 (conv3d_packed_s1_v2) and K4 against
      conv3d_packed_s1_plain at the three cases of the packed-conv
      microbench (pack 4), in float32 and bfloat16 (the tensor-core route),
@@ -28,7 +35,7 @@ PyTorch version on the card. Phases, each fatal on failure:
      bound and cuDNN's F.conv3d, the plain version's time in both dtypes;
      K5's float32 result against a float64 reference (the plain version on
      float64 operands): its error at most 2x the float32 plain version's
-     plus CONV_RTOL of the reference's largest value.
+     plus CONV_RTOL of the reference's largest value (check_f64).
   3d. no synchronising copy: torch.cuda.set_sync_debug_mode("error")
      around a second call (the first fills the caches) of K3, the K2
      forward and backward, upsample_3d, K5 in float32, and the eval forward
@@ -278,10 +285,38 @@ def build_phase():
     assert res > 0, f"K5 float32 residency: CUDA error {-res}"
     print(f"  K5 float32 kernel: {res // 1000} registers a thread, "
           f"{res % 1000} blocks of 256 threads an SM")
+    from densematchingbenchmark_tpu_torch.ops.cuda import conv3d_kernel
+    for name, lib in (("K1", _build.load("conv3d_kernel",
+                                         conv3d_kernel._SIGNATURES)),
+                      ("K4", packed_conv3d_kernel.library(
+                          "conv3d_packed_s1"))):
+        fn = getattr(lib, "conv3d_bn_act_f32_regs" if name == "K1"
+                     else "packed_conv3d_f32_regs")
+        regs = {cob: fn(cob) for cob in (32, 64)}
+        assert all(r > 0 for r in regs.values()), (name, regs)
+        print(f"  {name} float32 block: registers a thread by Cout tile "
+              f"{regs}")
+
+
+def f32_plan_text(prefix, b, r, pack, h, w, ci, co):
+    """The float32 block's launch plan of a call shape, as its wrapper
+    made it (kept per shape)."""
+    from densematchingbenchmark_tpu_torch.ops.cuda import _build
+    from densematchingbenchmark_tpu_torch.ops.cuda import packed_conv3d_kernel as pk
+    from densematchingbenchmark_tpu_torch.ops.cuda.conv3d_kernel import (
+        _SIGNATURES)
+    lib = (_build.load("conv3d_kernel", _SIGNATURES) if prefix == "K1"
+           else pk.library("conv3d_packed_s1"))
+    p = pk.f32_plan(lib, "conv3d_bn_act" if prefix == "K1"
+                    else "packed_conv3d", torch.cuda.current_device(), b, r,
+                    pack, h, w, ci, co)
+    return (f"plan cob {p['cob']} th {p['th']} stages {p['stages']} "
+            f"threads {p['threads']} blocks {p['blocks']}")
 
 
 def check_conv(device, gen):
-    """K1 against conv3d_plain at each trunk shape, relu both ways."""
+    """K1 against conv3d_plain at each trunk shape, relu both ways, and
+    against a float64 reference at a ragged shape."""
     from densematchingbenchmark_tpu_torch.ops.cuda import (conv3d_plain,
                                                            fused_conv3d)
     rows = []
@@ -304,6 +339,7 @@ def check_conv(device, gen):
         x_cf = x.movedim(-1, 1)      # channels_last_3d storage, no copy
         s5, b5 = scale.view(1, -1, 1, 1, 1), bias.view(1, -1, 1, 1, 1)
         ms = time_ms(lambda: fused_conv3d(x, k, scale, bias, relu=True))
+        chain = chained_ms(lambda: fused_conv3d(x, k, scale, bias, relu=True))
         plain = time_ms(lambda: conv3d_plain(x, k, scale, bias, True), 3)
         lib = time_ms(lambda: torch.relu(
             F.conv3d(x_cf, w_oi, padding=1) * s5 + b5))
@@ -311,15 +347,25 @@ def check_conv(device, gen):
         b_ms, b_by = bound_ms(2 * 27 * cin * cout * vox,
                               4 * (vox * (cin + cout) + k.numel() + 2 * cout))
         print(f"K1 fused_conv3d {cin}->{cout} {d}x{h}x{w} (x{per_fwd}/fwd): "
-              f"{ms:.3f} ms, plain {plain:.3f}, F.conv3d {lib:.3f}, bound "
-              f"{b_ms:.3f} ({b_by}), max_abs_err {err:.3g}")
-        rows.append((per_fwd, ms, plain, lib, b_ms, err))
+              f"{ms:.3f} ms, chained {chain:.3f}, plain {plain:.3f}, F.conv3d "
+              f"{lib:.3f}, bound {b_ms:.3f} ({b_by}), max_abs_err {err:.3g}; "
+              + f32_plan_text("K1", 1, d, 1, h, w, cin, cout))
+        rows.append((per_fwd, ms, plain, lib, b_ms, err, chain))
         del x, got, want
+    # a ragged shape (H, W, Cout not multiples of a tile) against float64
+    x = torch.randn((1, 7, 21, 78, 64), device=device, generator=gen)
+    k = torch.randn((3, 3, 3, 64, 36), device=device, generator=gen) * 0.03
+    scale = torch.rand(36, device=device, generator=gen) + 0.5
+    bias = torch.randn(36, device=device, generator=gen)
+    print("K1 fused_conv3d 64->36 7x21x78: " + check_f64(
+        "K1", fused_conv3d, conv3d_plain, (x, k, scale, bias),
+        {"relu": True}))
     total = lambda i: sum(r[0] * r[i] for r in rows)
     return {"unit": "per forward (13 launches at the 4 shapes)",
             "max_abs_err": max(r[5] for r in rows), "ms": total(1),
-            "plain_ms": total(2), "library_ms": total(3),
-            "bound_ms": total(4), "bound_by": "operations"}
+            "chained_ms": total(6), "plain_ms": total(2),
+            "library_ms": total(3), "bound_ms": total(4),
+            "bound_by": "operations"}
 
 
 def check_soft_argmin(device, gen):
@@ -344,16 +390,50 @@ def check_soft_argmin(device, gen):
         err = max(err, e)
     vals = torch.as_tensor(disp_sample_values(d), device=device)
     ms = time_ms(lambda: fused_soft_argmin(cost, d))
+    chain = chained_ms(lambda: fused_soft_argmin(cost, d))
     plain = time_ms(lambda: soft_argmin_plain(cost, vals), 3)
     # per cost value: scale, max, subtract, exp, sum, multiply-add
     b_ms, b_by = bound_ms(6 * cost.numel(),
                           4 * (cost.numel() + d + b * h * w))
+    # the training shape's forward (the path's call under autograd stores
+    # the per-pixel statistics besides)
+    train = torch.randn(TRAIN_ARGMIN_SHAPE, device=device, generator=gen)
+    t_ms = time_ms(lambda: fused_soft_argmin(train, d))
+    t_chain = chained_ms(lambda: fused_soft_argmin(train, d))
+    t_bound = bound_ms(6 * train.numel(), 4 * (train.numel() + d
+                                                + train[:, 0].numel()))[0]
     print(f"K2 fused_soft_argmin {list(ARGMIN_SHAPE)} (x3/fwd): {ms:.3f} ms, "
-          f"plain {plain:.3f}, bound {b_ms:.3f} ({b_by}), "
-          f"max_abs_err {err:.3g}")
+          f"chained {chain:.3f} ms a launch, plain {plain:.3f}, bound "
+          f"{b_ms:.3f} ({b_by}), max_abs_err {err:.3g}; "
+          f"{list(TRAIN_ARGMIN_SHAPE)}: {t_ms:.3f} ms, chained {t_chain:.3f}, "
+          f"bound {t_bound:.3f}; " + soft_argmin_barriers(cost, vals))
+    del train
     return {"unit": "per launch", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain, "library_ms": None, "bound_ms": b_ms,
-            "bound_by": b_by}
+            "chained_ms": chain, "plain_ms": plain, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def soft_argmin_barriers(cost, vals):
+    """Compile K2's forward for ``cost`` as its wrapper launches it (one
+    launch of the Triton kernel, outside the wrapper and its count) and
+    assert that its PTX holds no barrier: the reduction over D stays in
+    each thread's registers. Returns the line's text."""
+    from densematchingbenchmark_tpu_torch.ops.cuda import (
+        soft_argmin_kernel as sak)
+    b, d, h, w = cost.shape
+    triton, kernel, _ = sak._triton_kernels()
+    out = torch.empty((b, h, w, 1), device=cost.device)
+    block_w = 128 * sak.FWD_WARPS
+    compiled = kernel[(triton.cdiv(w, block_w), h, b)](
+        cost, vals, out, out, out, d, h, w, 1.0, STATS=False,
+        DEPTH=sak.FWD_DEPTH, BLOCK_W=block_w, num_warps=sak.FWD_WARPS,
+        num_stages=1)
+    ptx = compiled.asm["ptx"]
+    counts = {k: ptx.count(k) for k in ("bar.sync", "bar.arrive",
+                                        "barrier.sync", "ld.shared",
+                                        "st.shared")}
+    assert not any(counts.values()), counts
+    return f"PTX of the forward: {counts}"
 
 
 def check_upsample(device, gen):
@@ -446,24 +526,34 @@ def check_packed_conv(device, gen):
         w_oi = k.permute(4, 3, 0, 1, 2).contiguous()
         x_cf = x.movedim(-1, 1)      # channels_last_3d storage, no copy
         ms = time_ms(lambda: conv3d_packed_s1(x, k, pack=1))
+        chain = chained_ms(lambda: conv3d_packed_s1(x, k, pack=1))
         plain = time_ms(lambda: conv3d_packed_s1_plain(x, k, pack=1), 3)
         lib = time_ms(lambda: F.conv3d(x_cf, w_oi, padding=1))
         vox = TRAIN_BATCH * d * h * w
         b_ms, b_by = bound_ms(2 * 27 * cin * cout * vox,
                               4 * (vox * (cin + cout) + k.numel()))
         print(f"K4 conv3d_packed_s1 {cin}->{cout} {TRAIN_BATCH}x{d}x{h}x{w} "
-              f"(x{per_step}/step): {ms:.3f} ms, plain {plain:.3f}, "
-              f"F.conv3d {lib:.3f}, bound {b_ms:.3f} ({b_by}), max_abs_err "
-              f"{err:.3g}")
-        rows.append((per_step, ms, plain, lib, b_ms, err))
+              f"(x{per_step}/step): {ms:.3f} ms, chained {chain:.3f}, plain "
+              f"{plain:.3f}, F.conv3d {lib:.3f}, bound {b_ms:.3f} ({b_by}), "
+              f"max_abs_err {err:.3g}; " + f32_plan_text(
+                  "K4", TRAIN_BATCH, d, 1, h, w, cin, cout))
+        rows.append((per_step, ms, plain, lib, b_ms, err, chain))
         del x
+    # a ragged shape at pack 4 (a [P*Co] epilogue, Cout 68: two Cout tiles)
+    # against float64
+    xp = torch.randn((2, 5, 13, 70, 4 * 12), device=device, generator=gen)
+    k = torch.randn((3, 3, 3, 12, 68), device=device, generator=gen) * 0.1
+    scale, bias = epilogue("pco", 4, 68, device, gen)
+    print("K4 conv3d_packed_s1 12->68 2x20x13x70 pack 4: " + check_f64(
+        "K4", conv3d_packed_s1, conv3d_packed_s1_plain, (xp, k, scale, bias),
+        {"pack": 4, "relu": True}))
     err = max(max(r[5] for r in rows), check_packed_conv_backward(device,
                                                                   gen))
     total = lambda i: sum(r[0] * r[i] for r in rows)
     return {"unit": "per train step (13 launches at the 4 shapes)",
-            "max_abs_err": err, "ms": total(1), "plain_ms": total(2),
-            "library_ms": total(3), "bound_ms": total(4),
-            "bound_by": "operations"}
+            "max_abs_err": err, "ms": total(1), "chained_ms": total(6),
+            "plain_ms": total(2), "library_ms": total(3),
+            "bound_ms": total(4), "bound_by": "operations"}
 
 
 def check_packed_conv_backward(device, gen):
@@ -585,24 +675,22 @@ def packed_bound(shape, cin, cout, dtype):
                     + 4 * 2 * MICRO_PACK * cout, peak)
 
 
-def check_packed_v2_f64(xp, k, pack):
-    """K5's float32 result for the microbench's call (unit scale, no ReLU)
-    against a float64 reference, conv3d_packed_s1_plain on float64
-    operands: its error must be at most twice the float32 plain version's
-    plus CONV_RTOL of the reference's largest value. Returns the line's
-    text."""
-    from densematchingbenchmark_tpu_torch.ops.cuda import (
-        conv3d_packed_s1_plain, conv3d_packed_s1_v2)
-    ref = conv3d_packed_s1_plain(xp.double(), k.double(), pack=pack)
-    got = conv3d_packed_s1_v2(xp, k, pack=pack)
-    plain = conv3d_packed_s1_plain(xp, k, pack=pack)
+def check_f64(label, kernel_fn, plain_fn, args, kwargs):
+    """``kernel_fn(*args, **kwargs)`` on float32 operands against a float64
+    reference, ``plain_fn`` on the same operands in float64: its error must
+    be at most twice the float32 plain version's plus CONV_RTOL of the
+    reference's largest value. Returns the line's text."""
+    wide = [a.double() if torch.is_tensor(a) else a for a in args]
+    ref = plain_fn(*wide, **kwargs)
+    got = kernel_fn(*args, **kwargs)
+    plain = plain_fn(*args, **kwargs)
     torch.cuda.synchronize()
     e_got = (got.double() - ref).abs().max().item()
     e_plain = (plain.double() - ref).abs().max().item()
     tol = 2 * e_plain + CONV_RTOL * ref.abs().max().item()
-    assert e_got <= tol, ("float64", e_got, e_plain, tol)
+    assert e_got <= tol, ("float64", label, e_got, e_plain, tol)
     del ref, got, plain
-    return (f"vs float64: K5 {e_got:.3g}, float32 plain {e_plain:.3g} "
+    return (f"vs float64: {label} {e_got:.3g}, float32 plain {e_plain:.3g} "
             f"(tolerance {tol:.3g})")
 
 
@@ -654,7 +742,9 @@ def check_packed_v2(device, gen):
             plain = time_ms(lambda: conv3d_packed_s1_plain(xp, k, pack=pack),
                             3)
             if dtype == torch.float32:
-                line += "; " + check_packed_v2_f64(xp, k, pack)
+                line += "; " + check_f64(
+                    "K5", conv3d_packed_s1_v2, conv3d_packed_s1_plain,
+                    (xp, k), {"pack": pack})
                 w_oi = k.permute(4, 3, 0, 1, 2).contiguous(
                     memory_format=torch.channels_last_3d)
                 x_cf = x.movedim(-1, 1)  # channels_last_3d storage, no copy

@@ -78,7 +78,20 @@
 
 #include <cstdint>
 
+#include "tma_ring.cuh"
+
 namespace conv3d_wgmma {
+
+using tma_ring::bulk_load;
+using tma_ring::encode_tiled;
+using tma_ring::EncodeTiled;
+using tma_ring::mbar_arrive;
+using tma_ring::mbar_expect_tx;
+using tma_ring::mbar_init;
+using tma_ring::mbar_wait;
+using tma_ring::NO_ENCODE;
+using tma_ring::smem_u32;
+using tma_ring::tma_load_5d;
 
 constexpr int TH = 4;               // output rows per block
 constexpr int TW = 64;              // output columns per block (wgmma M)
@@ -121,70 +134,11 @@ __host__ __device__ constexpr int smem_bytes(int ci, int ck, int stages) {
          16 * stages + 8;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// One TMA copy of a box of the 5-D tensor map into shared memory,
-// completing on the barrier.
-__device__ __forceinline__ void tma_load_5d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3), "r"(c4)
-      : "memory");
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
       : "r"(addr));
-}
-
-// One bulk copy of `bytes` (a multiple of 16) contiguous bytes into shared
-// memory, completing on the barrier.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
 }
 
 // Descriptor of a B slab at shared address `addr`: no swizzle, K-major.
@@ -328,7 +282,7 @@ conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       mbar_init(bars + 8 * (g.stages + s), THREADS);
     }
     mbar_init(wbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    tma_ring::mbar_fence_init();
     // the block's Cout tile of the weight image, one bulk copy
     mbar_expect_tx(wbar, wbytes);
     bulk_load(wsm, w + static_cast<long long>(co0 / N) * (wbytes / 2),
@@ -443,32 +397,6 @@ conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                 co0, wg, warp, lane);
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
-// (no link against libcuda).
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// Error codes beside CUDA's: no entry point found, or the tensor map
-// refused (1000 + the CUresult).
-constexpr int NO_ENCODE = 999;
-
 template <int CK, int NACC>
 int launch_ck(const __nv_bfloat16* x, const __nv_bfloat16* w,
               const float* scale, const float* bias, __nv_bfloat16* out,
@@ -501,9 +429,9 @@ int launch_ck(const __nv_bfloat16* x, const __nv_bfloat16* w,
       CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (res != CUDA_SUCCESS) return 1000 + static_cast<int>(res);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      conv3d_wgmma_kernel<CK, NACC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  static int allowed[tma_ring::MAX_DEVICES];
+  const cudaError_t attr =
+      tma_ring::allow_smem(conv3d_wgmma_kernel<CK, NACC>, MAX_SMEM, allowed);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   conv3d_wgmma_kernel<CK, NACC><<<blocks, THREADS, smem, stream>>>(
       map, w, scale, bias, out, g);

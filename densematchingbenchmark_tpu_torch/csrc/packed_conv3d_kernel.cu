@@ -15,8 +15,9 @@
 // input depth z at packed row z / P, slot z % P, output depth d at row
 // d / P, slot d % P, the epilogue's scale and bias by the same packed
 // channel.
-// - float32: K1's implicit-GEMM block on the CUDA cores (conv3d_tile::run,
-//   which says what bounds it and how the design meets it).
+// - float32: the float32 block on the CUDA cores that K1 runs too
+//   (conv3d_tile.cuh, which says what bounds it and how the design meets
+//   it), with the caller's launch plan.
 // - bfloat16: the wgmma block of conv3d_wgmma.cuh in K4's order, one output
 //   depth per block with its three input planes staged through the TMA
 //   ring; the launch plan (ops/cuda/packed_conv3d_kernel.py::wgmma_plan)
@@ -29,34 +30,39 @@
 #include "conv3d_tile.cuh"
 #include "conv3d_wgmma.cuh"
 
-namespace {
-
-__global__ void __launch_bounds__(conv3d_tile::NT)
-packed_conv3d_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ scale,
-                     const float* __restrict__ bias, float* __restrict__ out,
-                     int R, int P, int H, int W, int Cin, int Cout,
-                     int relu) {
-  conv3d_tile::run(x, w, scale, bias, out, R, P, H, W, Cin, Cout, relu);
-}
-
-}  // namespace
-
-// xp [B, R, H, W, P*Cin], w [3, 3, 3, Cin, Cout] (true, unpacked), out
-// [B, R, H, W, P*Cout], all float32; scale / bias [P*Cout] float32; all
-// contiguous, 16-byte aligned, with Cin % 4 == 0, Cout % 4 == 0 and
-// B * R * P <= 65535 (checked by the caller). Returns the CUDA error code of
-// the launch (0 on success).
+// xp [B, R, H, W, P*Cin] and out [B, R, H, W, P*Cout] float32; w the
+// wrapper's image of the true kernel [3, 3, 3, Cin, Cout]
+// (ops/cuda/packed_conv3d_kernel.py::conv3d_f32_weights); scale / bias
+// [P*Cout] float32; all contiguous, 16-byte aligned, with Cin % 4 == 0 and
+// Cout % 4 == 0 (checked by the caller); the launch plan's Cout tile cob,
+// rows a block th, tiles, ring stages, blocks and dynamic shared memory
+// bytes (conv3d_f32_plan). Returns the CUDA error code of the launch
+// (cudaErrorInvalidValue, launching nothing, for a plan the block cannot
+// take), or 999 / 1000 + the CUresult when the TMA tensor map cannot be
+// made.
 extern "C" int packed_conv3d_f32(const float* x, const float* w,
                                  const float* scale, const float* bias,
                                  float* out, int B, int R, int P, int H,
-                                 int W, int Cin, int Cout, int relu,
-                                 void* stream) {
-  packed_conv3d_kernel<<<conv3d_tile::grid(B, R * P, H, W, Cout),
-                         conv3d_tile::NT, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      x, w, scale, bias, out, R, P, H, W, Cin, Cout, relu);
-  return static_cast<int>(cudaGetLastError());
+                                 int W, int Cin, int Cout, int relu, int cob,
+                                 int th, int tiles_h, int tiles_w, int stages,
+                                 int blocks, int smem, void* stream) {
+  const conv3d_tile::Geometry g{B, R, P, H, W, Cin, Cout, relu,
+                                th, tiles_h, tiles_w, stages};
+  return conv3d_tile::launch(x, w, scale, bias, out, g, cob, blocks, smem,
+                             stream);
+}
+
+// Blocks of the float32 kernel with Cout tile cob resident on an SM of the
+// current device at th rows a block and smem bytes, or minus the CUDA error
+// code.
+extern "C" int packed_conv3d_f32_residency(int cob, int th, int smem) {
+  return conv3d_tile::residency(cob, th, smem);
+}
+
+// Registers a thread of the float32 kernel with Cout tile cob, or minus the
+// CUDA error code.
+extern "C" int packed_conv3d_f32_regs(int cob) {
+  return conv3d_tile::registers(cob);
 }
 
 // The same function in bfloat16 (x, out, and w as the wrapper's

@@ -66,12 +66,13 @@
 
 #include "conv3d_tile.cuh"
 #include "conv3d_wgmma.cuh"
+#include "tma_ring.cuh"
 
 namespace {
 
 using conv3d_tile::load4;
 using conv3d_tile::store4;
-namespace wg = conv3d_wgmma;
+namespace ring = tma_ring;
 
 constexpr int TH = 4;            // output rows per block and per thread
 constexpr int TW = 32;           // output columns per block
@@ -178,7 +179,7 @@ packed_conv3d_v2_kernel(const __grid_constant__ CUtensorMap xmap,
                         int R, int P, int H, int W, int Cin, int Cout,
                         int relu, int dc, int chunks) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t raw = ring::smem_u32(smem_raw);
   const uint32_t base = (raw + ALIGN - 1) & ~static_cast<uint32_t>(ALIGN - 1);
   const float* const smem =
       reinterpret_cast<const float*>(smem_raw + (base - raw));
@@ -210,19 +211,19 @@ packed_conv3d_v2_kernel(const __grid_constant__ CUtensorMap xmap,
     const int sl = s % slices;
     const uint32_t full = bars + 8 * slot;
     const uint32_t dst = base + slot * STAGE_BYTES;
-    wg::mbar_expect_tx(full, STAGE_BYTES);
-    wg::tma_load_5d(dst, &xmap, full, sl * CK, z % P, x0 - 1, y0 - 1,
+    ring::mbar_expect_tx(full, STAGE_BYTES);
+    ring::tma_load_5d(dst, &xmap, full, sl * CK, z % P, x0 - 1, y0 - 1,
                     b * R + z / P);
-    wg::bulk_load(dst + HALO_BYTES,
+    ring::bulk_load(dst + HALO_BYTES,
                   w + ((long long)blockIdx.z * slices + sl) * W_FLOATS,
                   W_BYTES, full);
   };
   if (t == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      wg::mbar_init(bars + 8 * s, 1);
-      wg::mbar_init(bars + 8 * (STAGES + s), NT);
+      ring::mbar_init(bars + 8 * s, 1);
+      ring::mbar_init(bars + 8 * (STAGES + s), NT);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    ring::mbar_fence_init();
     for (int s = 0; s < min(STAGES, steps); ++s) load_stage(s);
   }
   __syncthreads();                              // barriers initialised
@@ -240,12 +241,12 @@ packed_conv3d_v2_kernel(const __grid_constant__ CUtensorMap xmap,
     // step s - 1's slot is free once every thread has read it: refill it
     // with step s - 1 + STAGES
     if (t == 0 && s > 0 && s - 1 + STAGES < steps) {
-      wg::mbar_wait(bars + 8 * (STAGES + (s - 1) % STAGES),
+      ring::mbar_wait(bars + 8 * (STAGES + (s - 1) % STAGES),
                     ((s - 1) / STAGES) & 1);
       load_stage(s - 1 + STAGES);
     }
     const int slot = s % STAGES;
-    wg::mbar_wait(bars + 8 * slot, (s / STAGES) & 1);
+    ring::mbar_wait(bars + 8 * slot, (s / STAGES) & 1);
     const float* const hs = smem + slot * (STAGE_BYTES / 4);
     const float* const ws = hs + HALO_BYTES / 4;
     const int z = zs + s / slices;
@@ -258,7 +259,7 @@ packed_conv3d_v2_kernel(const __grid_constant__ CUtensorMap xmap,
       compute_stage<2>(hs, ws, acc, vx, cg);
     else
       compute_stage<-1>(hs, ws, acc, vx, cg);
-    wg::mbar_arrive(bars + 8 * (STAGES + slot));  // stage read
+    ring::mbar_arrive(bars + 8 * (STAGES + slot));  // stage read
     if (s % slices == slices - 1) {
       // plane z consumed: output z - 1 is complete
       if (z - 1 >= d0)
@@ -301,6 +302,23 @@ inline int depth_chunk(int D, long long tiles, int slots) {
   return best;
 }
 
+// Resident blocks on the current device: SMs x blocks per SM (the built
+// kernel's registers and the shared memory bound it), read once per device
+// after the kernel's shared-memory limit is set there.
+inline int resident_blocks() {
+  static int slots[ring::MAX_DEVICES];
+  const int dev = ring::current_device();
+  const bool kept = dev >= 0 && dev < ring::MAX_DEVICES;
+  if (kept && slots[dev] > 0) return slots[dev];
+  int sms = 0, per_sm = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, packed_conv3d_v2_kernel, NT, SMEM_BYTES);
+  const int n = sms * per_sm > 0 ? sms * per_sm : 1;
+  if (kept) slots[dev] = n;
+  return n;
+}
+
 }  // namespace
 
 // xp [B, R, H, W, P*Cin] and out [B, R, H, W, P*Cout] float32; w the
@@ -315,8 +333,8 @@ extern "C" int packed_conv3d_v2_f32(const float* x, const float* w,
                                     float* out, int B, int R, int P, int H,
                                     int W, int Cin, int Cout, int relu,
                                     void* stream) {
-  const wg::EncodeTiled encode = wg::encode_tiled();
-  if (encode == nullptr) return wg::NO_ENCODE;
+  const ring::EncodeTiled encode = ring::encode_tiled();
+  if (encode == nullptr) return ring::NO_ENCODE;
   // the packed volume, innermost first: channels, slot, W, H, packed rows
   // of every batch item
   const cuuint64_t ci = static_cast<cuuint64_t>(Cin);
@@ -335,21 +353,11 @@ extern "C" int packed_conv3d_v2_f32(const float* x, const float* w,
       CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (res != CUDA_SUCCESS) return 1000 + static_cast<int>(res);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      packed_conv3d_v2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+  static int allowed[ring::MAX_DEVICES];
+  const cudaError_t attr =
+      ring::allow_smem(packed_conv3d_v2_kernel, SMEM_BYTES, allowed);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  // resident blocks on the card: SMs x blocks per SM (the built kernel's
-  // registers and the shared memory bound it)
-  static int slots = 0;
-  if (slots == 0) {
-    int device = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&device);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, packed_conv3d_v2_kernel, NT, SMEM_BYTES);
-    slots = sms * per_sm > 0 ? sms * per_sm : 1;
-  }
+  const int slots = resident_blocks();
   const int D = R * P;
   const long long tiles = (long long)((H + TH - 1) / TH) *
                           ((W + TW - 1) / TW) * ((Cout + CO_B - 1) / CO_B) *

@@ -50,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tma_ring.cuh"    // allow_smem: the per-device shared-memory limit
+
 namespace {
 
 constexpr int TY = 16;            // output rows per block
@@ -269,18 +271,18 @@ extern "C" int upsample_soft_argmin_f32(const float* low, const void* dtab,
   if (staged) {
     smem += tables;
     if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        upsample_soft_argmin_kernel<true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    static int allowed[tma_ring::MAX_DEVICES];
+    const cudaError_t attr = tma_ring::allow_smem(
+        upsample_soft_argmin_kernel<true>, MAX_SMEM, allowed);
     if (attr != cudaSuccess) return static_cast<int>(attr);
     upsample_soft_argmin_kernel<true><<<blocks, NT, smem, s>>>(
         low, d, it, h, w, out, Din, Hin, Win, Dout, Hout, Wout, SR, SC, scale);
   } else {
     if (tables > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
     if (tables > 48 * 1024) {
-      static const cudaError_t attr = cudaFuncSetAttribute(
-          upsample_soft_argmin_kernel<false>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+      static int allowed[tma_ring::MAX_DEVICES];
+      const cudaError_t attr = tma_ring::allow_smem(
+          upsample_soft_argmin_kernel<false>, MAX_SMEM, allowed);
       if (attr != cudaSuccess) return static_cast<int>(attr);
     }
     upsample_soft_argmin_kernel<false><<<blocks, NT, tables, s>>>(

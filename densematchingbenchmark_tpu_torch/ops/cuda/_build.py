@@ -98,12 +98,15 @@ def check_launch(err, what):
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def current_stream(device=None):
-    """The current CUDA stream of ``device`` (default: the current device)
-    as a pointer for a launch, read without making a Stream object (which
-    costs a launch several microseconds)."""
+def current_stream(device):
+    """The current CUDA stream of ``device`` (a CUDA torch.device; an index
+    of None is the current device) as a pointer for a launch, read without
+    making a Stream object (which costs a launch several microseconds).
+    A launch passes its operand's device and runs under
+    ``torch.cuda.device`` of it: a kernel runs on the current device,
+    whatever stream it is given."""
     import torch
-    index = getattr(device, "index", None)
+    index = device.index
     if index is None:
         index = torch.cuda.current_device()
     return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))

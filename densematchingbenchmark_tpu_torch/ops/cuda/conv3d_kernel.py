@@ -4,9 +4,11 @@ Replaces the TPU kernel densematchingbenchmark_tpu/ops/pallas/
 conv3d_kernel.py::fused_conv3d (body ``_kernel``): the eval-mode
 conv + folded BatchNorm (+ReLU) unit of the PSMNet aggregation trunk, 13
 launches per forward. Hopper kernel: ``csrc/conv3d_kernel.cu`` (CUDA C++,
-sm_90a), an implicit GEMM on the CUDA cores in float32 whose block it
-shares with K4 (``csrc/conv3d_tile.cuh``); the note there says what bounds
-it (the f32 FMA rate) and how the design meets it.
+sm_90a), the float32 block on the CUDA cores that K4's float32 route runs
+too (``csrc/conv3d_tile.cuh``); the note there says what bounds it (the f32
+FMA rate) and how the design meets it. Its weight image and launch plan are
+K4's (``packed_conv3d_kernel.conv3d_f32_weights`` and ``f32_plan``, pack
+1).
 
 ``conv3d_plain`` is the same function in plain PyTorch: the sum over the 27
 taps of a shifted [N, Cin] x [Cin, Cout] product, the arithmetic the kernel
@@ -21,9 +23,12 @@ import torch.nn.functional as F
 from . import _build
 
 _SIGNATURES = {
+    # pointers, the shapes and relu (7), the launch plan (7), the stream
     "conv3d_bn_act_f32": (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_void_p],
         ctypes.c_int),
+    "conv3d_bn_act_f32_residency": ([ctypes.c_int] * 3, ctypes.c_int),
+    "conv3d_bn_act_f32_regs": ([ctypes.c_int], ctypes.c_int),
 }
 
 
@@ -83,16 +88,25 @@ def fused_conv3d(x, kernel, scale=None, bias=None, relu=False):
             raise ValueError("fused_conv3d: operands must be contiguous and "
                              "16-byte aligned")
     b, d, h, w, _ = x.shape
-    if b * d > 65535 or x.numel() >= 2 ** 31:
+    if x.numel() >= 2 ** 31 or x.numel() // cin * cout >= 2 ** 31:
         raise ValueError(f"fused_conv3d: volume {tuple(x.shape)} too large")
     out = torch.empty((b, d, h, w, cout), dtype=torch.float32,
                       device=x.device)
     if out.numel() == 0:
         return out
-    lib = _build.load("conv3d_kernel", _SIGNATURES)
-    err = lib.conv3d_bn_act_f32(
-        *(t.data_ptr() for t in tensors), out.data_ptr(), b, d, h, w, cin,
-        cout, int(bool(relu)), _build.current_stream())
+    # the weight image and plan are K4's (that module imports this one)
+    from .packed_conv3d_kernel import F32_PLAN_ARGS, conv3d_f32_weights, \
+        f32_plan
+    with torch.cuda.device(x.device):
+        lib = _build.load("conv3d_kernel", _SIGNATURES)
+        plan = f32_plan(lib, "conv3d_bn_act", x.device.index, b, d, 1, h, w,
+                        cin, cout)
+        image = conv3d_f32_weights(kernel, plan["cob"])
+        err = lib.conv3d_bn_act_f32(
+            x.data_ptr(), image.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), b, d, h, w, cin, cout,
+            int(bool(relu)), *(plan[k] for k in F32_PLAN_ARGS),
+            _build.current_stream(x.device))
     _build.check_launch(err, "fused_conv3d")
     fused_conv3d.launches += 1
     return out

@@ -8,9 +8,14 @@ the 13 trunk units of PSMNet's aggregator in training (pack 1, float32, 13
 launches per train step) and the v1 row of the packed-conv microbench
 (tools/microbench_packed.py, pack 4). Hopper kernels
 (``csrc/packed_conv3d_kernel.cu``, CUDA C++, sm_90a), the packed layout as
-addressing in both: float32 on K1's implicit-GEMM block on the CUDA cores
-(``csrc/conv3d_tile.cuh``), bfloat16 on the tensor cores (``wgmma`` fed by
-a TMA ring, ``csrc/conv3d_wgmma.cuh``), one output depth per block.
+addressing in both: float32 on the CUDA cores through the float32 block K1
+runs too (``csrc/conv3d_tile.cuh``: a TMA ring, a register window along W,
+all of Cout <= 64 in one block), bfloat16 on the tensor cores (``wgmma``
+fed by a TMA ring, ``csrc/conv3d_wgmma.cuh``), one output depth per block.
+The float32 block takes the wrapper's image of the kernel
+(``conv3d_f32_weights``, built per call) and a launch plan per shape
+(``conv3d_f32_plan``: Cout tile, rows a block, ring stages, grid) chosen
+with each candidate's blocks per SM as the built kernel reports them.
 
 ``conv3d_packed_s1_v2`` (K5) replaces ``conv3d_packed_s1_pallas_v2`` (body
 ``_kernel_v2``, the rolling-DMA ring): the same function, forward only, as
@@ -50,6 +55,7 @@ to ``xp.dtype``; on the CPU it is differentiable by plain autograd.
 """
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -63,6 +69,9 @@ _TYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _PLAN_ARGS = {"K4": ("ck", "stages", "tiles_h", "tiles_w", "blocks", "smem"),
               "K5": ("ck", "stages", "dc", "chunks", "tiles_h", "tiles_w",
                      "blocks", "smem")}
+# ... and the float32 block's (K1, and K4 in float32)
+F32_PLAN_ARGS = ("cob", "th", "tiles_h", "tiles_w", "stages", "blocks",
+                 "smem")
 _POINTERS = [ctypes.c_void_p] * 5
 _SHAPES = [ctypes.c_int] * 8
 # wrapper name -> (library, symbol prefix, order of the bfloat16 block)
@@ -83,6 +92,14 @@ DEPTH_CHUNKS = (16, 12, 8, 6, 4)
 # K5's float32 block (csrc/packed_conv3d_v2_kernel.cu): input channels a
 # stage and output channels a block
 V2_CK, V2_CO_B = 16, 32
+# The float32 block of K1 and K4 (csrc/conv3d_tile.cuh): output columns a
+# block and a thread, output channels a thread, input channels a stage,
+# halo columns staged, the most threads a block, its Cout tiles
+F32_TW, F32_CW, F32_CO_T, F32_CK, F32_HC = 32, 16, 4, 8, 34
+F32_MAX_THREADS = 256
+# warps an SM needs before the plan counts its FMA rate as full
+F32_FULL_WARPS = 16
+F32_COUT_TILES = (32, 64)
 # (symbol prefix, channel slice) -> registers a thread of that bf16 kernel
 _REGISTERS = {}
 
@@ -144,6 +161,105 @@ def packed_v2_weights(kernel):
         3, 1, 0, 2, 4).contiguous()
 
 
+def conv3d_f32_weights(kernel, cob):
+    """The float32 kernel [3, 3, 3, Ci, Co] as the float32 block fetches
+    it, one bulk copy a stage: [ceil(Co / cob) Cout tiles, 3 depth taps,
+    ceil(Ci / 8) input-channel slices, 9 (dh, dw) taps, 8 input channels,
+    cob output channels], zero past Ci and Co."""
+    ci, co = kernel.shape[-2:]
+    slices, tiles = -(-ci // F32_CK), -(-co // cob)
+    k = kernel.reshape(3, 9, ci, co)
+    if ci % F32_CK or co % cob:
+        k = F.pad(k, (0, tiles * cob - co, 0, slices * F32_CK - ci))
+    return k.view(3, 9, slices, F32_CK, tiles, cob).permute(
+        4, 0, 2, 1, 3, 5).contiguous()
+
+
+def f32_threads(cob, th):
+    """Threads of a float32 block: cob / 4 channel groups x 2 column groups
+    x th rows."""
+    return cob // F32_CO_T * (F32_TW // F32_CW) * th
+
+
+def f32_smem(cob, th, stages):
+    """Dynamic shared memory of a float32 block, as the kernel lays it out
+    (``smem_bytes`` in csrc/conv3d_tile.cuh, which refuses less): 128 bytes
+    of alignment slack, then per stage the weights (9 taps x 8 x cob
+    float32) and the halo box ((th + 2) x 34 x 8 float32, rounded up to 128
+    bytes), then a full mbarrier and a release counter a stage."""
+    weights = 9 * F32_CK * cob * 4
+    halo = _round_up((th + 2) * F32_HC * F32_CK * 4, 128)
+    return 128 + stages * (weights + halo) + 16 * stages
+
+
+def conv3d_f32_plan(b, r, pack, h, w, ci, co, sms, residency):
+    """Launch plan of the float32 block on xp [b, r, h, w, pack*ci] ->
+    pack*co channels, on a card of ``sms`` SMs, where ``residency(cob, th,
+    smem)`` is the blocks of that kernel an SM holds (on the card, the
+    built kernel's cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+
+    The Cout tile cob: 32 for Co <= 32, else 64 (one block covers all of
+    Co <= 64, so its halo is staged once). Rows a block th (from the most
+    that 256 threads allow down to 2) and ring stages (3 or 2): the pair
+    that minimises the busiest SM's time, ceil(blocks / sms) blocks run
+    ``residency`` at a time, each taking time in proportion to its rows
+    plus two (its halo rows; a block's weights and prologue cost the same
+    at any th), and longer while its SM holds fewer than F32_FULL_WARPS
+    warps; on a tie more stages, then more rows. The grid is 1-D, blocks
+    ordered output depth fastest, then batch, W tile, H tile, Cout tile.
+    Returns {cob, th, stages, tiles_h, tiles_w, cout_tiles, threads,
+    blocks, smem}.
+    """
+    cob = F32_COUT_TILES[0] if co <= F32_COUT_TILES[0] else F32_COUT_TILES[1]
+    cout_tiles, tiles_w = -(-co // cob), -(-w // F32_TW)
+    best, best_key = None, None
+    th = F32_MAX_THREADS // f32_threads(cob, 1)
+    while th >= 2:
+        threads = f32_threads(cob, th)
+        tiles_h = -(-h // th)
+        blocks = cout_tiles * tiles_h * tiles_w * b * r * pack
+        for stages in (3, 2):
+            smem = f32_smem(cob, th, stages)
+            per_sm = residency(cob, th, smem) if smem <= SMEM_PER_BLOCK else 0
+            if per_sm < 1:
+                continue
+            load = -(-blocks // sms)             # blocks of the busiest SM
+            live = min(load, per_sm)
+            warps = min(1.0, live * threads / (32 * F32_FULL_WARPS))
+            cost = -(-load // per_sm) * live * (th + 2) / warps
+            key = (cost, -stages, -th)
+            if best_key is None or key < best_key:
+                best_key = key
+                best = {"cob": cob, "th": th, "stages": stages,
+                        "tiles_h": tiles_h, "tiles_w": tiles_w,
+                        "cout_tiles": cout_tiles, "threads": threads,
+                        "blocks": blocks, "smem": smem}
+        th //= 2
+    if best is None:
+        raise RuntimeError("float32 conv block: no launch plan fits an SM")
+    if best["blocks"] >= 2 ** 31:
+        raise ValueError(f"float32 conv block: {best['blocks']} blocks "
+                         "exceed the grid")
+    return best
+
+
+@functools.lru_cache(maxsize=256)
+def f32_plan(lib, prefix, device_index, b, r, pack, h, w, ci, co):
+    """``conv3d_f32_plan`` for one call shape on a device, its residency
+    read from library ``lib``'s built kernel (``<prefix>_f32_residency``)
+    on that device; kept per (library, device, shape). Call it with that
+    device current."""
+    def residency(cob, th, smem):
+        n = getattr(lib, f"{prefix}_f32_residency")(cob, th, smem)
+        if n < 0:
+            raise RuntimeError(f"{prefix}_f32: CUDA error {-n} reading the "
+                               "kernel's residency")
+        return n
+    sms = torch.cuda.get_device_properties(
+        device_index).multi_processor_count
+    return conv3d_f32_plan(b, r, pack, h, w, ci, co, sms, residency)
+
+
 def wgmma_plan(order, b, r, pack, h, w, ci, co, sms, regs):
     """Launch plan of the bfloat16 block for ``order`` "K4" (one output
     depth per block, depth fastest in the grid) or "K5" (a chunk of output
@@ -185,14 +301,22 @@ def wgmma_plan(order, b, r, pack, h, w, ci, co, sms, regs):
             "smem": _wgmma_smem(ci, stages)}
 
 
+@functools.lru_cache(maxsize=64)
+def _filled(value, n, device):
+    """float32 [n] of ``value`` on ``device``, made once per key and kept
+    (usable under autograd; callers must not write to it)."""
+    with torch.inference_mode(False):
+        return torch.full((n,), value, dtype=torch.float32, device=device)
+
+
 def full_epilogue(v, pack, co, device):
     """A scalar, [Co] or [pack*Co] epilogue term -> float32 [pack*Co], as
     JAX's ``_full_epilogue``; differentiable in ``v`` when it is a tensor.
-    A Python number is filled on ``device``: a copy from the host would make
-    every launch wait for the work queued before it."""
+    A Python number is filled on ``device`` once per (value, size, device)
+    and kept: a copy from the host would make every launch wait for the
+    work queued before it, and a fill per call costs a launch."""
     if isinstance(v, (int, float)):
-        return torch.full((pack * co,), float(v), dtype=torch.float32,
-                          device=device)
+        return _filled(float(v), pack * co, torch.device(device))
     v = torch.as_tensor(v, dtype=torch.float32, device=device)
     if v.numel() == 1 and v.dim() <= 1:
         return v.reshape(()).expand(pack * co)
@@ -267,42 +391,55 @@ def _registers(lib, prefix, ck):
 def library(name):
     """ctypes handle of wrapper ``name``'s library, built at first use."""
     library_name, prefix, order = _LIBRARIES[name]
+    f32_plan_ints = [ctypes.c_int] * len(F32_PLAN_ARGS) if order == "K4" \
+        else []
     signatures = {
-        f"{prefix}_f32": (_POINTERS + _SHAPES + [ctypes.c_void_p],
-                          ctypes.c_int),
+        f"{prefix}_f32": (_POINTERS + _SHAPES + f32_plan_ints
+                          + [ctypes.c_void_p], ctypes.c_int),
         f"{prefix}_bf16": (_POINTERS + _SHAPES
                            + [ctypes.c_int] * len(_PLAN_ARGS[order])
                            + [ctypes.c_void_p], ctypes.c_int),
         f"{prefix}_bf16_regs": ([ctypes.c_int], ctypes.c_int)}
     if order == "K5":
         signatures[f"{prefix}_f32_residency"] = ([], ctypes.c_int)
+    else:
+        signatures[f"{prefix}_f32_residency"] = ([ctypes.c_int] * 3,
+                                                 ctypes.c_int)
+        signatures[f"{prefix}_f32_regs"] = ([ctypes.c_int], ctypes.c_int)
     return _build.load(library_name, signatures)
 
 
 def _launch(wrapper, xp, kernel, scale, bias, pack, relu):
-    """Launch ``wrapper``'s kernel on checked operands; counts the launch on
-    ``wrapper``."""
+    """Launch ``wrapper``'s kernel on checked operands, on their device and
+    its current stream; counts the launch on ``wrapper``."""
     b, r, h, w, _ = xp.shape
     cin, cout = kernel.shape[-2:]
     out = torch.empty((b, r, h, w, pack * cout), dtype=xp.dtype,
                       device=xp.device)
     if out.numel() == 0:
         return out
-    lib = library(wrapper.__name__)
-    _, prefix, order = _LIBRARIES[wrapper.__name__]
-    plan = []
-    if xp.dtype == torch.bfloat16:
-        sms = torch.cuda.get_device_properties(xp.device).multi_processor_count
-        regs = _registers(lib, prefix, _wgmma_ck(cin))
-        p = wgmma_plan(order, b, r, pack, h, w, cin, cout, sms, regs)
-        plan = [p[k] for k in _PLAN_ARGS[order]]
-        kernel = wgmma_weights(kernel, p["cout_tiles"])
-    elif order == "K5":
-        kernel = packed_v2_weights(kernel)
-    err = getattr(lib, f"{prefix}_{_TYPES[xp.dtype]}")(
-        xp.data_ptr(), kernel.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), b, r, pack, h, w, cin, cout, int(bool(relu)), *plan,
-        _build.current_stream())
+    with torch.cuda.device(xp.device):
+        lib = library(wrapper.__name__)
+        _, prefix, order = _LIBRARIES[wrapper.__name__]
+        plan = []
+        if xp.dtype == torch.bfloat16:
+            sms = torch.cuda.get_device_properties(
+                xp.device).multi_processor_count
+            regs = _registers(lib, prefix, _wgmma_ck(cin))
+            p = wgmma_plan(order, b, r, pack, h, w, cin, cout, sms, regs)
+            plan = [p[k] for k in _PLAN_ARGS[order]]
+            kernel = wgmma_weights(kernel, p["cout_tiles"])
+        elif order == "K5":
+            kernel = packed_v2_weights(kernel)
+        else:
+            p = f32_plan(lib, prefix, xp.device.index, b, r, pack, h, w, cin,
+                         cout)
+            plan = [p[k] for k in F32_PLAN_ARGS]
+            kernel = conv3d_f32_weights(kernel, p["cob"])
+        err = getattr(lib, f"{prefix}_{_TYPES[xp.dtype]}")(
+            xp.data_ptr(), kernel.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), b, r, pack, h, w, cin, cout,
+            int(bool(relu)), *plan, _build.current_stream(xp.device))
     _build.check_launch(err, wrapper.__name__)
     wrapper.launches += 1
     if xp.dtype == torch.bfloat16:

@@ -23,12 +23,22 @@ arithmetic is a few us at the f32 rate.
 What the design does about it: each kernel reads the volume exactly once,
 in coalesced rows. A program owns one (b, y) row and a block of W columns,
 so neighbouring lanes load neighbouring W addresses, and it walks D in
-chunks. The forward keeps an online (running-max) softmax, i.e. the
-running max m, sum l and weighted sum per column in registers, and also
-stores m and l per pixel ([B, H, W], 1/D of the volume), so that the
-backward recomputes p_d = exp(alpha * c_d - m) / l from one read of the
-cost and writes the gradient once: two passes over the volume in all, the
-least a backward that does not keep the probabilities can do. The [D]
+chunks.
+
+The forward (redesigned for the H100): a program owns 128 x FWD_WARPS
+columns, so each thread holds four neighbouring columns (one 16-byte load
+per depth row) and every depth row of a chunk of FWD_DEPTH in its own
+registers. Its online (running-max) softmax, the running max m, sum l and
+weighted sum per column, then reduces over D inside each thread: no shared
+memory and no barrier in the loop (the earlier [32, 128] tile over four
+warps spread D across warps, so every chunk's max and sums crossed warps
+through shared memory). The chunk's rows are all loaded before any is
+reduced, and the other resident programs' loads overlap this one's
+arithmetic. Only where the cost requires grad does it also store m and l
+per pixel ([B, H, W], 1/D of the volume), so that the backward recomputes
+p_d = exp(alpha * c_d - m) / l from one read of the cost and writes the
+gradient once: two passes over the volume in all, the least a backward
+that does not keep the probabilities can do. The [D]
 sample values come in as a tensor, as ``vals_ref`` does on the TPU,
 because they are a linspace and not start + i * dilation when
 dilation > 1; it is made on the device once per range and kept
@@ -46,8 +56,13 @@ import torch
 from ..cost_volume import disp_sample_tensor
 from . import _build
 
+# the backward: depth rows a chunk, columns a program (four warps)
 BLOCK_D = 32
 BLOCK_W = 128
+# the forward: warps a program (128 columns each) and depth rows a chunk
+# (of 1, 2 or 4 warps and 4, 8 or 16 rows, these ran fastest on the card)
+FWD_WARPS = 2
+FWD_DEPTH = 4
 
 
 def soft_argmin_plain(cost_volume, vals, alpha=1.0):
@@ -65,7 +80,7 @@ _kernels = None
 
 
 def _soft_argmin_kernel(cost_ptr, vals_ptr, out_ptr, m_ptr, l_ptr, D, H, W,
-                        alpha, BLOCK_D: "tl.constexpr",
+                        alpha, STATS: "tl.constexpr", DEPTH: "tl.constexpr",
                         BLOCK_W: "tl.constexpr"):
     pid_w = tl.program_id(0)
     y = tl.program_id(1)
@@ -77,8 +92,8 @@ def _soft_argmin_kernel(cost_ptr, vals_ptr, out_ptr, m_ptr, l_ptr, D, H, W,
     m = tl.full((BLOCK_W,), float("-inf"), tl.float32)
     l = tl.zeros((BLOCK_W,), tl.float32)
     s = tl.zeros((BLOCK_W,), tl.float32)
-    for d0 in range(0, D, BLOCK_D):
-        offs_d = d0 + tl.arange(0, BLOCK_D)
+    for d0 in range(0, D, DEPTH):
+        offs_d = d0 + tl.arange(0, DEPTH)
         dmask = offs_d < D
         c = tl.load(row + offs_d[:, None] * plane + offs_w[None, :],
                     mask=dmask[:, None] & wmask[None, :], other=0.0)
@@ -92,8 +107,9 @@ def _soft_argmin_kernel(cost_ptr, vals_ptr, out_ptr, m_ptr, l_ptr, D, H, W,
         m = m_new
     pix = b * plane + y * W + offs_w
     tl.store(out_ptr + pix, s / l, mask=wmask)
-    tl.store(m_ptr + pix, m, mask=wmask)
-    tl.store(l_ptr + pix, l, mask=wmask)
+    if STATS:
+        tl.store(m_ptr + pix, m, mask=wmask)
+        tl.store(l_ptr + pix, l, mask=wmask)
 
 
 def _soft_argmin_backward_kernel(cost_ptr, vals_ptr, out_ptr, m_ptr, l_ptr,
@@ -160,19 +176,27 @@ def _check(cost_volume, d, what):
         raise ValueError(f"{what}: {tuple(cost_volume.shape)} too large")
 
 
-def _forward(cost_volume, vals, alpha):
+def _forward(cost_volume, vals, alpha, stats=True):
     """Launch the forward: -> (out [B, H, W, 1], m [B, H, W], l [B, H, W])
-    float32, m and l the per-pixel softmax max and sum of alpha * cost."""
+    float32, m and l the per-pixel softmax max and sum of alpha * cost that
+    the backward reads; with ``stats`` False they are not stored (None)."""
     b, d, h, w = cost_volume.shape
-    out, m, l = (torch.empty(shape, dtype=torch.float32,
-                             device=cost_volume.device)
-                 for shape in ((b, h, w, 1), (b, h, w), (b, h, w)))
+    device = cost_volume.device
+    out = torch.empty((b, h, w, 1), dtype=torch.float32, device=device)
+    m = l = None
+    if stats:
+        m, l = (torch.empty((b, h, w), dtype=torch.float32, device=device)
+                for _ in range(2))
     if out.numel() == 0:
         return out, m, l
     triton, kernel, _ = _triton_kernels()
-    grid = (triton.cdiv(w, BLOCK_W), h, b)
-    kernel[grid](cost_volume, vals, out, m, l, d, h, w, float(alpha),
-                 BLOCK_D=BLOCK_D, BLOCK_W=BLOCK_W, num_warps=4)
+    block_w = 128 * FWD_WARPS
+    grid = (triton.cdiv(w, block_w), h, b)
+    with torch.cuda.device(device):
+        kernel[grid](cost_volume, vals, out, out if m is None else m,
+                     out if l is None else l, d, h, w, float(alpha),
+                     STATS=stats, DEPTH=FWD_DEPTH, BLOCK_W=block_w,
+                     num_warps=FWD_WARPS, num_stages=1)
     # Triton's launcher checks the CUresult of the launch and raises on a
     # nonzero code, so there is no separate error check here.
     fused_soft_argmin.launches += 1
@@ -198,16 +222,17 @@ def fused_soft_argmin_backward(cost_volume, vals, alpha, out, m, l, grad):
         return grad_cost
     triton, _, kernel = _triton_kernels()
     grid = (triton.cdiv(w, BLOCK_W), h, b)
-    kernel[grid](cost_volume, vals, out, m, l, grad, grad_cost, d, h, w,
-                 float(alpha), BLOCK_D=BLOCK_D, BLOCK_W=BLOCK_W,
-                 num_warps=4)
+    with torch.cuda.device(cost_volume.device):
+        kernel[grid](cost_volume, vals, out, m, l, grad, grad_cost, d, h, w,
+                     float(alpha), BLOCK_D=BLOCK_D, BLOCK_W=BLOCK_W,
+                     num_warps=4)
     fused_soft_argmin_backward.launches += 1
     return grad_cost
 
 
 class _FusedSoftArgmin(torch.autograd.Function):
     """Forward and backward are the Triton kernels; the forward's per-pixel
-    max and sum are kept for the backward."""
+    max and sum are stored and kept for the backward."""
 
     @staticmethod
     def forward(ctx, cost_volume, vals, alpha):
@@ -231,13 +256,16 @@ def fused_soft_argmin(cost_volume, max_disp, start_disp=0, dilation=1,
     dilation)``, differentiable in the cost. A CPU tensor runs
     ``soft_argmin_plain`` (plain autograd); a CUDA tensor launches the
     Triton kernels (forward here, backward in the backward pass) or
-    raises."""
+    raises. Without grad (eval, or a cost that does not require it) the
+    forward stores no per-pixel statistics."""
     vals = disp_sample_tensor(max_disp, start_disp, dilation,
                               cost_volume.device)
     _check(cost_volume, len(vals), "fused_soft_argmin")
     if cost_volume.device.type == "cpu":
         return soft_argmin_plain(cost_volume, vals, alpha)
-    return _FusedSoftArgmin.apply(cost_volume, vals, alpha)
+    if torch.is_grad_enabled() and cost_volume.requires_grad:
+        return _FusedSoftArgmin.apply(cost_volume, vals, alpha)
+    return _forward(cost_volume, vals, alpha, stats=False)[0]
 
 
 fused_soft_argmin.launches = 0

@@ -164,10 +164,11 @@ def fused_upsample_soft_argmin(low_cost, out_d, out_h, out_w, start_disp=0,
         return out
     _, tables, ints = _launch_plan(tuple(low.shape), out_d, out_h, out_w,
                                    start_disp, dilation, device)
-    lib = _build.load("upsample_argmin_kernel", _SIGNATURES)
-    err = lib.upsample_soft_argmin_f32(
-        low.data_ptr(), *tables, out.data_ptr(), *ints, float(alpha),
-        _build.current_stream(device))
+    with torch.cuda.device(device):
+        lib = _build.load("upsample_argmin_kernel", _SIGNATURES)
+        err = lib.upsample_soft_argmin_f32(
+            low.data_ptr(), *tables, out.data_ptr(), *ints, float(alpha),
+            _build.current_stream(device))
     _build.check_launch(err, "fused_upsample_soft_argmin")
     fused_upsample_soft_argmin.launches += 1
     return out

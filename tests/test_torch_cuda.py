@@ -65,7 +65,7 @@ def conv_inputs(shape, cout, seed):
 @pytest.mark.parametrize("shape,cout,relu", [
     ((1, 4, 16, 24, 8), 16, True),
     ((2, 3, 7, 78, 32), 32, False),    # ragged H and W, batch 2
-    ((1, 2, 5, 9, 64), 64, True),      # two Cout blocks
+    ((1, 2, 5, 9, 64), 64, True),      # Cout 64: one block for all
     ((1, 3, 4, 5, 12), 20, False),     # Cin, Cout not multiples of 16
 ])
 def test_conv3d_kernel_matches_plain_on_card(cuda, shape, cout, relu):
@@ -187,7 +187,7 @@ def packed_inputs(shape, pack, cout, form, seed, device,
     ((1, 4, 16, 24, 8), 1, 16, "co", True),          # plain NDHWC
     ((2, 3, 7, 78, 32), 1, 32, "scalar", False),     # ragged H and W
     ((1, 2, 5, 9, 2 * 12), 2, 20, "pco", True),      # Ci 12, Co 20
-    ((2, 3, 6, 33, 4 * 16), 4, 64, "co", False),     # two Cout blocks
+    ((2, 3, 6, 33, 4 * 16), 4, 64, "co", False),     # Cout 64: one block
     ((1, 1, 4, 5, 4 * 4), 4, 8, "pco", True),        # one packed row
 ])
 def test_packed_conv3d_kernel_matches_plain_on_card(cuda, shape, pack, cout,
@@ -572,3 +572,174 @@ def test_tiny_train_step_on_card_matches_cpu(cuda):
         # the update's slope through g = 0 is lr / sqrt(eps)
         tol = 2e-5 + lr0 / 1e-4 * (ga - gc).abs()
         assert ((p_card[n] - p_cpu[n]).abs() <= tol).all(), n
+
+
+# The float32 block of K1 and K4 (csrc/conv3d_tile.cuh): ragged H and W
+# (16-row and 32-column tiles), W 78 and 312 (the eval trunk's), Cin 4, 12
+# and 64 (half, one and a half, eight 8-channel stages), Cout 4, 36, 64 and
+# 68 (one or two Cout tiles of 32 or 64)
+F32_BLOCK_CASES = [
+    ((1, 5, 7, 45, 4), 1, 4, "scalar", True),
+    ((2, 3, 13, 78, 12), 1, 36, "co", False),
+    ((1, 4, 9, 312, 64), 1, 64, "co", True),
+    ((1, 3, 19, 33, 64), 1, 68, "scalar", False),
+    ((1, 3, 6, 78, 4 * 12), 4, 36, "pco", True),
+    ((2, 2, 5, 70, 4 * 64), 4, 68, "co", False),
+    ((1, 1, 4, 5, 4 * 4), 4, 64, "pco", False),
+    ((1, 2, 17, 312, 4 * 4), 4, 4, "scalar", True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,pack,cout,form,relu", F32_BLOCK_CASES)
+def test_float32_block_packed_matches_plain_on_card(cuda, shape, pack, cout,
+                                                    form, relu):
+    xp, k, scale, bias = packed_inputs(shape, pack, cout, form, shape[3],
+                                       cuda)
+    before = kernels.conv3d_packed_s1.launches
+    got = kernels.conv3d_packed_s1(xp, k, scale, bias, pack=pack, relu=relu)
+    want = kernels.conv3d_packed_s1_plain(xp, k, scale, bias, pack, relu)
+    torch.cuda.synchronize()
+    assert kernels.conv3d_packed_s1.launches == before + 1
+    assert got.dtype == torch.float32
+    assert got.shape == want.shape == (*shape[:-1], pack * cout)
+    # 27 * Ci products summed in another order
+    tol = 1e-4 * want.abs().max().item()
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,pack,cout,form,relu",
+                         [c for c in F32_BLOCK_CASES if c[1] == 1])
+def test_float32_block_k1_matches_plain_on_card(cuda, shape, pack, cout,
+                                                form, relu):
+    args = [torch.from_numpy(a).to(cuda)
+            for a in conv_inputs(shape, cout, seed=shape[2])]
+    before = kernels.fused_conv3d.launches
+    got = kernels.fused_conv3d(*args, relu=relu)
+    want = kernels.conv3d_plain(*args, relu)
+    torch.cuda.synchronize()
+    assert kernels.fused_conv3d.launches == before + 1
+    assert got.shape == want.shape == (*shape[:-1], cout)
+    tol = 1e-4 * want.abs().max().item()
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["fused_conv3d", "conv3d_packed_s1"])
+def test_float32_block_refuses_a_plan_short_of_its_layout_on_card(
+        cuda, wrapper, monkeypatch):
+    # csrc/conv3d_tile.cuh checks the plan's shared memory against the
+    # block's own layout: one byte short and nothing is launched
+    plan = pk.f32_plan
+    monkeypatch.setattr(pk, "f32_plan", lambda *a: dict(
+        plan(*a), smem=plan(*a)["smem"] - 1))
+    x, k, scale, bias = packed_inputs((1, 2, 4, 8, 16), 1, 8, "co", 0, cuda)
+    fn = getattr(kernels, wrapper)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="CUDA error 1 at launch"):
+        fn(x, k, scale, bias, relu=True) if wrapper == "fused_conv3d" \
+            else fn(x, k, scale, bias, pack=1)
+    assert fn.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,max_disp,start,dilation,alpha,dtype", [
+    ((1, 13, 3, 77), 13, 0, 1, 1.0, torch.float32),     # D % 8, W % 4
+    ((2, 50, 5, 130), 100, -2, 2, 2.5, torch.float32),  # linspace samples
+    ((1, 3, 4, 6), 3, 0, 1, -0.5, torch.float32),       # D < a chunk
+    ((1, 48, 6, 258), 48, 0, 1, 1.0, torch.bfloat16),   # promoted
+    ((3, 24, 4, 512), 48, -2, 2, 2.5, torch.bfloat16),
+])
+def test_soft_argmin_forward_routes_on_card(cuda, shape, max_disp, start,
+                                            dilation, alpha, dtype):
+    # without grad the forward stores no statistics; with grad it stores the
+    # per-pixel max and sum that the backward reads, and both match the
+    # plain version
+    from densematchingbenchmark_tpu_torch.ops.cuda import (
+        soft_argmin_kernel as sak)
+    cost = (torch.randn(shape, device=cuda) * 3).to(dtype)
+    vals = torch.as_tensor(disp_sample_values(max_disp, start, dilation),
+                           device=cuda)
+    want = kernels.soft_argmin_plain(cost, vals, alpha)
+    before = kernels.fused_soft_argmin.launches
+    with torch.no_grad():
+        eval_out = kernels.fused_soft_argmin(cost, max_disp, start, dilation,
+                                             alpha)
+    out, m, l = sak._forward(cost, vals, alpha, stats=False)
+    assert m is None and l is None
+    leaf = cost.detach().requires_grad_()
+    train_out = kernels.fused_soft_argmin(leaf, max_disp, start, dilation,
+                                          alpha)
+    torch.cuda.synchronize()
+    assert kernels.fused_soft_argmin.launches == before + 3
+    assert eval_out.grad_fn is None and train_out.grad_fn is not None
+    assert torch.equal(eval_out, out)
+    # the statistics' stores are the only difference between the two
+    assert (eval_out - train_out.detach()).abs().max().item() <= 1e-5
+    # softmax sums over D in another order: 1e-3 px
+    assert eval_out.shape == want.shape == (shape[0], *shape[2:], 1)
+    assert (eval_out - want).abs().max().item() <= 1e-3
+    g = torch.randn_like(want)
+    (got,) = torch.autograd.grad(train_out, leaf, g)
+    plain_leaf = cost.detach().float().requires_grad_()
+    (ref,) = torch.autograd.grad(
+        kernels.soft_argmin_plain(plain_leaf, vals, alpha), plain_leaf, g)
+    assert got.dtype == dtype
+    # the expectation from the online softmax, as in the backward test; in
+    # bfloat16 the gradient is rounded once besides
+    step = BF16_STEP if dtype == torch.bfloat16 else 0.0
+    tol = (1e-4 + step) * ref.abs().max().item()
+    assert (got.float() - ref).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_their_operands_device_on_card(cuda):
+    # a tiny PSMNet on the last device while the current device is 0: both
+    # eval modes and one train step match the same model on device 0
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs: a model on the last one while the "
+                    "current device is 0")
+    first, last = torch.device("cuda", 0), torch.device(
+        "cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(first)
+    rng = np.random.RandomState(0)
+    image = torch.tensor(rng.rand(1, 64, 128, 3) * 255, dtype=torch.float32)
+    sync = {"model.max_disp": 64,
+            "model.cost_processor.cost_computation.max_disp": 16,
+            "model.cost_processor.cost_aggregator.max_disp": 64,
+            "model.disp_predictor.max_disp": 64}
+    for fused in (False, True):
+        over = dict(sync, **{"model.eval.fused_upsample_argmin": fused})
+        want = init_model("PSMNet/scene_flow_f32", device=first, seed=0,
+                          **over)
+        got = init_model("PSMNet/scene_flow_f32", device=last, seed=0,
+                         **over)
+        kernels.reset_launch_counts()
+        a = want.forward(image.to(first), image.to(first))["disps"]
+        b = got.forward(image.to(last), image.to(last))["disps"]
+        torch.cuda.synchronize(last)
+        assert torch.cuda.current_device() == 0
+        assert kernels.launch_counts()["fused_conv3d"] == 26
+        for x, y in zip(a, b):
+            assert y.device == last
+            # the same kernels on two cards of one kind: equal up to the
+            # order of cuDNN's sums
+            assert (x.cpu() - y.cpu()).abs().max().item() <= 1e-3
+    cfg = get_config("PSMNet/scene_flow_f32", **TRAIN_TINY)
+    module = build_model(cfg, torch.Generator().manual_seed(0))
+    batch = {"leftImage": rng.randn(2, 32, 64, 3),
+             "rightImage": rng.randn(2, 32, 64, 3),
+             "leftDisp": rng.uniform(0, 20, (2, 32, 64, 1))}
+    results = []
+    for device in (first, last):
+        moved = {k: torch.tensor(v, dtype=torch.float32, device=device)
+                 for k, v in batch.items()}
+        results.append(grads_and_step(copy.deepcopy(module).to(device),
+                                      moved, cfg))
+    assert torch.cuda.current_device() == 0
+    (g0, m0, p0), (g1, m1, p1) = results
+    for k in m0:
+        np.testing.assert_allclose(m1[k], m0[k], rtol=1e-4)
+    for n in p0:
+        assert (p1[n] - p0[n]).abs().max().item() <= 1e-4, n
