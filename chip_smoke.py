@@ -53,11 +53,30 @@ PyTorch version on the card. Phases, each fatal on failure:
      with the launch counts of each mode asserted, the two modes compared
      with each other and, on a small pair, with the same weights run
      through the plain versions on the CPU.
+  4b. eval: K1 and K3 against their plain versions at the batch-4 eval
+     shapes; a KITTI-2015-layout dataset written with the port's own
+     writers (six SyntheticStereoDataset pairs at KITTI frame sizes, RGB
+     PNGs of every row filter, uint16 disparity PNGs of both views, an
+     annotation JSON) through tools/test.main on PSMNet/kitti_2015_f32 at
+     full width in both eval modes, padded to 384x1248, at the config's
+     eval batch 4 (two batches: K1 26 launches, K2 or K3 6, asserted);
+     each mode's metrics against batch-1 inference_stereo on the same
+     files with per-sample metrics in float64 numpy (EPE within
+     EVAL_EPE_ATOL px, each n-px share within EVAL_PX_ATOL points), and the
+     two modes against each other; the eval loop's per-batch work under
+     the sync guard (the final fetch outside it); eval ms per sample at
+     batch 4 and 1, samples/s and peak memory; a checkpoint restored
+     through init_model(checkpoint_dir=...) gives the saved module's
+     disparities exactly. Then the PNG decoder's host time on one 375x1242
+     RGB frame per row filter, and tools/bench.py's JSON line; each of
+     these lines carries the card's name and power limit.
   5. train: trainer.loop.train_matcher on PSMNet/scene_flow_f32 at full
      width, its own 256x512 crop and batch 3 of SyntheticStereoDataset, for
-     5 steps, with the launches per step asserted (K4 13, K2 3 forward and
-     3 backward, K1 and K3 none), finite losses, the step time, samples/s,
-     peak memory and the checkpoint's resume position.
+     5 steps, then its evaluation of a two-sample synthetic eval set at
+     384x1248, with the launches asserted (per step K4 13, K2 3 forward and
+     3 backward, K1 and K3 none; the eval batch K1 13 and K2 3), finite
+     losses, 'eval/' metrics in metrics.log.json, the step time,
+     samples/s, peak memory and the checkpoint's resume position.
   6. same weights: one train step at a small size on the card and on the
      CPU (the plain versions) from the same weights and batch: loss,
      per-parameter gradient cosine and updated parameters.
@@ -73,11 +92,15 @@ line {"ok": true, "device": {...}}. Imports nothing of JAX.
 
 adds, before the JSON lines, the device time by kernel name
 (torch.profiler) and the device's busy share of one forward in each eval
-mode and of one training step at 256x512 batch 3.
+mode, of one evaluate over the eval phase's six pairs in each mode, and
+of one training step at 256x512 batch 3.
 """
 
+import contextlib
 import copy
+import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -130,6 +153,15 @@ SYNC_TINY = {"model.max_disp": 64,
              "model.disp_predictor.max_disp": 64}
 # the packed-conv microbench: pack and chained iterations per row
 MICRO_PACK, MICRO_ITERS = 4, 10
+# Evaluation: PSMNet/kitti_2015_f32 through tools/test.py over six pairs of
+# KITTI frame sizes, padded to 384x1248, at the config's eval batch 4: two
+# batches (4 + 2), each 13 K1 launches and 3 of K2 (plain) or K3 (fused).
+EVAL_CONFIG = "PSMNet/kitti_2015_f32"
+EVAL_SIZES = ((375, 1242),) * 3 + ((370, 1224), (376, 1241), (374, 1238))
+EVAL_BATCH, EVAL_BATCHES = 4, 2
+# the train phase's per-epoch eval set: two synthetic samples at 384x1248,
+# one batch at scene_flow's eval batch 4
+TRAIN_EVAL = 2
 
 # Tolerances. The kernels and their plain versions both compute in float32
 # and differ only in the order of their sums.
@@ -149,6 +181,11 @@ TRAIN_LOSS_RTOL = 1e-3   # card vs CPU loss, cuDNN vs CPU convolutions
 TRAIN_GRAD_COS = 0.999   # card vs CPU per-parameter gradient cosine
 BF16_STEP = 2.0 ** -7  # of max|plain|: in bfloat16 the kernel and the plain
                        # version each round their float32 result once
+EVAL_EPE_ATOL = 1e-3   # px: mean EPE of the batched eval vs the batch-1
+                       # reference (float32 sums in another order per batch)
+EVAL_PX_ATOL = 0.01    # percentage points of an n-px share: 46 of the
+                       # 465,750 pixels of a 375x1242 frame crossing a
+                       # threshold
 
 SOURCES = {
     "fused_conv3d": ("cuda", "densematchingbenchmark_tpu_torch/csrc/conv3d_kernel.cu",
@@ -980,7 +1017,8 @@ def slice_phase(device="cuda"):
 
 def train_phase():
     """train_matcher on PSMNet/scene_flow_f32 at full width, 256x512 batch
-    3, for TRAIN_STEPS steps; returns the launch counts of the run."""
+    3, for TRAIN_STEPS steps, then its evaluation of a TRAIN_EVAL-sample
+    eval set at 384x1248; returns the launch counts of the run."""
     from densematchingbenchmark_tpu_torch.configs import get_config
     from densematchingbenchmark_tpu_torch.data import (SyntheticStereoDataset,
                                                        transforms)
@@ -999,21 +1037,35 @@ def train_phase():
         width=crop[1] + 64, max_disp=cfg["model"]["max_disp"],
         transform=transforms.make_train_transform(crop, data["mean"],
                                                   data["std"]))
+    eval_ds = SyntheticStereoDataset(
+        length=TRAIN_EVAL, height=PADDED[0], width=PADDED[1],
+        max_disp=cfg["model"]["max_disp"], seed=7,
+        transform=transforms.make_eval_transform(PADDED, data["mean"],
+                                                 data["std"]))
     with tempfile.TemporaryDirectory() as work:
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         state = train_matcher(cfg, work, train_dataset=ds,
-                              max_steps=TRAIN_STEPS, log_interval=1)
+                              eval_dataset=eval_ds, max_steps=TRAIN_STEPS,
+                              log_interval=1)
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
         records = read_metrics(work)
         _, meta = CheckpointManager(work).restore()
     n_params = sum(p.numel() for p in state.module.parameters())
-    per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
-    assert per_step == {"fused_conv3d": 0, "fused_soft_argmin": 3,
-                        "fused_soft_argmin_backward": 3,
-                        "fused_upsample_soft_argmin": 0,
-                        "conv3d_packed_s1": 13, "conv3d_packed_s1_v2": 0}, counts
+    # the steps, and one eval batch at the end (K1 13, K2 3: plain mode)
+    assert counts == {"fused_conv3d": 13,
+                      "fused_soft_argmin": 3 * TRAIN_STEPS + 3,
+                      "fused_soft_argmin_backward": 3 * TRAIN_STEPS,
+                      "fused_upsample_soft_argmin": 0,
+                      "conv3d_packed_s1": 13 * TRAIN_STEPS,
+                      "conv3d_packed_s1_v2": 0}, counts
+    per_step = {"conv3d_packed_s1": 13, "fused_soft_argmin": 3,
+                "fused_soft_argmin_backward": 3}
+    evals = [r for r in records if "eval/disp_0/epe" in r]
+    records = [r for r in records if "train/loss" in r]
+    assert [r["step"] for r in evals] == [TRAIN_STEPS], evals
+    assert all(np.isfinite(v) for v in evals[0].values()), evals
     losses = [r["train/loss"] for r in records]
     assert [r["step"] for r in records] == list(range(1, TRAIN_STEPS + 1))
     assert np.isfinite(losses).all(), losses
@@ -1026,7 +1078,10 @@ def train_phase():
           f"{[round(r['train/grad_norm'], 3) for r in records]}; step "
           f"{step_ms:.2f} ms (median of steps 2-{TRAIN_STEPS}, host clock), "
           f"{TRAIN_BATCH / step_ms * 1e3:.2f} samples/s, peak {peak:.2f} "
-          f"GiB; launches per step {per_step}; checkpoint resumes at {meta}")
+          f"GiB; launches per step {per_step}; checkpoint resumes at {meta}; "
+          f"eval of {TRAIN_EVAL} samples at {PADDED} logged: disp_0 EPE "
+          f"{evals[0]['eval/disp_0/epe']:.4f} px, 3px "
+          f"{evals[0]['eval/disp_0/3px']:.4f} %")
     return counts
 
 
@@ -1145,6 +1200,313 @@ def overfit_phase():
     assert epe_final < epe_init, (epe_init, epe_final)
 
 
+def write_kitti_dataset(root):
+    """KITTI-2015-layout files from SyntheticStereoDataset (seeded,
+    disparities 1-191), written with the port's writers: RGB PNGs (pair i
+    with PNG row filter i % 5), uint16 disparity PNGs of both views and an
+    annotation JSON. Returns its path."""
+    from densematchingbenchmark_tpu_torch.data import SyntheticStereoDataset
+    from densematchingbenchmark_tpu_torch.data import io as dio
+    items = []
+    for i, (h, w) in enumerate(EVAL_SIZES):
+        s = SyntheticStereoDataset(length=1, height=h, width=w, max_disp=192,
+                                   seed=i, with_right_disp=True).load(0)
+        item = {"height": h, "width": w}
+        for key, sub in (("leftImage", "image_2"), ("rightImage", "image_3"),
+                         ("leftDisp", "disp_occ_0"),
+                         ("rightDisp", "disp_occ_1")):
+            os.makedirs(os.path.join(root, sub), exist_ok=True)
+            rel = f"{sub}/{i:06d}_10.png"
+            if key.endswith("Disp"):
+                dio.save_kitti_disp(os.path.join(root, rel), s[key][..., 0])
+            else:
+                dio.save_png(os.path.join(root, rel), np.clip(
+                    np.round(s[key]), 0, 255).astype(np.uint8), i % 5)
+            item[{"leftImage": "left_image_path",
+                  "rightImage": "right_image_path",
+                  "leftDisp": "left_disp_map_path",
+                  "rightDisp": "right_disp_map_path"}[key]] = rel
+        items.append(item)
+    ann = os.path.join(root, "kitti15.json")
+    with open(ann, "w") as fp:
+        json.dump(items, fp)
+    return ann, items
+
+
+def metrics_f64(est, gt, right_gt, lb=0, ub=192):
+    """Per-sample metrics of one [H, W] estimate in float64 numpy: EPE and
+    the n-px shares over all, occluded and non-occluded valid GT pixels
+    (occluded: the right GT warped to the left view, linear, zero outside,
+    disagrees by more than 1 px or is zero)."""
+    est, gt, rgt = (np.asarray(a, np.float64) for a in (est, gt, right_gt))
+    w = gt.shape[1]
+    xs = np.arange(w)[None, :] - gt
+    x0 = np.floor(xs)
+    warped = np.zeros_like(gt)
+    rows = np.arange(gt.shape[0])[:, None]
+    for xi, wt in ((x0, 1 - (xs - x0)), (x0 + 1, xs - x0)):
+        inside = (xi >= 0) & (xi <= w - 1)
+        warped += np.where(inside, rgt[rows, np.clip(xi, 0, w - 1).astype(
+            np.int64)] * wt, 0.0)
+    occ = (np.abs(warped - gt) > 1.0) | (np.abs(warped) < 1e-6)
+    valid = (gt > lb) & (gt < ub)
+    out = {}
+    for region, mask in (("", valid), ("occ_", valid & occ),
+                         ("noc_", valid & ~occ)):
+        err = np.abs(gt - est)[mask]
+        for t in (1, 2, 3, 5):
+            out[f"{region}{t}px"] = (100.0 * float(np.mean(err > t))
+                                     if err.size else 0.0)
+        out[f"{region}epe"] = float(err.mean()) if err.size else 0.0
+    return out
+
+
+def compare_metrics(got, want, label):
+    """EPE within EVAL_EPE_ATOL px, n-px within EVAL_PX_ATOL points.
+    Returns the largest differences (EPE, n-px)."""
+    assert set(got) == set(want), (label, sorted(got), sorted(want))
+    epe = max(abs(got[k] - want[k]) for k in want if k.endswith("epe"))
+    px = max(abs(got[k] - want[k]) for k in want if not k.endswith("epe"))
+    assert epe <= EVAL_EPE_ATOL and px <= EVAL_PX_ATOL, (label, epe, px)
+    return epe, px
+
+
+def check_eval_kernels(gen):
+    """K1 and K3 against their plain versions at the batch-4 eval shapes,
+    with their one-call times beside their bounds."""
+    from densematchingbenchmark_tpu_torch.ops.cost_volume import (
+        disp_sample_values)
+    from densematchingbenchmark_tpu_torch.ops.cuda import (
+        conv3d_plain, fused_conv3d, fused_upsample_soft_argmin,
+        upsample_soft_argmin_plain)
+    errs, k1_ms, k1_bound = [], 0.0, 0.0
+    for cin, cout, (d, h, w), per_fwd in CONV_SHAPES:
+        x = torch.randn((EVAL_BATCH, d, h, w, cin), device="cuda",
+                        generator=gen)
+        k = torch.randn((3, 3, 3, cin, cout), device="cuda",
+                        generator=gen) * (27 * cin) ** -0.5
+        scale = torch.rand(cout, device="cuda", generator=gen) + 0.5
+        bias = torch.randn(cout, device="cuda", generator=gen)
+        got = fused_conv3d(x, k, scale, bias, relu=True)
+        want = conv3d_plain(x, k, scale, bias, True)
+        e = (got - want).abs().max().item()
+        assert e <= CONV_RTOL * want.abs().max().item(), (cin, cout, d, e)
+        errs.append(e)
+        vox = EVAL_BATCH * d * h * w
+        k1_ms += per_fwd * time_ms(lambda: fused_conv3d(x, k, scale, bias,
+                                                        relu=True))
+        k1_bound += per_fwd * bound_ms(
+            2 * 27 * cin * cout * vox,
+            4 * (vox * (cin + cout) + k.numel() + 2 * cout))[0]
+        del x, got, want
+    low = torch.randn((EVAL_BATCH, *UPSAMPLE_LOW[1:]), device="cuda",
+                      generator=gen) * 3
+    vals = torch.as_tensor(disp_sample_values(UPSAMPLE_OUT[0]), device="cuda")
+    got = fused_upsample_soft_argmin(low, *UPSAMPLE_OUT)
+    want = upsample_soft_argmin_plain(low, *UPSAMPLE_OUT, vals)
+    k3 = (got - want).abs().max().item()
+    assert got.shape == (EVAL_BATCH, *UPSAMPLE_OUT[1:], 1) \
+        and k3 <= ARGMIN_ATOL, k3
+    k3_ms = time_ms(lambda: fused_upsample_soft_argmin(low, *UPSAMPLE_OUT))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k3_bound = (EVAL_BATCH * UPSAMPLE_OUT[0] * UPSAMPLE_OUT[1]
+                * UPSAMPLE_OUT[2] / (EX2_PER_CLOCK_PER_SM * sms
+                                     * sm_clock_hz()) * 1e3)
+    print(f"eval kernels at batch {EVAL_BATCH}: K1 at the 4 trunk shapes "
+          f"max_abs_err {max(errs):.3g} (tolerance {CONV_RTOL} of "
+          f"max|plain|), {k1_ms:.3f} ms per forward by one call a launch, "
+          f"bound {k1_bound:.3f} (operations); K3 "
+          f"{[EVAL_BATCH, *UPSAMPLE_LOW[1:]]} -> {list(UPSAMPLE_OUT)} "
+          f"max_abs_err {k3:.3g} px (tolerance {ARGMIN_ATOL}), {k3_ms:.3f} "
+          f"ms a launch, bound {k3_bound:.4f} (exponentials)")
+
+
+def png_decode_phase(smi):
+    """Host time of the port's PNG decoder on one 375x1242 RGB frame
+    written with each row filter (median of 3)."""
+    from densematchingbenchmark_tpu_torch.data import SyntheticStereoDataset
+    from densematchingbenchmark_tpu_torch.data import io as dio
+    img = np.clip(np.round(SyntheticStereoDataset(
+        length=1, height=375, width=1242, max_disp=192).load(0)[
+            "leftImage"]), 0, 255).astype(np.uint8)
+    times = {}
+    for f in range(5):
+        png = dio.encode_png(img, f)
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = dio.decode_png(png)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        assert np.array_equal(got, img), f
+        times[f] = float(np.median(runs))
+    names = ("None", "Sub", "Up", "Average", "Paeth")
+    print("png decode 375x1242 RGB, host ms (median of 3) by row filter: "
+          + ", ".join(f"{f} {names[f]} {t:.1f}" for f, t in times.items())
+          + f"; {smi}")
+
+
+def eval_phase(smi, gen):
+    """tools/test.py on a KITTI-2015-layout dataset at full width in both
+    eval modes, held against a batch-1 inference_stereo reference; the
+    eval loop's per-batch work under the sync guard; the restore path.
+    Returns the launch counts of the two tools/test.py runs."""
+    from densematchingbenchmark_tpu_torch.apis import (inference_stereo,
+                                                       init_model)
+    from densematchingbenchmark_tpu_torch.configs import get_config
+    from densematchingbenchmark_tpu_torch.data import (build_dataset, collate,
+                                                       io as dio, transforms)
+    from densematchingbenchmark_tpu_torch.evaluation import eval_loop
+    from densematchingbenchmark_tpu_torch.ops import cuda as kernels
+    from densematchingbenchmark_tpu_torch.tools import test as test_tool
+    from densematchingbenchmark_tpu_torch.utils.checkpoint import (
+        CheckpointManager)
+    check_eval_kernels(gen)
+    torch.cuda.empty_cache()
+    launches, by_mode = None, {}
+    with tempfile.TemporaryDirectory() as root:
+        ann, items = write_kitti_dataset(root)
+        work = os.path.join(root, "work")
+        for fused in (False, True):
+            over = [f"model.eval.fused_upsample_argmin={fused}",
+                    "data.test.use_right_disp=True",
+                    f"data.test.input_shape={PADDED}"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            results, n = test_tool.main([
+                "--config", EVAL_CONFIG, "--work-dir", work, "--data-root",
+                root, "--annfile", ann, "--override", *over])
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            regress = ("fused_upsample_soft_argmin" if fused
+                       else "fused_soft_argmin")
+            want = {k: 0 for k in counts}
+            want["fused_conv3d"] = 13 * EVAL_BATCHES
+            want[regress] = 3 * EVAL_BATCHES
+            assert n == len(EVAL_SIZES) and counts == want, (n, counts)
+            launches = ({k: launches[k] + v for k, v in counts.items()}
+                        if launches else counts)
+
+            # the reference: batch-1 inference_stereo on the same files,
+            # metrics per sample in float64
+            cfg = get_config(EVAL_CONFIG, **{
+                "model.eval.fused_upsample_argmin": fused})
+            model = init_model(cfg, seed=0)
+            sums = {}
+            for item in items:
+                path = lambda k: os.path.join(root, item[k])
+                out = inference_stereo(model, [{
+                    "leftImage": dio.load_image(path("left_image_path")),
+                    "rightImage": dio.load_image(path("right_image_path"))}],
+                    pad_to_shape=PADDED)[0]["disps"]
+                gt = dio.load_kitti_disp(path("left_disp_map_path"))
+                rgt = dio.load_kitti_disp(path("right_disp_map_path"))
+                for did, d in enumerate(out):
+                    for k, v in metrics_f64(d[0, ..., 0], gt, rgt).items():
+                        key = f"disp_{did}/{k}"
+                        sums[key] = sums.get(key, 0.0) + v
+            ref = {k: v / len(items) for k, v in sums.items()}
+            epe, px = compare_metrics(results, ref, f"fused={fused}")
+
+            # the eval loop again, timed end to end (files decoded by the
+            # loader threads), then its per-batch work under the sync guard
+            test_cfg = dict(cfg["data"], data_root=root, test=dict(
+                cfg["data"]["test"], annfile=ann, use_right_disp=True))
+            ds = build_dataset(test_cfg, "test",
+                               transforms.make_eval_transform(
+                                   PADDED, cfg["data"]["mean"],
+                                   cfg["data"]["std"]))
+            ecfg, ids = cfg["model"]["eval"], cfg["eval_disparity_id"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again, _ = eval_loop.evaluate(model.module, ds, ecfg, ids)
+            wall = time.perf_counter() - t0
+            compare_metrics(again, results, f"fused={fused} again")
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                pending, count = eval_loop.eval_batches(model.module, ds,
+                                                        ecfg, ids)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            compare_metrics(eval_loop.average_metrics(pending, count),
+                            results, f"fused={fused} guarded")
+            if "--profile" in sys.argv[1:]:
+                device_profile(f"evaluate fused_upsample_argmin={fused}, "
+                               f"{n} samples", lambda: eval_loop.evaluate(
+                                   model.module, ds, ecfg, ids), reps=1)
+
+            # device time of the eval step (forward + metrics) per sample
+            # on a batch staged on the card, at batch 4 and batch 1
+            step = eval_loop.make_eval_metrics_step(
+                model.module, ecfg["lower_bound"], ecfg["upper_bound"], ids,
+                ecfg["eval_occlusion"])
+            b4 = eval_loop.to_device(collate([ds[i] for i in range(
+                EVAL_BATCH)]), model.device)
+            b1 = {k: v[:1] for k, v in b4.items()}
+            ms4 = time_ms(lambda: step(b4), 3) / EVAL_BATCH
+            ms1 = time_ms(lambda: step(b1), 3)
+            by_mode[fused] = results
+            print(f"eval {EVAL_CONFIG} fused_upsample_argmin={fused}: "
+                  f"{n} samples of {sorted(set(EVAL_SIZES))} padded to "
+                  f"{PADDED}, batches of {EVAL_BATCH}; launches {counts}; "
+                  f"disp_0 EPE {results['disp_0/epe']:.4f} px, 3px "
+                  f"{results['disp_0/3px']:.4f} %, noc EPE "
+                  f"{results['disp_0/noc_epe']:.4f}; vs the batch-1 "
+                  f"reference: EPE {epe:.3g} px, n-px {px:.3g} points; "
+                  f"eval step {ms4:.2f} ms a sample at batch {EVAL_BATCH}, "
+                  f"{ms1:.2f} at batch 1 (device, CUDA events); evaluate "
+                  f"{n / wall:.2f} samples/s end to end (host clock, "
+                  f"files decoded); peak {peak:.2f} GiB at batch "
+                  f"{EVAL_BATCH}; no synchronising call per batch; {smi}")
+            del model, b4, b1, step
+            torch.cuda.empty_cache()
+        epe, px = compare_metrics(by_mode[True], by_mode[False], "modes")
+        print(f"eval: the two modes agree to {epe:.3g} px EPE and {px:.3g} "
+              f"points n-px (tolerances {EVAL_EPE_ATOL}, {EVAL_PX_ATOL})")
+
+        # restore: a checkpoint of a seed-1 model through init_model; the
+        # disparities compared with cuDNN held to deterministic algorithms
+        # (its default choice may sum in another order from call to call)
+        saved = init_model(EVAL_CONFIG, seed=1)
+        ckpt = os.path.join(root, "ckpt")
+        CheckpointManager(ckpt).save(1, {"module": saved.module.state_dict()})
+        restored = init_model(EVAL_CONFIG, seed=0, checkpoint_dir=ckpt)
+        sa, sb = saved.module.state_dict(), restored.module.state_dict()
+        assert sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k])
+                                              for k in sa)
+        x = torch.randn((1, *PADDED, 3), generator=torch.Generator()
+                        .manual_seed(0)).to(saved.device)
+        spread = max((p - q).abs().max().item() for p, q in zip(
+            saved.forward(x, x)["disps"], saved.forward(x, x)["disps"]))
+        torch.backends.cudnn.deterministic = True
+        try:
+            a = saved.forward(x, x)["disps"]
+            b = restored.forward(x, x)["disps"]
+        finally:
+            torch.backends.cudnn.deterministic = False
+        assert all(torch.equal(p, q) for p, q in zip(a, b)), max(
+            (p - q).abs().max().item() for p, q in zip(a, b))
+        print("restore: init_model(checkpoint_dir=...) restores every "
+              "parameter and BN statistic exactly, and its disparities are "
+              "identical to the saved module's (cuDNN deterministic; two "
+              f"forwards of one module in cuDNN's default mode differ by "
+              f"up to {spread:.3g} px)")
+        del saved, restored, a, b
+    return launches
+
+
+def bench_phase(smi):
+    """tools/bench.py's JSON line, beside the card's name and power
+    limit."""
+    from densematchingbenchmark_tpu_torch.tools import bench
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        record = bench.main([])
+    assert record["value"] > 0 and json.loads(out.getvalue()) == record
+    print(f"bench (tools/bench.py): {json.dumps(record)}; {smi}")
+
+
 def device_profile(label, fn, reps=2, top=14, convs=0):
     """Device time of one call of ``fn`` by kernel name (torch.profiler),
     after one call outside the profile; with ``convs``, also the ``convs``
@@ -1209,7 +1571,7 @@ def profile_phase(models):
 
 
 def main():
-    device_phase()
+    smi = device_phase()
     build_phase()
     from densematchingbenchmark_tpu_torch.ops import cuda as kernels
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1232,6 +1594,12 @@ def main():
     if "--profile" in sys.argv[1:]:
         profile_phase(models)
     del models
+    torch.cuda.empty_cache()
+    for name, n in eval_phase(smi, gen).items():
+        launches[name] += n
+    png_decode_phase(smi)
+    torch.cuda.empty_cache()
+    bench_phase(smi)
     torch.cuda.empty_cache()
     for name, n in train_phase().items():
         launches[name] += n

@@ -1,9 +1,10 @@
 """Library inference API: init_model / inference_stereo.
 
 Counterpart of densematchingbenchmark_tpu/apis.py:95-179: build a model from
-a config, then run stereo inference over image pairs with pad-to-shape (or
-center crop), optional scaling (disparity values rescale with width) and
-padding removal. The JAX package's TPU compile-failure schedule ladder
+a config (its weights from a seed, or restored from the port's own
+checkpoint), then run stereo inference over image pairs with pad-to-shape
+(or center crop), optional scaling (disparity values rescale with width)
+and padding removal. The JAX package's TPU compile-failure schedule ladder
 (:23-92) has no counterpart: the port has one schedule.
 
 Models run on ``cuda`` unless the caller passes ``device="cpu"``; with no
@@ -19,6 +20,7 @@ from .data import transforms
 from .evaluation.metrics import remove_padding
 from .models import build_model
 from .ops.interpolate import resize_linear
+from .utils.checkpoint import CheckpointManager
 
 
 class StereoModel:
@@ -48,7 +50,10 @@ def resolve_device(device=None):
 
 def init_model(config_name_or_cfg, device=None, seed=0, checkpoint_dir=None,
                **overrides):
-    """Build a StereoModel with parameters initialised from ``seed``.
+    """Build a StereoModel with parameters initialised from ``seed``; with
+    ``checkpoint_dir``, restore the parameters and BN statistics of the
+    latest checkpoint under <checkpoint_dir>/checkpoints/ (written by
+    ``train_matcher``), and keep the seeded ones when there is none.
 
     On a CUDA device this sets ``torch.backends.cudnn.allow_tf32`` and
     ``torch.backends.cuda.matmul.allow_tf32`` to False: the float32 configs
@@ -56,14 +61,14 @@ def init_model(config_name_or_cfg, device=None, seed=0, checkpoint_dir=None,
     round to a 10-bit mantissa, which soft-argmin amplifies into whole-pixel
     errors (docs/DESIGN.md section 8).
     """
-    if checkpoint_dir:
-        raise NotImplementedError(
-            "checkpoint restore is not ported yet (ROADMAP.md queue 1 "
-            "item 4)")
     device = resolve_device(device)
     cfg = (get_config(config_name_or_cfg, **overrides)
            if isinstance(config_name_or_cfg, str) else config_name_or_cfg)
     module = build_model(cfg, torch.Generator().manual_seed(seed))
+    if checkpoint_dir:
+        saved, _ = CheckpointManager(checkpoint_dir).restore()
+        if saved is not None:
+            module.load_state_dict(saved["module"])
     module.to(device).eval()
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False

@@ -1,14 +1,73 @@
-"""Stereo datasets: the synthetic fixture with exact ground truth.
+"""Stereo datasets: SceneFlow, KITTI-2012/2015 and a synthetic fixture.
 
-Counterpart of densematchingbenchmark_tpu/data/datasets.py:77-178. No
-dataset ships with the repository, so the port's training runs on
-``SyntheticStereoDataset``, whose samples are bit-exact with the JAX
-package's (the same numpy generator and arithmetic). The JSON-annotated
-file datasets (SceneFlow, KITTI) raise NotImplementedError until the
-evaluation slice (ROADMAP.md queue 1 item 4).
+Counterpart of densematchingbenchmark_tpu/data/datasets.py:22-178. The file
+datasets read the reference's annotation format: a JSON list of dicts with
+'left_image_path' / 'right_image_path' and optional 'left_disp_map_path' /
+'right_disp_map_path' (and 'height' / 'width', which aspect grouping
+reads), relative to a data root. ``SyntheticStereoDataset``'s samples are
+bit-exact with the JAX package's (the same numpy generator and
+arithmetic). Samples are channels-last numpy dicts.
 """
 
+import json
+import os.path as osp
+
 import numpy as np
+
+from .io import load_disp, load_image
+
+
+class StereoDataset:
+    """JSON-annotated stereo dataset."""
+
+    name = "Stereo"
+
+    def __init__(self, ann_file, root, transform=None, use_right_disp=False):
+        self.root = root
+        self.ann_file = ann_file
+        with open(ann_file) as fp:
+            self.data_list = json.load(fp)
+        self.transform = transform
+        self.use_right_disp = use_right_disp
+
+    def __len__(self):
+        return len(self.data_list)
+
+    def _path(self, rel):
+        return osp.join(self.root, rel)
+
+    def load(self, idx):
+        item = self.data_list[idx]
+        sample = {
+            "leftImage": load_image(self._path(item["left_image_path"])),
+            "rightImage": load_image(self._path(item["right_image_path"])),
+        }
+        sample["original_size"] = sample["leftImage"].shape[:2]
+        if item.get("left_disp_map_path"):
+            sample["leftDisp"] = load_disp(
+                self._path(item["left_disp_map_path"]))[..., None]
+        if self.use_right_disp and item.get("right_disp_map_path"):
+            sample["rightDisp"] = load_disp(
+                self._path(item["right_disp_map_path"]))[..., None]
+        return sample
+
+    def __getitem__(self, idx, rng=None):
+        sample = self.load(idx)
+        if self.transform is not None:
+            sample = self.transform(sample, rng)
+        return sample
+
+
+class SceneFlowDataset(StereoDataset):
+    name = "SceneFlow"
+
+
+class Kitti2012Dataset(StereoDataset):
+    name = "KITTI-2012"
+
+
+class Kitti2015Dataset(StereoDataset):
+    name = "KITTI-2015"
 
 
 class SyntheticStereoDataset:
@@ -74,14 +133,32 @@ class SyntheticStereoDataset:
         return sample
 
 
+DATASETS = {
+    "SceneFlow": SceneFlowDataset,
+    "KITTI-2012": Kitti2012Dataset,
+    "KITTI-2015": Kitti2015Dataset,
+    "Synthetic": SyntheticStereoDataset,
+}
+
+
 def build_dataset(data_cfg, split, transform=None):
-    """data_cfg: cfg['data']; split: 'train' | 'eval' | 'test'."""
-    if data_cfg["type"] != "Synthetic":
-        raise NotImplementedError(
-            f"{data_cfg['type']} file datasets are not ported yet (ROADMAP.md "
-            "queue 1 item 4); pass a SyntheticStereoDataset")
+    """data_cfg: cfg['data']; split: 'train' | 'eval' | 'test'. A file
+    dataset reads data_cfg[split]['annfile'] under data_cfg['data_root']."""
+    kind = data_cfg["type"]
     split_cfg = data_cfg.get(split, {})
-    return SyntheticStereoDataset(
-        transform=transform,
-        **{k: v for k, v in split_cfg.items()
-           if k in ("length", "height", "width", "max_disp", "seed")})
+    if kind in ("FlyingChairs", "SyntheticFlow"):
+        raise NotImplementedError(
+            f"{kind}: flow datasets are not ported yet (ROADMAP.md queue 1 "
+            "item 11)")
+    cls = DATASETS[kind]
+    if cls is SyntheticStereoDataset:
+        return cls(transform=transform,
+                   **{k: v for k, v in split_cfg.items()
+                      if k in ("length", "height", "width", "max_disp",
+                               "seed")})
+    if not split_cfg.get("annfile"):
+        raise KeyError(f"data.{split}.annfile: the {kind} dataset reads its "
+                       "samples from a JSON annotation file, and none is set")
+    return cls(ann_file=split_cfg["annfile"], root=data_cfg["data_root"],
+               transform=transform,
+               use_right_disp=split_cfg.get("use_right_disp", False))

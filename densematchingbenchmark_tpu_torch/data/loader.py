@@ -2,11 +2,12 @@
 
 Counterpart of densematchingbenchmark_tpu/data/loader.py:22-89: worker
 threads load and transform samples, batches are collated as stacked
-float32 numpy arrays, and a small queue keeps the next batches ready while
-the device trains. Each sample's transform generator is
-``default_rng((seed, epoch, index))``, so any batch is reproducible on its
-own and a resumed epoch replays the same batches. A sample that fails to
-load raises in the consumer instead of leaving it waiting.
+float32 numpy arrays (each from one aspect group, given ``group_flags``),
+and a small queue keeps the next batches ready while the device trains.
+Each sample's transform generator is ``default_rng((seed, epoch, index))``,
+so any batch is reproducible on its own and a resumed epoch replays the
+same batches. A sample that fails to load raises in the consumer instead
+of leaving it waiting.
 """
 
 import queue
@@ -15,7 +16,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from .sampler import EpochSampler
+from .sampler import EpochSampler, GroupedEpochSampler
 
 _BATCH_KEYS = ("leftImage", "rightImage", "leftDisp", "rightDisp")
 
@@ -31,9 +32,13 @@ def collate(samples):
 
 class DataLoader:
     def __init__(self, dataset, global_batch, seed=0, num_workers=4,
-                 prefetch=2):
+                 prefetch=2, group_flags=None):
         self.dataset = dataset
-        self.sampler = EpochSampler(len(dataset), global_batch, seed)
+        self.sampler = (
+            EpochSampler(len(dataset), global_batch, seed)
+            if group_flags is None else
+            GroupedEpochSampler(len(dataset), global_batch, group_flags,
+                                seed))
         self.seed = seed
         self.num_workers = num_workers
         self.prefetch = prefetch

@@ -1,10 +1,11 @@
 """Stereo sample transforms (numpy, channels-last).
 
 This package's own copy of densematchingbenchmark_tpu/data/transforms.py
-:19-79. Samples are dicts with 'leftImage' / 'rightImage' [H, W, 3] and
+:19-86. Samples are dicts with 'leftImage' / 'rightImage' [H, W, 3] and
 optional 'leftDisp' / 'rightDisp' [H, W, 1]. Randomness is an explicit
 np.random.Generator. Training: random_crop(input_shape) -> normalize;
-inference: pad_to or center_crop -> normalize.
+inference and evaluation: pad_to (the GT too, for evaluation) or
+center_crop -> normalize.
 """
 
 import numpy as np
@@ -66,4 +67,14 @@ def normalize(sample, mean, std):
 def make_train_transform(input_shape, mean, std):
     def apply(sample, rng):
         return normalize(random_crop(sample, input_shape, rng), mean, std)
+    return apply
+
+
+def make_eval_transform(input_shape, mean, std, pad_disp=True):
+    """pad_to(input_shape) -> normalize; the GT is padded with zeros too,
+    which the metrics' lb=0 mask makes invalid, so that samples of mixed
+    sizes (KITTI) share one padded shape."""
+    def apply(sample, rng=None):
+        return normalize(pad_to(sample, input_shape, pad_disp=pad_disp),
+                         mean, std)
     return apply

@@ -1,0 +1,65 @@
+"""Disparity warps along the width axis.
+
+Counterpart of densematchingbenchmark_tpu/ops/warp.py:23-92: a stereo warp
+moves a sample only along W, so it is a 1-D linear-interpolated gather with
+zero padding outside the frame, in the exact mode and in the mode that
+reproduces the reference's grid_sample numerics (``compat_grid_sample``).
+``inverse_warp_3d`` and ``flow_warp`` arrive with DeepPruner and the flow
+models (ROADMAP.md queue 1 items 9 and 11).
+"""
+
+import torch
+
+
+def gather_1d_linear(src, x, axis):
+    """Linear-interpolated gather along ``axis`` with zero padding.
+
+    out[..., i, ...] = src[..., x[i], ...] for fractional x; each of the two
+    integer taps adds nothing when it lies outside [0, W-1].
+
+    Args:
+      src: source tensor.
+      x: fractional coordinates, broadcastable to src's shape with ``axis``
+        replaced by the output length.
+      axis: the axis of ``src`` being sampled.
+    """
+    w = src.shape[axis]
+    x0 = torch.floor(x)
+    frac = x - x0
+    x0i = x0.long()
+
+    def tap(xi, weight):
+        valid = (xi >= 0) & (xi <= w - 1)
+        g = torch.take_along_dim(src, xi.clamp(0, w - 1), dim=axis)
+        return g * (weight * valid.to(x.dtype)).to(src.dtype)
+
+    return tap(x0i, 1.0 - frac) + tap(x0i + 1, frac)
+
+
+def inverse_warp_2d(img, disp, compat_grid_sample=False):
+    """Warp ``img`` (the source view) to the reference view:
+    out[b, y, x, c] = img[b, y, x + disp[b, y, x], c], linear, zero outside
+    the frame. Warping the right view to the left uses
+    ``disp = -left_disparity``.
+
+    Args:
+      img: [B, H, W, C].
+      disp: [B, H, W, 1] or [B, H, W] horizontal offset added to x.
+      compat_grid_sample: the reference's numerics: align_corners=True
+        coordinates fed to an align_corners=False grid_sample rescale every
+        axis p -> p * n/(n-1) - 0.5 (blending adjacent rows), and samples
+        whose x before the rescale falls outside [0, W-1] are zeroed.
+    """
+    if disp.dim() == 4:
+        disp = disp[..., 0]
+    h, w = img.shape[1:3]
+    xs = torch.arange(w, dtype=disp.dtype, device=disp.device) + disp
+    if compat_grid_sample:
+        inframe = (xs >= 0) & (xs <= w - 1)
+        ys = (torch.arange(h, dtype=disp.dtype, device=disp.device)
+              * (h / (h - 1)) - 0.5)
+        img = gather_1d_linear(img, ys[None, :, None, None], axis=1)
+        out = gather_1d_linear(img, (xs * (w / (w - 1)) - 0.5)[..., None],
+                               axis=2)
+        return out * inframe[..., None].to(out.dtype)
+    return gather_1d_linear(img, xs[..., None], axis=2)

@@ -1,13 +1,15 @@
 """End-to-end training loop: train_matcher.
 
 Counterpart of densematchingbenchmark_tpu/trainer/loop.py:27-239 on one
-device: the loader prefetches host batches, every step is one
-``make_train_step`` call, metrics go to the text log and to
-<work_dir>/metrics.log.json, and a checkpoint at the end of every epoch (or
-at ``max_steps``) records the exact (epoch, batch_in_epoch) position, so
-``resume=True`` replays the same remaining batches. Per-epoch evaluation,
-the visualization hook, the JAX profiler window and data parallelism arrive
-with ROADMAP.md queue 1 items 3-5.
+device: the loader prefetches host batches (aspect-grouped with
+``data.group_sampling``), every step is one ``make_train_step`` call,
+metrics go to the text log and to <work_dir>/metrics.log.json, and a
+checkpoint at the end of every epoch (or at ``max_steps``) records the
+exact (epoch, batch_in_epoch) position, so ``resume=True`` replays the same
+remaining batches. After each epoch's checkpoint the eval set, if any, is
+evaluated and its metrics logged under 'eval/'. The visualization hook, the
+profiler window and data parallelism arrive with ROADMAP.md queue 1 items 3
+and 5.
 """
 
 import json
@@ -17,7 +19,9 @@ import time
 import torch
 
 from ..apis import resolve_device
-from ..data import DataLoader, build_dataset, transforms
+from ..data import DataLoader, aspect_group_flags, build_dataset, transforms
+from ..evaluation.eval_loop import evaluate
+from ..evaluation.format import combine_shard_metrics, metrics_table
 from ..losses import make_loss_evaluator
 from ..models import build_model
 from ..utils.checkpoint import CheckpointManager
@@ -36,11 +40,10 @@ def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
     'l1_loss_lvl<i>', 'grad_norm', 'throughput' (samples/s), 'lr',
     'step_ms' (host clock around the step, ended by reading its metrics)
     and, on a GPU, 'peak_mem_gib' (torch.cuda.max_memory_allocated).
+    ``eval_dataset`` defaults to the file dataset of data.eval.annfile,
+    when that is set; its metrics are logged after every epoch as
+    'eval/disp_<id>/<metric>'.
     """
-    if eval_dataset is not None:
-        raise NotImplementedError(
-            "per-epoch evaluation is not ported yet (ROADMAP.md queue 1 "
-            "item 4)")
     device = resolve_device(device)
     if device.type == "cuda":
         # float32 configs compute in float32, as init_model sets
@@ -50,18 +53,24 @@ def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
     metrics_log = MetricsLogger(work_dir)
 
     data_cfg = cfg["data"]
+    mean, std = data_cfg["mean"], data_cfg["std"]
     if train_dataset is None:
         train_dataset = build_dataset(
             data_cfg, "train",
             transform=transforms.make_train_transform(
-                data_cfg["train"]["input_shape"], data_cfg["mean"],
-                data_cfg["std"]))
-    if data_cfg.get("group_sampling"):
-        raise NotImplementedError("aspect-grouped sampling arrives with the "
-                                  "file datasets (ROADMAP.md queue 1 item 4)")
+                data_cfg["train"]["input_shape"], mean, std))
+    if eval_dataset is None and data_cfg.get("type") != "Synthetic" and \
+            data_cfg.get("eval", {}).get("annfile"):
+        eval_dataset = build_dataset(
+            data_cfg, "eval",
+            transform=transforms.make_eval_transform(
+                data_cfg["eval"]["input_shape"], mean, std))
     global_batch = data_cfg.get("batch_size_per_device", 1)
     seed = cfg.get("seed", 0)
-    loader = DataLoader(train_dataset, global_batch, seed=seed)
+    loader = DataLoader(train_dataset, global_batch, seed=seed,
+                        group_flags=(aspect_group_flags(train_dataset)
+                                     if data_cfg.get("group_sampling")
+                                     else None))
     steps_per_epoch = loader.steps_per_epoch()
 
     module = build_model(cfg, torch.Generator().manual_seed(seed))
@@ -86,6 +95,8 @@ def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
             logger.info(f"resumed from step {state.step} (epoch "
                         f"{start_epoch}, batch {start_batch})")
     step_fn = make_train_step(evaluator)
+    eval_cfg = cfg["model"].get("eval", {})
+    eval_ids = tuple(cfg.get("eval_disparity_id", (0,)))
 
     def device_batches(epoch, start):
         for batch in loader.epoch(epoch, start=start):
@@ -136,6 +147,12 @@ def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
                                 if completed else
                                 {"epoch": epoch,
                                  "batch_in_epoch": batch_in_epoch}))
+        if eval_dataset is not None:
+            results, n = combine_shard_metrics(*evaluate(
+                module, eval_dataset, eval_cfg, eval_ids))
+            logger.info(f"epoch {epoch + 1} eval ({n} samples):\n"
+                        + metrics_table(results))
+            metrics_log.log(state.step, results, prefix="eval/")
         if done:
             break
     return state

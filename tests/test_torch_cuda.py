@@ -743,3 +743,91 @@ def test_kernels_launch_on_their_operands_device_on_card(cuda):
         np.testing.assert_allclose(m1[k], m0[k], rtol=1e-4)
     for n in p0:
         assert (p1[n] - p0[n]).abs().max().item() <= 1e-4, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout", [
+    ((4, 12, 24, 78, 64), 32),        # the eval trunk's shapes at batch 4
+    ((4, 6, 12, 39, 64), 64),
+    ((4, 3, 7, 30, 32), 32),          # ragged
+])
+def test_conv3d_kernel_at_eval_batch_4_on_card(cuda, shape, cout):
+    args = [torch.from_numpy(a).to(cuda)
+            for a in conv_inputs(shape, cout, seed=shape[2])]
+    before = kernels.fused_conv3d.launches
+    got = kernels.fused_conv3d(*args, relu=True)
+    want = kernels.conv3d_plain(*args, True)
+    torch.cuda.synchronize()
+    assert kernels.fused_conv3d.launches == before + 1
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("low_shape,out", [
+    ((4, 12, 24, 78), (48, 96, 312)),
+    ((4, 5, 9, 33), (20, 35, 130)),   # ragged
+])
+def test_upsample_kernel_at_eval_batch_4_on_card(cuda, low_shape, out):
+    low = torch.randn(low_shape, device=cuda) * 3
+    vals = torch.as_tensor(disp_sample_values(out[0]), device=cuda)
+    before = kernels.fused_upsample_soft_argmin.launches
+    got = kernels.fused_upsample_soft_argmin(low, *out)
+    want = kernels.upsample_soft_argmin_plain(low, *out, vals)
+    torch.cuda.synchronize()
+    assert kernels.fused_upsample_soft_argmin.launches == before + 1
+    assert got.shape == (4, *out[1:], 1)
+    assert (got - want).abs().max().item() <= 1e-3
+
+
+def eval_set():
+    """Five synthetic samples with right disparities, padded to 64x64."""
+    from densematchingbenchmark_tpu_torch.data import (SyntheticStereoDataset,
+                                                       transforms)
+    ds = SyntheticStereoDataset(length=5, height=60, width=62, max_disp=40,
+                                seed=3, with_right_disp=True)
+    ds.transform = transforms.make_eval_transform(
+        (64, 64), (123.675, 116.28, 103.53), (58.395, 57.12, 57.375))
+    return ds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_evaluate_on_card_matches_cpu(cuda, fused):
+    from densematchingbenchmark_tpu_torch.evaluation import evaluate
+    over = dict(TINY, **{"model.eval.fused_upsample_argmin": fused,
+                         "model.eval.upper_bound": 64})
+    card = init_model("PSMNet/scene_flow_f32", device=cuda, seed=2, **over)
+    cpu = init_model("PSMNet/scene_flow_f32", device="cpu", seed=2, **over)
+    ecfg, ids = card.cfg["model"]["eval"], card.cfg["eval_disparity_id"]
+    kernels.reset_launch_counts()
+    got, n = evaluate(card.module, eval_set(), ecfg, ids, batch_size=4)
+    counts = kernels.launch_counts()
+    regress = "fused_upsample_soft_argmin" if fused else "fused_soft_argmin"
+    assert counts["fused_conv3d"] == 2 * 13 and counts[regress] == 2 * 3
+    want, m = evaluate(cpu.module, eval_set(), ecfg, ids, batch_size=4)
+    assert n == m == 5 and set(got) == set(want)
+    assert "disp_0/occ_epe" in got
+    for k in want:
+        # cuDNN's and the CPU's convolutions sum in other orders: EPE
+        # within 1e-3 px; an n-px share moves if a pixel's error crosses
+        # its threshold, by 100 / (60 * 62) points each
+        tol = 1e-3 if k.endswith("epe") else 3 * 100 / (60 * 62)
+        assert abs(got[k] - want[k]) <= tol, (k, got[k], want[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_eval_loop_issues_no_synchronising_call_per_batch_on_card(cuda,
+                                                                  fused):
+    """The eval loop's per-batch work (pinned copy to the card, forward,
+    metrics) waits for nothing; only the final fetch does."""
+    from densematchingbenchmark_tpu_torch.evaluation import eval_loop
+    model = init_model("PSMNet/scene_flow_f32", device=cuda, seed=0,
+                       **dict(TINY, **{
+                           "model.eval.fused_upsample_argmin": fused}))
+    ecfg = model.cfg["model"]["eval"]
+    pending = []
+    _sync_free(lambda: pending.append(eval_loop.eval_batches(
+        model.module, eval_set(), ecfg, (0, 1, 2), batch_size=2)))
+    results = eval_loop.average_metrics(*pending[-1])
+    assert pending[-1][1] == 5 and np.isfinite(list(results.values())).all()

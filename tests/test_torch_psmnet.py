@@ -21,12 +21,16 @@ import pytest
 import torch
 
 from densematchingbenchmark_tpu import apis as japis
+from densematchingbenchmark_tpu.configs import get_config as jget_config
 
 from densematchingbenchmark_tpu_torch import apis as tapis
 from densematchingbenchmark_tpu_torch.configs import get_config
 from densematchingbenchmark_tpu_torch.models import build_model
 from densematchingbenchmark_tpu_torch.ops import cuda as kernels
-from densematchingbenchmark_tpu_torch.utils import load_jax_variables
+from densematchingbenchmark_tpu_torch.utils import (flax_variables,
+                                                    load_jax_variables)
+from densematchingbenchmark_tpu_torch.utils.checkpoint import (
+    CheckpointManager)
 
 # The suite runs several test workers on one CPU: one torch intra-op
 # thread each keeps their OpenMP pools from oversubscribing the cores.
@@ -95,21 +99,33 @@ def test_psmnet_inference_matches_jax(fused):
 
 
 def test_scale_factor_and_crop_run_on_the_port():
-    model = tapis.init_model("PSMNet/scene_flow_f32", device="cpu", **TINY)
-    batch = pairs(1, (40, 40), seed=2)
-    out = tapis.inference_stereo(model, batch, pad_to_shape=(64, 64),
-                                 scale_factor=1.5, disp_div_factor=2.0)
-    assert out[0]["disps"][0].shape == (1, 40, 40, 1)
-    crop = tapis.inference_stereo(model, pairs(1, (70, 80), seed=3),
-                                  crop_shape=(64, 64))
-    assert crop[0]["disps"][0].shape == (1, 64, 64, 1)
-    assert all(np.isfinite(d).all() for d in out[0]["disps"]
-               + crop[0]["disps"])
+    """inference_stereo's scale_factor and crop_shape paths against JAX's
+    on the same weights, within 1e-4 px (the resizes add float32 rounding
+    on both sides)."""
+    tmodel = tapis.init_model("PSMNet/scene_flow_f32", device="cpu", **TINY)
+    variables = randomize_bn(flax_variables(tmodel.module),
+                             np.random.RandomState(4))
+    load_jax_variables(tmodel.module, variables)
+    jmodel = japis.StereoModel(jget_config("PSMNet/scene_flow_f32", **TINY),
+                               jax.tree.map(jnp.asarray, variables))
+    for batch, kwargs, shape in (
+            (pairs(1, (40, 40), seed=2),
+             dict(pad_to_shape=(64, 64), scale_factor=1.5,
+                  disp_div_factor=2.0), (40, 40)),
+            (pairs(1, (70, 80), seed=3), dict(crop_shape=(64, 64)),
+             (64, 64))):
+        got = tapis.inference_stereo(tmodel, batch, **kwargs)[0]["disps"]
+        want = japis.inference_stereo(jmodel, batch, **kwargs)[0]["disps"]
+        assert len(got) == len(want) == 3
+        for g, w in zip(got, want):
+            assert g.shape == w.shape == (1, *shape, 1)
+            np.testing.assert_allclose(g, np.asarray(w), atol=1e-4,
+                                       err_msg=str(kwargs))
 
 
 def test_port_imports_no_jax():
     # inference, one training step and the packed-conv microbench, with
-    # every module of the port
+    # every module of the port and its four command-line tools imported
     train = dict(TINY, **{"model.losses.l1_loss.max_disp": 64,
                           "data.batch_size_per_device": 1})
     code = f"""
@@ -126,6 +142,14 @@ import densematchingbenchmark_tpu_torch.utils
 import densematchingbenchmark_tpu_torch.utils.checkpoint
 import densematchingbenchmark_tpu_torch.utils.logging
 from densematchingbenchmark_tpu_torch.tools import microbench_packed
+import densematchingbenchmark_tpu_torch.data.io
+import densematchingbenchmark_tpu_torch.data.sampler
+import densematchingbenchmark_tpu_torch.evaluation.eval_loop
+import densematchingbenchmark_tpu_torch.evaluation.format
+import densematchingbenchmark_tpu_torch.evaluation.metrics
+import densematchingbenchmark_tpu_torch.ops.warp
+import densematchingbenchmark_tpu_torch.visualization
+from densematchingbenchmark_tpu_torch.tools import bench, demo, test, train
 model = init_model("PSMNet/scene_flow_f32", device="cpu", **{TINY!r})
 rng = np.random.RandomState(0)
 img = rng.rand(64, 64, 3).astype(np.float32) * 255
@@ -167,10 +191,31 @@ def test_unported_pieces_raise(override):
         build_model(get_config("PSMNet/scene_flow", **override))
 
 
-def test_checkpoint_restore_not_ported():
-    with pytest.raises(NotImplementedError):
-        tapis.init_model("PSMNet/scene_flow_f32", device="cpu",
-                         checkpoint_dir="/nonexistent")
+def test_checkpoint_restore_not_ported(tmp_path):
+    """init_model(checkpoint_dir=...) restores the parameters and BN
+    statistics that train_matcher's CheckpointManager saved: the restored
+    model's disparities are identical to the saved module's. With no
+    checkpoint in the directory it keeps the seeded weights."""
+    saved = build_model(get_config("PSMNet/scene_flow_f32", **TINY),
+                        torch.Generator().manual_seed(5))
+    load_jax_variables(saved, randomize_bn(flax_variables(saved),
+                                           np.random.RandomState(5)))
+    CheckpointManager(str(tmp_path)).save(3, {"module": saved.state_dict(),
+                                              "step": 3})
+    model = tapis.init_model("PSMNet/scene_flow_f32", device="cpu",
+                             checkpoint_dir=str(tmp_path), **TINY)
+    seeded = tapis.init_model("PSMNet/scene_flow_f32", device="cpu", **TINY)
+    want = tapis.StereoModel(model.cfg, saved.eval(), torch.device("cpu"))
+    batch = pairs(1, (50, 60), seed=6)
+    got = tapis.inference_stereo(model, batch, pad_to_shape=(64, 64))
+    ref = tapis.inference_stereo(want, batch, pad_to_shape=(64, 64))
+    for g, w in zip(got[0]["disps"], ref[0]["disps"]):
+        np.testing.assert_array_equal(g, w)
+    empty = tapis.init_model("PSMNet/scene_flow_f32", device="cpu",
+                             checkpoint_dir=str(tmp_path / "none"), **TINY)
+    for a, b in zip(empty.module.state_dict().values(),
+                    seeded.module.state_dict().values()):
+        assert torch.equal(a, b)
 
 
 def test_same_seed_same_weights_in_both_eval_modes():

@@ -35,6 +35,7 @@ from densematchingbenchmark_tpu_torch import apis as tapis
 from densematchingbenchmark_tpu_torch.configs import get_config
 from densematchingbenchmark_tpu_torch.data import (SyntheticStereoDataset,
                                                    transforms)
+from densematchingbenchmark_tpu_torch.evaluation import evaluate
 from densematchingbenchmark_tpu_torch.losses import (make_loss_evaluator,
                                                      total_loss)
 from densematchingbenchmark_tpu_torch.models import build_model
@@ -302,10 +303,35 @@ def test_train_matcher_without_cuda_raises(monkeypatch, tmp_path):
 
 
 def test_train_matcher_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Per-epoch evaluation: after each epoch's checkpoint (and at
+    max_steps) train_matcher logs 'eval/' metrics equal to ``evaluate`` of
+    the state at that point, here on aspect-grouped batches. A file
+    dataset without its annotation file raises, naming it."""
+    cfg = tiny_train_cfg()
+    cfg["data"]["group_sampling"] = True
+    eval_ds = SyntheticStereoDataset(length=3, height=30, width=60,
+                                     max_disp=M // 2, seed=7)
+    eval_ds.transform = transforms.make_eval_transform(
+        (32, 64), cfg["data"]["mean"], cfg["data"]["std"])
+    work = str(tmp_path / "work")
+    # 8 samples at batch 2: epoch 1 ends at step 4, max_steps stops at 5
+    state = train_matcher(cfg, work, train_dataset=tiny_dataset(),
+                          eval_dataset=eval_ds, max_steps=5,
+                          log_interval=10, device="cpu")
+    evals = [r for r in read_metrics(work) if "eval/disp_0/epe" in r]
+    assert [r["step"] for r in evals] == [4, 5]
+    want, n = evaluate(state.module, eval_ds, cfg["model"]["eval"],
+                       cfg["eval_disparity_id"])
+    assert n == 3 and len(want) == 3 * 5          # 3 disparities, no occ
+    assert {k[len("eval/"):]: v for k, v in evals[-1].items()
+            if k.startswith("eval/")} == want
+
+    with pytest.raises(KeyError, match="annfile"):     # SceneFlow files
         train_matcher(tiny_train_cfg(), str(tmp_path), device="cpu",
-                      max_steps=1)            # SceneFlow files
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_matcher(tiny_train_cfg(), str(tmp_path), device="cpu",
-                      train_dataset=tiny_dataset(),
-                      eval_dataset=tiny_dataset(), max_steps=1)
+                      max_steps=1)
+    missing = str(tmp_path / "missing.json")
+    cfg = tiny_train_cfg()
+    cfg["data"].update(data_root=str(tmp_path),
+                       train=dict(cfg["data"]["train"], annfile=missing))
+    with pytest.raises(FileNotFoundError, match="missing.json"):
+        train_matcher(cfg, str(tmp_path), device="cpu", max_steps=1)

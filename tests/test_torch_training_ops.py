@@ -10,6 +10,8 @@ against the JAX data pipeline. Every JAX result is computed once, in one
 module-scoped fixture. Tolerances are stated per test.
 """
 
+import json
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -34,6 +36,7 @@ from densematchingbenchmark_tpu.trainer import optim as joptim
 from densematchingbenchmark_tpu_torch.data import (DataLoader, EpochSampler,
                                                    SyntheticStereoDataset,
                                                    build_dataset, transforms)
+from densematchingbenchmark_tpu_torch.data import io as tio
 from densematchingbenchmark_tpu_torch.losses import builder as tloss_builder
 from densematchingbenchmark_tpu_torch.losses import disp_losses
 from densematchingbenchmark_tpu_torch.models.layers import BatchNorm
@@ -441,11 +444,32 @@ def test_loader_raises_a_failing_sample():
         list(DataLoader(t, 2, seed=0, num_workers=2).epoch(0))
 
 
-def test_file_datasets_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_dataset({"type": "SceneFlow", "train": {}}, "train")
+def test_file_datasets_raise(tmp_path):
+    """build_dataset builds each file dataset from an annotation file (and
+    the synthetic one from its split's fields)."""
+    img = np.arange(8 * 12 * 3, dtype=np.uint8).reshape(8, 12, 3)
+    tio.save_png(str(tmp_path / "l.png"), img)
+    tio.save_png(str(tmp_path / "r.png"), img[:, ::-1])
+    tio.save_pfm(str(tmp_path / "d.pfm"), np.full((8, 12), 3.0, np.float32))
+    tio.save_kitti_disp(str(tmp_path / "d.png"), np.full((8, 12), 2.5))
+    for kind, disp in (("SceneFlow", "d.pfm"), ("KITTI-2012", "d.png"),
+                       ("KITTI-2015", "d.png")):
+        ann = tmp_path / f"{kind}.json"
+        ann.write_text(json.dumps([{"left_image_path": "l.png",
+                                    "right_image_path": "r.png",
+                                    "left_disp_map_path": disp}]))
+        ds = build_dataset({"type": kind, "data_root": str(tmp_path),
+                            "train": {"annfile": str(ann)}}, "train")
+        assert ds.name == kind and len(ds) == 1
+        sample = ds[0]
+        np.testing.assert_array_equal(sample["leftImage"], img)
+        assert sample["leftDisp"].shape == (8, 12, 1)
+        assert float(sample["leftDisp"].max()) == (3.0 if disp == "d.pfm"
+                                                   else 2.5)
+        assert "rightDisp" not in sample
     ds = build_dataset({"type": "Synthetic",
                         "train": {"length": 3, "height": 8, "width": 12,
                                   "max_disp": 4}}, "train")
     assert len(ds) == 3 and ds[0]["leftImage"].shape == (8, 12, 3)
-
+    with pytest.raises(NotImplementedError, match="item 11"):
+        build_dataset({"type": "FlyingChairs", "train": {}}, "train")
