@@ -36,10 +36,18 @@ PyTorch version on the card. Phases, each fatal on failure:
      K5's float32 result against a float64 reference (the plain version on
      float64 operands): its error at most 2x the float32 plain version's
      plus CONV_RTOL of the reference's largest value (check_f64).
+  3e. bfloat16 kernels: K4's bfloat16 (wgmma) route at pack 1, as the
+     bfloat16 trunk calls it, against its plain version at the four trunk
+     shapes of the 384x1248 forward at batch 1 and 4, with the folded-BN
+     [Co] epilogue and ReLU on and off (within BF16_STEP), timed by one
+     call and over 20 in a row beside cuDNN's bf16 F.conv3d + affine +
+     ReLU and the bound at 989 TFLOP/s; K2 (forward and backward) and K3 on
+     bfloat16 costs at the path's shapes.
   3d. no synchronising copy: torch.cuda.set_sync_debug_mode("error")
      around a second call (the first fills the caches) of K3, the K2
      forward and backward, upsample_3d, K5 in float32, and the eval forward
-     of a tiny PSMNet in each eval mode on inputs already on the card.
+     of a tiny PSMNet in each eval mode and each compute dtype on inputs
+     already on the card.
   3c. microbench: tools.microbench_packed.run on its three cases in each
      dtype (10 chained iterations), with each run's launch counts asserted
      (K4 and K5 60 each, all of them bfloat16 in the bfloat16 run, the
@@ -52,7 +60,11 @@ PyTorch version on the card. Phases, each fatal on failure:
      (model.eval.fused_upsample_argmin False: K1 + K2; True: K1 + K3),
      with the launch counts of each mode asserted, the two modes compared
      with each other and, on a small pair, with the same weights run
-     through the plain versions on the CPU.
+     through the plain versions on the CPU. Then the same in bfloat16
+     (PSMNet/scene_flow_bf16, seed 0: K4's bfloat16 route 13 launches a
+     forward, K1 none), its disparities against the float32 model's (mean
+     gap within BF16_GAP_ATOL), its forward time, peak memory and the
+     forward under the sync guard.
   4b. eval: K1 and K3 against their plain versions at the batch-4 eval
      shapes; a KITTI-2015-layout dataset written with the port's own
      writers (six SyntheticStereoDataset pairs at KITTI frame sizes, RGB
@@ -67,33 +79,46 @@ PyTorch version on the card. Phases, each fatal on failure:
      the sync guard (the final fetch outside it); eval ms per sample at
      batch 4 and 1, samples/s and peak memory; a checkpoint restored
      through init_model(checkpoint_dir=...) gives the saved module's
-     disparities exactly. Then the PNG decoder's host time on one 375x1242
-     RGB frame per row filter, and tools/bench.py's JSON line; each of
-     these lines carries the card's name and power limit.
+     disparities exactly. The same six pairs through tools/test.main on
+     PSMNet/kitti_2015_bf16 in both modes (K4's bfloat16 route 26 launches,
+     K1 none; each EPE within BF16_GAP_ATOL of the float32 eval's; the
+     per-batch work under the sync guard; eval ms a sample and peak
+     memory). Then the PNG decoder's host time on one 375x1242 RGB frame
+     per row filter, and tools/bench.py's JSON line in float32 and in
+     bfloat16; each of these lines carries the card's name and power
+     limit.
   5. train: trainer.loop.train_matcher on PSMNet/scene_flow_f32 at full
      width, its own 256x512 crop and batch 3 of SyntheticStereoDataset, for
      5 steps, then its evaluation of a two-sample synthetic eval set at
      384x1248, with the launches asserted (per step K4 13, K2 3 forward and
      3 backward, K1 and K3 none; the eval batch K1 13 and K2 3), finite
      losses, 'eval/' metrics in metrics.log.json, the step time,
-     samples/s, peak memory and the checkpoint's resume position.
+     samples/s, peak memory and the checkpoint's resume position. Then
+     the same on PSMNet/scene_flow_bf16 (K4's bfloat16 route 13 launches a
+     step and 13 for the eval batch, K1 none; the parameters float32).
   6. same weights: one train step at a small size on the card and on the
      CPU (the plain versions) from the same weights and batch: loss,
      per-parameter gradient cosine and updated parameters.
   7. overfit: 24 train steps on one batch at a tiny size (max_disp 32,
      crop 64x96, lr 2e-3, no warmup); the loss must fall below 0.7x its
      first value and the batch's EPE must fall.
+  8. bfloat16 card vs CPU: a small bfloat16 model from the same weights
+     and inputs on the card and through the plain versions on the CPU,
+     both eval modes (mean disparity gap within BF16_CPU_ATOL), and one
+     train step (losses within BF16_LOSS_RTOL, gradients float32).
 
 Prints a JSON line of per-kernel numbers before the last line (K4's and
-K5's bfloat16 routes in rows of their own, ``*_bf16``), and as the last
-line {"ok": true, "device": {...}}. Imports nothing of JAX.
+K5's bfloat16 routes in the microbench in rows of their own, ``*_bf16``,
+and K4's bfloat16 route on the bfloat16 model's trunk in
+``conv3d_packed_s1_bf16_pack1``), and as the last line {"ok": true,
+"device": {...}}. Imports nothing of JAX.
 
     python3 chip_smoke.py --profile
 
 adds, before the JSON lines, the device time by kernel name
 (torch.profiler) and the device's busy share of one forward in each eval
 mode, of one evaluate over the eval phase's six pairs in each mode, and
-of one training step at 256x512 batch 3.
+of one training step at 256x512 batch 3, in float32 and in bfloat16.
 """
 
 import contextlib
@@ -157,6 +182,7 @@ MICRO_PACK, MICRO_ITERS = 4, 10
 # KITTI frame sizes, padded to 384x1248, at the config's eval batch 4: two
 # batches (4 + 2), each 13 K1 launches and 3 of K2 (plain) or K3 (fused).
 EVAL_CONFIG = "PSMNet/kitti_2015_f32"
+BF16_EVAL_CONFIG = "PSMNet/kitti_2015_bf16"
 EVAL_SIZES = ((375, 1242),) * 3 + ((370, 1224), (376, 1241), (374, 1238))
 EVAL_BATCH, EVAL_BATCHES = 4, 2
 # the train phase's per-epoch eval set: two synthetic samples at 384x1248,
@@ -186,6 +212,24 @@ EVAL_EPE_ATOL = 1e-3   # px: mean EPE of the batched eval vs the batch-1
 EVAL_PX_ATOL = 0.01    # percentage points of an n-px share: 46 of the
                        # 465,750 pixels of a 375x1242 frame crossing a
                        # threshold
+# bfloat16 compute (PSMNet/*_bf16: float32 parameters and BN statistics,
+# bfloat16 activations and convolutions, a float32 soft-argmin)
+BF16_GAP_ATOL = 3.0    # px, the mean |bf16 - float32| disparity gap of the
+                       # full-width model with random weights (seed 0). The
+                       # rounding noise grows through the network and the
+                       # peaked softmax of its costs: on the CPU, on the
+                       # same network and seed, JAX's own bf16-vs-float32
+                       # gap is 0.27-0.43 px mean at 96x192 and 0.34-0.78 at
+                       # 192x624, the port's 0.27-0.40 and 0.35-0.79
+                       # (tests/bf16_gap_study.py); on the card at 384x1248
+                       # the port's measured 1.21-1.96. It bounds the EPE
+                       # gap of the eval too.
+BF16_CPU_ATOL = 0.05   # px, mean |card - CPU| of a small bfloat16 model
+                       # with BN drawn as the CPU tests draw it (damp_bn):
+                       # the bound they hold the port to against JAX; its
+                       # own bf16-vs-float32 gap on the CPU is 0.022-0.036
+                       # (tests/bf16_gap_study.py)
+BF16_LOSS_RTOL = 0.01  # card vs CPU loss of a bfloat16 train step
 
 SOURCES = {
     "fused_conv3d": ("cuda", "densematchingbenchmark_tpu_torch/csrc/conv3d_kernel.cu",
@@ -454,13 +498,16 @@ def soft_argmin_barriers(cost, vals):
     """Compile K2's forward for ``cost`` as its wrapper launches it (one
     launch of the Triton kernel, outside the wrapper and its count) and
     assert that its PTX holds no barrier: the reduction over D stays in
-    each thread's registers. Returns the line's text."""
+    each thread's registers. On a bfloat16 cost a thread holds eight
+    columns and the float32 result is stored four a thread, so one layout
+    change through shared memory (one barrier, two shared stores and
+    loads) follows the loop, once a program. Returns the line's text."""
     from densematchingbenchmark_tpu_torch.ops.cuda import (
         soft_argmin_kernel as sak)
     b, d, h, w = cost.shape
     triton, kernel, _ = sak._triton_kernels()
     out = torch.empty((b, h, w, 1), device=cost.device)
-    block_w = 128 * sak.FWD_WARPS
+    block_w = sak.fwd_block_w(cost.dtype)
     compiled = kernel[(triton.cdiv(w, block_w), h, b)](
         cost, vals, out, out, out, d, h, w, 1.0, STATS=False,
         DEPTH=sak.FWD_DEPTH, BLOCK_W=block_w, num_warps=sak.FWD_WARPS,
@@ -469,7 +516,9 @@ def soft_argmin_barriers(cost, vals):
     counts = {k: ptx.count(k) for k in ("bar.sync", "bar.arrive",
                                         "barrier.sync", "ld.shared",
                                         "st.shared")}
-    assert not any(counts.values()), counts
+    allowed = ({"bar.sync": 1, "ld.shared": 2, "st.shared": 2}
+               if cost.dtype == torch.bfloat16 else {})
+    assert all(n <= allowed.get(k, 0) for k, n in counts.items()), counts
     return f"PTX of the forward: {counts}"
 
 
@@ -845,8 +894,8 @@ def guarded(label, fn):
 
 def sync_guard_phase(gen):
     """The kernels and ops of the regression path and K5 in float32, and a
-    tiny PSMNet's eval forward in both modes, issue no synchronising call
-    once their caches are filled."""
+    tiny PSMNet's eval forward in both modes and both compute dtypes, issue
+    no synchronising call once their caches are filled."""
     from densematchingbenchmark_tpu_torch.apis import init_model
     from densematchingbenchmark_tpu_torch.ops.conv3d import pack_volume
     from densematchingbenchmark_tpu_torch.ops.cuda import (
@@ -872,12 +921,12 @@ def sync_guard_phase(gen):
                      conv3d_packed_s1_v2(xp, k, scale, 0.5, pack=MICRO_PACK,
                                          relu=True)))
     image = torch.randn((1, 64, 128, 3), device="cuda", generator=gen)
-    for fused in (False, True):
-        model = init_model("PSMNet/scene_flow_f32", device="cuda", seed=0,
-                           **dict(SYNC_TINY, **{
-                               "model.eval.fused_upsample_argmin": fused}))
-        guarded(f"PSMNet eval forward, fused_upsample_argmin={fused}",
-                lambda: model.forward(image, image))
+    for name in ("PSMNet/scene_flow_f32", "PSMNet/scene_flow_bf16"):
+        for fused in (False, True):
+            model = init_model(name, device="cuda", seed=0, **dict(
+                SYNC_TINY, **{"model.eval.fused_upsample_argmin": fused}))
+            guarded(f"{name} eval forward, fused_upsample_argmin={fused}",
+                    lambda: model.forward(image, image))
 
 
 def microbench_phase():
@@ -1012,13 +1061,16 @@ def slice_phase(device="cuda"):
           f"px (tolerance {CPU_ATOL})")
     assert cpu_err <= CPU_ATOL, cpu_err
     launches = {k: counts_a[k] + counts_b[k] for k in counts_a}
-    return launches, (model_a, model_b)
+    return launches, (model_a, model_b), pairs, (disps_a, disps_b)
 
 
-def train_phase():
-    """train_matcher on PSMNet/scene_flow_f32 at full width, 256x512 batch
-    3, for TRAIN_STEPS steps, then its evaluation of a TRAIN_EVAL-sample
-    eval set at 384x1248; returns the launch counts of the run."""
+def train_phase(smi, name="PSMNet/scene_flow_f32"):
+    """train_matcher on ``name`` (PSMNet/scene_flow in float32 or bfloat16
+    compute) at full width, 256x512 batch 3, for TRAIN_STEPS steps, then
+    its evaluation of a TRAIN_EVAL-sample eval set at 384x1248; returns the
+    launch counts of the run. In bfloat16 every K4 launch is its
+    tensor-core route and K1 stays idle (the eval batch's trunk is K4's
+    too); the parameters stay float32."""
     from densematchingbenchmark_tpu_torch.configs import get_config
     from densematchingbenchmark_tpu_torch.data import (SyntheticStereoDataset,
                                                        transforms)
@@ -1027,7 +1079,8 @@ def train_phase():
     from densematchingbenchmark_tpu_torch.trainer.loop import read_metrics
     from densematchingbenchmark_tpu_torch.utils.checkpoint import (
         CheckpointManager)
-    cfg = get_config("PSMNet/scene_flow_f32")
+    cfg = get_config(name)
+    bf16 = cfg["model"]["dtype"] == "bfloat16"
     data = cfg["data"]
     assert data["batch_size_per_device"] == TRAIN_BATCH
     crop = data["train"]["input_shape"]
@@ -1050,16 +1103,22 @@ def train_phase():
                               log_interval=1)
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
+        bf16_counts = kernels.bf16_launch_counts()
         records = read_metrics(work)
         _, meta = CheckpointManager(work).restore()
     n_params = sum(p.numel() for p in state.module.parameters())
-    # the steps, and one eval batch at the end (K1 13, K2 3: plain mode)
-    assert counts == {"fused_conv3d": 13,
+    assert all(p.dtype == torch.float32 for p in state.module.parameters())
+    # the steps, and one eval batch at the end (its 13 trunk units on K1 in
+    # float32, on K4 in bfloat16; K2 3: plain mode)
+    k4 = 13 * TRAIN_STEPS + (13 if bf16 else 0)
+    assert counts == {"fused_conv3d": 0 if bf16 else 13,
                       "fused_soft_argmin": 3 * TRAIN_STEPS + 3,
                       "fused_soft_argmin_backward": 3 * TRAIN_STEPS,
                       "fused_upsample_soft_argmin": 0,
-                      "conv3d_packed_s1": 13 * TRAIN_STEPS,
+                      "conv3d_packed_s1": k4,
                       "conv3d_packed_s1_v2": 0}, counts
+    assert bf16_counts == {"conv3d_packed_s1": k4 if bf16 else 0,
+                           "conv3d_packed_s1_v2": 0}, bf16_counts
     per_step = {"conv3d_packed_s1": 13, "fused_soft_argmin": 3,
                 "fused_soft_argmin_backward": 3}
     evals = [r for r in records if "eval/disp_0/epe" in r]
@@ -1072,7 +1131,7 @@ def train_phase():
     assert meta == {"epoch": 0, "batch_in_epoch": TRAIN_STEPS}, meta
     step_ms = float(np.median([r["train/step_ms"] for r in records[1:]]))
     peak = max(r["train/peak_mem_gib"] for r in records)
-    print(f"train: PSMNet/scene_flow_f32 {n_params / 1e6:.3f} M params, "
+    print(f"train: {name} {n_params / 1e6:.3f} M params, "
           f"{TRAIN_BATCH}x{crop[0]}x{crop[1]}, {TRAIN_STEPS} steps: losses "
           f"{[round(x, 4) for x in losses]}, grad_norm "
           f"{[round(r['train/grad_norm'], 3) for r in records]}; step "
@@ -1081,7 +1140,7 @@ def train_phase():
           f"GiB; launches per step {per_step}; checkpoint resumes at {meta}; "
           f"eval of {TRAIN_EVAL} samples at {PADDED} logged: disp_0 EPE "
           f"{evals[0]['eval/disp_0/epe']:.4f} px, 3px "
-          f"{evals[0]['eval/disp_0/3px']:.4f} %")
+          f"{evals[0]['eval/disp_0/3px']:.4f} %; {smi}")
     return counts
 
 
@@ -1345,16 +1404,16 @@ def png_decode_phase(smi):
           + f"; {smi}")
 
 
-def eval_phase(smi, gen):
-    """tools/test.py on a KITTI-2015-layout dataset at full width in both
-    eval modes, held against a batch-1 inference_stereo reference; the
-    eval loop's per-batch work under the sync guard; the restore path.
-    Returns the launch counts of the two tools/test.py runs."""
+def eval_phase(smi, gen, root, ann, items):
+    """tools/test.py on the KITTI-2015-layout dataset at ``root`` at full
+    width in both eval modes, held against a batch-1 inference_stereo
+    reference; the eval loop's per-batch work under the sync guard; the
+    restore path. Returns the launch counts of the two tools/test.py runs
+    and each mode's metrics."""
     from densematchingbenchmark_tpu_torch.apis import (inference_stereo,
                                                        init_model)
     from densematchingbenchmark_tpu_torch.configs import get_config
-    from densematchingbenchmark_tpu_torch.data import (build_dataset, collate,
-                                                       io as dio, transforms)
+    from densematchingbenchmark_tpu_torch.data import collate, io as dio
     from densematchingbenchmark_tpu_torch.evaluation import eval_loop
     from densematchingbenchmark_tpu_torch.ops import cuda as kernels
     from densematchingbenchmark_tpu_torch.tools import test as test_tool
@@ -1363,148 +1422,145 @@ def eval_phase(smi, gen):
     check_eval_kernels(gen)
     torch.cuda.empty_cache()
     launches, by_mode = None, {}
-    with tempfile.TemporaryDirectory() as root:
-        ann, items = write_kitti_dataset(root)
-        work = os.path.join(root, "work")
-        for fused in (False, True):
-            over = [f"model.eval.fused_upsample_argmin={fused}",
-                    "data.test.use_right_disp=True",
-                    f"data.test.input_shape={PADDED}"]
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            kernels.reset_launch_counts()
-            results, n = test_tool.main([
-                "--config", EVAL_CONFIG, "--work-dir", work, "--data-root",
-                root, "--annfile", ann, "--override", *over])
-            torch.cuda.synchronize()
-            counts = kernels.launch_counts()
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            regress = ("fused_upsample_soft_argmin" if fused
-                       else "fused_soft_argmin")
-            want = {k: 0 for k in counts}
-            want["fused_conv3d"] = 13 * EVAL_BATCHES
-            want[regress] = 3 * EVAL_BATCHES
-            assert n == len(EVAL_SIZES) and counts == want, (n, counts)
-            launches = ({k: launches[k] + v for k, v in counts.items()}
-                        if launches else counts)
+    work = os.path.join(root, "work")
+    for fused in (False, True):
+        over = [f"model.eval.fused_upsample_argmin={fused}",
+                "data.test.use_right_disp=True",
+                f"data.test.input_shape={PADDED}"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        results, n = test_tool.main([
+            "--config", EVAL_CONFIG, "--work-dir", work, "--data-root",
+            root, "--annfile", ann, "--override", *over])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        regress = ("fused_upsample_soft_argmin" if fused
+                   else "fused_soft_argmin")
+        want = {k: 0 for k in counts}
+        want["fused_conv3d"] = 13 * EVAL_BATCHES
+        want[regress] = 3 * EVAL_BATCHES
+        assert n == len(EVAL_SIZES) and counts == want, (n, counts)
+        launches = ({k: launches[k] + v for k, v in counts.items()}
+                    if launches else counts)
 
-            # the reference: batch-1 inference_stereo on the same files,
-            # metrics per sample in float64
-            cfg = get_config(EVAL_CONFIG, **{
-                "model.eval.fused_upsample_argmin": fused})
-            model = init_model(cfg, seed=0)
-            sums = {}
-            for item in items:
-                path = lambda k: os.path.join(root, item[k])
-                out = inference_stereo(model, [{
-                    "leftImage": dio.load_image(path("left_image_path")),
-                    "rightImage": dio.load_image(path("right_image_path"))}],
-                    pad_to_shape=PADDED)[0]["disps"]
-                gt = dio.load_kitti_disp(path("left_disp_map_path"))
-                rgt = dio.load_kitti_disp(path("right_disp_map_path"))
-                for did, d in enumerate(out):
-                    for k, v in metrics_f64(d[0, ..., 0], gt, rgt).items():
-                        key = f"disp_{did}/{k}"
-                        sums[key] = sums.get(key, 0.0) + v
-            ref = {k: v / len(items) for k, v in sums.items()}
-            epe, px = compare_metrics(results, ref, f"fused={fused}")
+        # the reference: batch-1 inference_stereo on the same files,
+        # metrics per sample in float64
+        cfg = get_config(EVAL_CONFIG, **{
+            "model.eval.fused_upsample_argmin": fused})
+        model = init_model(cfg, seed=0)
+        sums = {}
+        for item in items:
+            path = lambda k: os.path.join(root, item[k])
+            out = inference_stereo(model, [{
+                "leftImage": dio.load_image(path("left_image_path")),
+                "rightImage": dio.load_image(path("right_image_path"))}],
+                pad_to_shape=PADDED)[0]["disps"]
+            gt = dio.load_kitti_disp(path("left_disp_map_path"))
+            rgt = dio.load_kitti_disp(path("right_disp_map_path"))
+            for did, d in enumerate(out):
+                for k, v in metrics_f64(d[0, ..., 0], gt, rgt).items():
+                    key = f"disp_{did}/{k}"
+                    sums[key] = sums.get(key, 0.0) + v
+        ref = {k: v / len(items) for k, v in sums.items()}
+        epe, px = compare_metrics(results, ref, f"fused={fused}")
 
-            # the eval loop again, timed end to end (files decoded by the
-            # loader threads), then its per-batch work under the sync guard
-            test_cfg = dict(cfg["data"], data_root=root, test=dict(
-                cfg["data"]["test"], annfile=ann, use_right_disp=True))
-            ds = build_dataset(test_cfg, "test",
-                               transforms.make_eval_transform(
-                                   PADDED, cfg["data"]["mean"],
-                                   cfg["data"]["std"]))
-            ecfg, ids = cfg["model"]["eval"], cfg["eval_disparity_id"]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            again, _ = eval_loop.evaluate(model.module, ds, ecfg, ids)
-            wall = time.perf_counter() - t0
-            compare_metrics(again, results, f"fused={fused} again")
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                pending, count = eval_loop.eval_batches(model.module, ds,
-                                                        ecfg, ids)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            compare_metrics(eval_loop.average_metrics(pending, count),
-                            results, f"fused={fused} guarded")
-            if "--profile" in sys.argv[1:]:
-                device_profile(f"evaluate fused_upsample_argmin={fused}, "
-                               f"{n} samples", lambda: eval_loop.evaluate(
-                                   model.module, ds, ecfg, ids), reps=1)
-
-            # device time of the eval step (forward + metrics) per sample
-            # on a batch staged on the card, at batch 4 and batch 1
-            step = eval_loop.make_eval_metrics_step(
-                model.module, ecfg["lower_bound"], ecfg["upper_bound"], ids,
-                ecfg["eval_occlusion"])
-            b4 = eval_loop.to_device(collate([ds[i] for i in range(
-                EVAL_BATCH)]), model.device)
-            b1 = {k: v[:1] for k, v in b4.items()}
-            ms4 = time_ms(lambda: step(b4), 3) / EVAL_BATCH
-            ms1 = time_ms(lambda: step(b1), 3)
-            by_mode[fused] = results
-            print(f"eval {EVAL_CONFIG} fused_upsample_argmin={fused}: "
-                  f"{n} samples of {sorted(set(EVAL_SIZES))} padded to "
-                  f"{PADDED}, batches of {EVAL_BATCH}; launches {counts}; "
-                  f"disp_0 EPE {results['disp_0/epe']:.4f} px, 3px "
-                  f"{results['disp_0/3px']:.4f} %, noc EPE "
-                  f"{results['disp_0/noc_epe']:.4f}; vs the batch-1 "
-                  f"reference: EPE {epe:.3g} px, n-px {px:.3g} points; "
-                  f"eval step {ms4:.2f} ms a sample at batch {EVAL_BATCH}, "
-                  f"{ms1:.2f} at batch 1 (device, CUDA events); evaluate "
-                  f"{n / wall:.2f} samples/s end to end (host clock, "
-                  f"files decoded); peak {peak:.2f} GiB at batch "
-                  f"{EVAL_BATCH}; no synchronising call per batch; {smi}")
-            del model, b4, b1, step
-            torch.cuda.empty_cache()
-        epe, px = compare_metrics(by_mode[True], by_mode[False], "modes")
-        print(f"eval: the two modes agree to {epe:.3g} px EPE and {px:.3g} "
-              f"points n-px (tolerances {EVAL_EPE_ATOL}, {EVAL_PX_ATOL})")
-
-        # restore: a checkpoint of a seed-1 model through init_model; the
-        # disparities compared with cuDNN held to deterministic algorithms
-        # (its default choice may sum in another order from call to call)
-        saved = init_model(EVAL_CONFIG, seed=1)
-        ckpt = os.path.join(root, "ckpt")
-        CheckpointManager(ckpt).save(1, {"module": saved.module.state_dict()})
-        restored = init_model(EVAL_CONFIG, seed=0, checkpoint_dir=ckpt)
-        sa, sb = saved.module.state_dict(), restored.module.state_dict()
-        assert sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k])
-                                              for k in sa)
-        x = torch.randn((1, *PADDED, 3), generator=torch.Generator()
-                        .manual_seed(0)).to(saved.device)
-        spread = max((p - q).abs().max().item() for p, q in zip(
-            saved.forward(x, x)["disps"], saved.forward(x, x)["disps"]))
-        torch.backends.cudnn.deterministic = True
+        # the eval loop again, timed end to end (files decoded by the
+        # loader threads), then its per-batch work under the sync guard
+        ds = eval_dataset(cfg, root, ann)
+        ecfg, ids = cfg["model"]["eval"], cfg["eval_disparity_id"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again, _ = eval_loop.evaluate(model.module, ds, ecfg, ids)
+        wall = time.perf_counter() - t0
+        compare_metrics(again, results, f"fused={fused} again")
+        torch.cuda.set_sync_debug_mode("error")
         try:
-            a = saved.forward(x, x)["disps"]
-            b = restored.forward(x, x)["disps"]
+            pending, count = eval_loop.eval_batches(model.module, ds,
+                                                    ecfg, ids)
         finally:
-            torch.backends.cudnn.deterministic = False
-        assert all(torch.equal(p, q) for p, q in zip(a, b)), max(
-            (p - q).abs().max().item() for p, q in zip(a, b))
-        print("restore: init_model(checkpoint_dir=...) restores every "
-              "parameter and BN statistic exactly, and its disparities are "
-              "identical to the saved module's (cuDNN deterministic; two "
-              f"forwards of one module in cuDNN's default mode differ by "
-              f"up to {spread:.3g} px)")
-        del saved, restored, a, b
-    return launches
+            torch.cuda.set_sync_debug_mode("default")
+        compare_metrics(eval_loop.average_metrics(pending, count),
+                        results, f"fused={fused} guarded")
+        if "--profile" in sys.argv[1:]:
+            device_profile(f"evaluate fused_upsample_argmin={fused}, "
+                           f"{n} samples", lambda: eval_loop.evaluate(
+                               model.module, ds, ecfg, ids), reps=1)
+
+        # device time of the eval step (forward + metrics) per sample
+        # on a batch staged on the card, at batch 4 and batch 1
+        step = eval_loop.make_eval_metrics_step(
+            model.module, ecfg["lower_bound"], ecfg["upper_bound"], ids,
+            ecfg["eval_occlusion"])
+        b4 = eval_loop.to_device(collate([ds[i] for i in range(
+            EVAL_BATCH)]), model.device)
+        b1 = {k: v[:1] for k, v in b4.items()}
+        ms4 = time_ms(lambda: step(b4), 3) / EVAL_BATCH
+        ms1 = time_ms(lambda: step(b1), 3)
+        by_mode[fused] = results
+        print(f"eval {EVAL_CONFIG} fused_upsample_argmin={fused}: "
+              f"{n} samples of {sorted(set(EVAL_SIZES))} padded to "
+              f"{PADDED}, batches of {EVAL_BATCH}; launches {counts}; "
+              f"disp_0 EPE {results['disp_0/epe']:.4f} px, 3px "
+              f"{results['disp_0/3px']:.4f} %, noc EPE "
+              f"{results['disp_0/noc_epe']:.4f}; vs the batch-1 "
+              f"reference: EPE {epe:.3g} px, n-px {px:.3g} points; "
+              f"eval step {ms4:.2f} ms a sample at batch {EVAL_BATCH}, "
+              f"{ms1:.2f} at batch 1 (device, CUDA events); evaluate "
+              f"{n / wall:.2f} samples/s end to end (host clock, "
+              f"files decoded); peak {peak:.2f} GiB at batch "
+              f"{EVAL_BATCH}; no synchronising call per batch; {smi}")
+        del model, b4, b1, step
+        torch.cuda.empty_cache()
+    epe, px = compare_metrics(by_mode[True], by_mode[False], "modes")
+    print(f"eval: the two modes agree to {epe:.3g} px EPE and {px:.3g} "
+          f"points n-px (tolerances {EVAL_EPE_ATOL}, {EVAL_PX_ATOL})")
+
+    # restore: a checkpoint of a seed-1 model through init_model; the
+    # disparities compared with cuDNN held to deterministic algorithms
+    # (its default choice may sum in another order from call to call)
+    saved = init_model(EVAL_CONFIG, seed=1)
+    ckpt = os.path.join(root, "ckpt")
+    CheckpointManager(ckpt).save(1, {"module": saved.module.state_dict()})
+    restored = init_model(EVAL_CONFIG, seed=0, checkpoint_dir=ckpt)
+    sa, sb = saved.module.state_dict(), restored.module.state_dict()
+    assert sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k])
+                                          for k in sa)
+    x = torch.randn((1, *PADDED, 3), generator=torch.Generator()
+                    .manual_seed(0)).to(saved.device)
+    spread = max((p - q).abs().max().item() for p, q in zip(
+        saved.forward(x, x)["disps"], saved.forward(x, x)["disps"]))
+    torch.backends.cudnn.deterministic = True
+    try:
+        a = saved.forward(x, x)["disps"]
+        b = restored.forward(x, x)["disps"]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert all(torch.equal(p, q) for p, q in zip(a, b)), max(
+        (p - q).abs().max().item() for p, q in zip(a, b))
+    print("restore: init_model(checkpoint_dir=...) restores every "
+          "parameter and BN statistic exactly, and its disparities are "
+          "identical to the saved module's (cuDNN deterministic; two "
+          f"forwards of one module in cuDNN's default mode differ by "
+          f"up to {spread:.3g} px)")
+    del saved, restored, a, b
+    return launches, by_mode
 
 
 def bench_phase(smi):
-    """tools/bench.py's JSON line, beside the card's name and power
-    limit."""
+    """tools/bench.py's JSON line in each dtype (float32, then bench.py's
+    own bfloat16), beside the card's name and power limit."""
     from densematchingbenchmark_tpu_torch.tools import bench
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        record = bench.main([])
-    assert record["value"] > 0 and json.loads(out.getvalue()) == record
-    print(f"bench (tools/bench.py): {json.dumps(record)}; {smi}")
+    for dtype in ("float32", "bfloat16"):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            record = bench.main(["--dtype", dtype])
+        assert record["value"] > 0 and json.loads(out.getvalue()) == record
+        assert record["metric"] == bench.metric_name(dtype), record
+        print(f"bench (tools/bench.py --dtype {dtype}): "
+              f"{json.dumps(record)}; {smi}")
+        torch.cuda.empty_cache()
 
 
 def device_profile(label, fn, reps=2, top=14, convs=0):
@@ -1541,8 +1597,9 @@ def device_profile(label, fn, reps=2, top=14, convs=0):
                   f"{e.count // reps:4d}x  {e.key} {e.input_shapes[:2]}")
 
 
-def profile_phase(models):
-    """The forward of each eval mode, and one training step, by kernel."""
+def profile_phase(models, name="PSMNet/scene_flow_f32"):
+    """The forward of each eval mode, and one training step of ``name``,
+    by kernel (in float32 also the step with cudnn.benchmark)."""
     from densematchingbenchmark_tpu_torch.configs import get_config
     from densematchingbenchmark_tpu_torch.losses import make_loss_evaluator
     from densematchingbenchmark_tpu_torch.models import build_model
@@ -1552,22 +1609,409 @@ def profile_phase(models):
     x = torch.randn((1, *PADDED, 3), device="cuda")
     for model in models:
         fused = model.module.fused_upsample_argmin
-        device_profile(f"forward fused_upsample_argmin={fused}",
+        device_profile(f"{name} forward fused_upsample_argmin={fused}",
                        lambda: model.forward(x, x))
-    cfg = get_config("PSMNet/scene_flow_f32")
+    cfg = get_config(name)
     crop = cfg["data"]["train"]["input_shape"]
     batch = small_batch(cfg, crop, (crop[0] + 32, crop[1] + 64), 192, "cuda")
     module = build_model(cfg, torch.Generator().manual_seed(0)).cuda()
     state = TrainState.create(module, build_optimizer(cfg, module, 10)[0], 1)
     step = make_train_step(make_loss_evaluator(cfg["model"]["losses"]))
-    label = f"train step {TRAIN_BATCH}x{crop[0]}x{crop[1]}"
+    label = f"{name} train step {TRAIN_BATCH}x{crop[0]}x{crop[1]}"
     device_profile(label, lambda: step(state, batch), top=24, convs=12)
+    if cfg["model"]["dtype"] != "float32":
+        return
     # the same step with cuDNN's algorithms chosen by timing each shape
     # instead of by its heuristics, to see what the library's choice costs
     torch.backends.cudnn.benchmark = True
     device_profile(f"{label}, cudnn.benchmark", lambda: step(state, batch),
                    top=8)
     torch.backends.cudnn.benchmark = False
+
+
+def bf16_trunk_bound(b, d, h, w, cin, cout):
+    """bound_ms of K4's bfloat16 trunk call: its MACs at the tensor cores'
+    rate; x and the output in bfloat16, read and written once, the kernel
+    in bfloat16, the float32 [Co] scale and bias."""
+    vox = b * d * h * w
+    return bound_ms(2 * 27 * cin * cout * vox,
+                    2 * (vox * (cin + cout) + 27 * cin * cout) + 4 * 2 * cout,
+                    PEAK_BF16_FLOPS)
+
+
+def check_bf16_trunk(gen, smi):
+    """K4's bfloat16 (wgmma) route at pack 1, as the bfloat16 trunk units
+    call it, against conv3d_packed_s1_plain at the four trunk shapes of the
+    384x1248 forward, at batch 1 and at the eval batch 4, with the folded-BN
+    [Co] epilogue and ReLU on and off: within BF16_STEP (plus CONV_RTOL) of
+    the largest plain value. Its time by one call and over 20 in a row, the
+    plain version's, cuDNN's bfloat16 F.conv3d + affine + ReLU and the
+    bound at the tensor cores' rate. Returns the row of the batch-1 forward
+    (13 launches)."""
+    from densematchingbenchmark_tpu_torch.ops.cuda import (
+        conv3d_packed_s1, conv3d_packed_s1_plain)
+    rows = {}
+    for batch in (1, EVAL_BATCH):
+        for cin, cout, (d, h, w), per_fwd in CONV_SHAPES:
+            x = torch.randn((batch, d, h, w, cin), device="cuda",
+                            generator=gen).bfloat16()
+            k = (torch.randn((3, 3, 3, cin, cout), device="cuda",
+                             generator=gen) * (27 * cin) ** -0.5).bfloat16()
+            scale = torch.rand(cout, device="cuda", generator=gen) + 0.5
+            bias = torch.randn(cout, device="cuda", generator=gen)
+            err = 0.0
+            for relu in (True, False):
+                got = conv3d_packed_s1(x, k, scale, bias, pack=1, relu=relu)
+                want = conv3d_packed_s1_plain(x, k, scale, bias, 1,
+                                              relu).float()
+                torch.cuda.synchronize()
+                assert got.dtype == torch.bfloat16, got.dtype
+                e = (got.float() - want).abs().max().item()
+                tol = (CONV_RTOL + BF16_STEP) * want.abs().max().item()
+                assert e <= tol, (batch, cin, cout, d, relu, e, tol)
+                err = max(err, e)
+                del got, want
+            call = lambda: conv3d_packed_s1(x, k, scale, bias, pack=1,
+                                            relu=True)
+            ms, chain = time_ms(call), chained_ms(call)
+            plain = time_ms(lambda: conv3d_packed_s1_plain(
+                x, k, scale, bias, 1, True), 3)
+            w_oi = k.permute(4, 3, 0, 1, 2).contiguous(
+                memory_format=torch.channels_last_3d)
+            x_cf = x.movedim(-1, 1)      # channels_last_3d storage, no copy
+            s5, b5 = (t.view(1, -1, 1, 1, 1).bfloat16() for t in (scale,
+                                                                 bias))
+            lib = time_ms(lambda: torch.relu(
+                F.conv3d(x_cf, w_oi, padding=1) * s5 + b5))
+            b_ms, b_by = bf16_trunk_bound(batch, d, h, w, cin, cout)
+            print(f"K4 bf16 pack 1 (trunk) {cin}->{cout} {batch}x{d}x{h}x{w}"
+                  f" (x{per_fwd}/fwd): {ms:.3f} ms, chained {chain:.3f}, "
+                  f"plain {plain:.3f}, F.conv3d bf16+affine+ReLU {lib:.3f}, "
+                  f"bound {b_ms:.4f} ({b_by}, {100 * b_ms / chain:.1f}% "
+                  f"chained), max_abs_err {err:.3g}")
+            rows.setdefault(batch, []).append(
+                (per_fwd, ms, chain, plain, lib, b_ms, err, b_by))
+            del x, x_cf
+    for batch, r in rows.items():
+        total = lambda i: sum(x[0] * x[i] for x in r)
+        print(f"K4 bf16 pack 1 (trunk), a forward at batch {batch} (13 "
+              f"launches): {total(1):.3f} ms by one call a launch, chained "
+              f"{total(2):.3f}, plain {total(3):.3f}, cuDNN bf16 "
+              f"{total(4):.3f}, bound {total(5):.3f}; {smi}")
+    r = rows[1]
+    total = lambda i: sum(x[0] * x[i] for x in r)
+    return {"unit": "per forward (13 launches at the 4 trunk shapes, "
+                    "384x1248 batch 1)",
+            "max_abs_err": max(x[6] for rr in rows.values() for x in rr),
+            "ms": total(1), "chained_ms": total(2), "plain_ms": total(3),
+            "library_ms": total(4), "bound_ms": total(5),
+            "bound_by": max(r, key=lambda x: x[0] * x[5])[7]}
+
+
+def check_bf16_regression(gen):
+    """K2 (forward at the eval volume, forward and backward at the training
+    one) and K3 on bfloat16 costs, as the bfloat16 model hands them over,
+    against their plain versions on the same values: float32 disparities
+    within ARGMIN_ATOL; K2's gradient, written in the cost's bfloat16,
+    within ARGMIN_GRAD_RTOL + BF16_STEP of its largest value; K2's forward
+    time on the bfloat16 volume."""
+    from densematchingbenchmark_tpu_torch.ops.cost_volume import (
+        disp_sample_values)
+    from densematchingbenchmark_tpu_torch.ops.cuda import (
+        fused_soft_argmin, fused_upsample_soft_argmin, soft_argmin_plain,
+        upsample_soft_argmin_plain)
+    d = ARGMIN_SHAPE[1]
+    vals = torch.as_tensor(disp_sample_values(d), device="cuda")
+    cost = (torch.randn(ARGMIN_SHAPE, device="cuda", generator=gen)
+            * 3).bfloat16()
+    got = fused_soft_argmin(cost, d)
+    e_fwd = (got - soft_argmin_plain(cost, vals)).abs().max().item()
+    assert got.dtype == torch.float32 and e_fwd <= ARGMIN_ATOL, e_fwd
+    ms = time_ms(lambda: fused_soft_argmin(cost, d))
+    chain = chained_ms(lambda: fused_soft_argmin(cost, d))
+    b_ms = bound_ms(6 * cost.numel(), 2 * cost.numel()
+                    + 4 * (d + cost[:, 0].numel()))[0]
+    barriers = soft_argmin_barriers(cost, vals)
+    del cost
+    train = (torch.randn(TRAIN_ARGMIN_SHAPE, device="cuda", generator=gen)
+             * 3).bfloat16().requires_grad_()
+    g = torch.randn((*TRAIN_ARGMIN_SHAPE[:1], *TRAIN_ARGMIN_SHAPE[2:], 1),
+                    device="cuda", generator=gen)
+    out = fused_soft_argmin(train, d)
+    plain_out = soft_argmin_plain(train, vals)
+    e_train = (out - plain_out).abs().max().item()
+    assert e_train <= ARGMIN_ATOL, e_train
+    (got,) = torch.autograd.grad(out, train, g, retain_graph=True)
+    (want,) = torch.autograd.grad(plain_out, train, g)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16, got.dtype
+    e_bwd = (got.float() - want.float()).abs().max().item()
+    tol = (ARGMIN_GRAD_RTOL + BF16_STEP) * want.float().abs().max().item()
+    assert e_bwd <= tol, (e_bwd, tol)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, train, g,
+                                                 retain_graph=True))
+    del train, out, plain_out, got, want
+    out_d, out_h, out_w = UPSAMPLE_OUT
+    low = (torch.randn(UPSAMPLE_LOW, device="cuda", generator=gen)
+           * 3).bfloat16()
+    got = fused_upsample_soft_argmin(low, out_d, out_h, out_w)
+    e_k3 = (got - upsample_soft_argmin_plain(low, out_d, out_h, out_w,
+                                             vals)).abs().max().item()
+    assert got.dtype == torch.float32 and e_k3 <= ARGMIN_ATOL, e_k3
+    k3_ms = time_ms(lambda: fused_upsample_soft_argmin(low, out_d, out_h,
+                                                       out_w))
+    print(f"bf16 costs: K2 {list(ARGMIN_SHAPE)} max_abs_err {e_fwd:.3g} px, "
+          f"{ms:.3f} ms, chained {chain:.3f} (bound {b_ms:.3f}, bytes, the "
+          f"volume in bfloat16), {barriers}; K2 {list(TRAIN_ARGMIN_SHAPE)} "
+          f"forward {e_train:.3g} px, backward (autograd through the "
+          f"kernel) {bwd_ms:.3f} ms, max_abs_err {e_bwd:.3g} (tolerance "
+          f"{tol:.3g}, gradient in bfloat16); K3 {list(UPSAMPLE_LOW)} "
+          f"max_abs_err {e_k3:.3g} px, {k3_ms:.3f} ms (the low-resolution "
+          f"cost promoted to float32 first)")
+
+
+def run_bf16_mode(fused, pairs, f32_disps, smi):
+    """init_model("PSMNet/scene_flow_bf16") in one eval mode and
+    inference_stereo over ``pairs``, with its launches asserted (K4's
+    bfloat16 route 13 a forward, K1 none, K2 or K3 3); the disparities
+    against the float32 model's of the same seed (``f32_disps``); the
+    forward's time and the peak memory; the forward under the sync guard.
+    Returns (model, counts)."""
+    from densematchingbenchmark_tpu_torch.apis import (inference_stereo,
+                                                       init_model)
+    from densematchingbenchmark_tpu_torch.ops import cuda as kernels
+    model = init_model("PSMNet/scene_flow_bf16", seed=0,
+                       **{"model.eval.fused_upsample_argmin": fused})
+    assert model.cfg["model"]["dtype"] == "bfloat16"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    results = inference_stereo(model, pairs, pad_to_shape=PADDED)
+    torch.cuda.synchronize()
+    counts, bf16 = kernels.launch_counts(), kernels.bf16_launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = len(pairs)
+    regress = "fused_upsample_soft_argmin" if fused else "fused_soft_argmin"
+    want = {k: 0 for k in counts}
+    want["conv3d_packed_s1"], want[regress] = 13 * n, 3 * n
+    assert counts == want, counts
+    assert bf16 == {"conv3d_packed_s1": 13 * n, "conv3d_packed_s1_v2": 0}, \
+        bf16
+    gaps = []
+    for r, ref in zip(results, f32_disps):
+        assert len(r["disps"]) == 3
+        for d, f in zip(r["disps"], ref):
+            assert d.shape == (1, *IMAGE, 1) and d.dtype == np.float32
+            assert np.isfinite(d).all()
+            gaps.append((float(np.abs(d - f).mean()),
+                         float(np.abs(d - f).max())))
+    mean_gap = max(g[0] for g in gaps)
+    max_gap = max(g[1] for g in gaps)
+    x = torch.randn((1, *PADDED, 3), device="cuda")
+    ms = time_ms(lambda: model.forward(x, x), FORWARD_REPS)
+    print(f"slice bf16 fused_upsample_argmin={fused}: forward {ms:.2f} ms "
+          f"(median of {FORWARD_REPS}, 1x{PADDED[0]}x{PADDED[1]}), peak "
+          f"{peak:.2f} GiB, launches over {n} pairs {counts} (bf16 {bf16}); "
+          f"vs float32, same seed: mean |gap| up to {mean_gap:.4f} px "
+          f"(tolerance {BF16_GAP_ATOL}), largest {max_gap:.4f} px; {smi}")
+    assert mean_gap <= BF16_GAP_ATOL, gaps
+    guarded(f"PSMNet/scene_flow_bf16 eval forward at {PADDED}, "
+            f"fused_upsample_argmin={fused}", lambda: model.forward(x, x))
+    return model, counts
+
+
+def bf16_slice_phase(pairs, f32_disps, smi):
+    """The bfloat16 forward at full width in both eval modes (with
+    ``--profile``, by kernel beside a bfloat16 train step); returns the
+    launch counts of its inference_stereo runs."""
+    launches, models = None, []
+    for fused, ref in zip((False, True), f32_disps):
+        model, counts = run_bf16_mode(fused, pairs, ref, smi)
+        models.append(model)
+        launches = ({k: launches[k] + v for k, v in counts.items()}
+                    if launches else counts)
+    if "--profile" in sys.argv[1:]:
+        profile_phase(models, "PSMNet/scene_flow_bf16")
+    return launches
+
+
+def eval_dataset(cfg, root, ann):
+    """The KITTI-2015-layout test split at ``root`` through the eval
+    transform, padded to PADDED."""
+    from densematchingbenchmark_tpu_torch.data import (build_dataset,
+                                                       transforms)
+    test_cfg = dict(cfg["data"], data_root=root, test=dict(
+        cfg["data"]["test"], annfile=ann, use_right_disp=True))
+    return build_dataset(test_cfg, "test", transforms.make_eval_transform(
+        PADDED, cfg["data"]["mean"], cfg["data"]["std"]))
+
+
+def bf16_eval_phase(smi, root, ann, f32_results):
+    """tools/test.py on PSMNet/kitti_2015_bf16 over the eval phase's six
+    pairs at batch 4, in both eval modes: launches asserted (K4's bfloat16
+    route 13 a batch, K1 none), every metric finite, each EPE within
+    BF16_GAP_ATOL of the float32 eval's (|EPE_a - EPE_b| <= mean |a - b|),
+    the per-batch work under the sync guard; the eval step's ms a sample
+    at batch 4 and 1 and the peak memory. Returns the launch counts."""
+    from densematchingbenchmark_tpu_torch.apis import init_model
+    from densematchingbenchmark_tpu_torch.configs import get_config
+    from densematchingbenchmark_tpu_torch.data import collate
+    from densematchingbenchmark_tpu_torch.evaluation import eval_loop
+    from densematchingbenchmark_tpu_torch.ops import cuda as kernels
+    from densematchingbenchmark_tpu_torch.tools import test as test_tool
+    launches = None
+    for fused in (False, True):
+        over = [f"model.eval.fused_upsample_argmin={fused}",
+                "data.test.use_right_disp=True",
+                f"data.test.input_shape={PADDED}"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        results, n = test_tool.main([
+            "--config", BF16_EVAL_CONFIG, "--work-dir",
+            os.path.join(root, "work_bf16"), "--data-root", root,
+            "--annfile", ann, "--override", *over])
+        torch.cuda.synchronize()
+        counts, bf16 = kernels.launch_counts(), kernels.bf16_launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        regress = ("fused_upsample_soft_argmin" if fused
+                   else "fused_soft_argmin")
+        want = {k: 0 for k in counts}
+        want["conv3d_packed_s1"] = 13 * EVAL_BATCHES
+        want[regress] = 3 * EVAL_BATCHES
+        assert n == len(EVAL_SIZES) and counts == want, (n, counts)
+        assert bf16["conv3d_packed_s1"] == 13 * EVAL_BATCHES, bf16
+        launches = ({k: launches[k] + v for k, v in counts.items()}
+                    if launches else counts)
+        assert set(results) == set(f32_results[fused])
+        assert all(np.isfinite(v) for v in results.values()), results
+        epe_gap = max(abs(results[k] - f32_results[fused][k])
+                      for k in results if k.endswith("epe"))
+        assert epe_gap <= BF16_GAP_ATOL, (fused, epe_gap)
+
+        cfg = get_config(BF16_EVAL_CONFIG, **{
+            "model.eval.fused_upsample_argmin": fused})
+        model = init_model(cfg, seed=0)
+        ds = eval_dataset(cfg, root, ann)
+        ecfg, ids = cfg["model"]["eval"], cfg["eval_disparity_id"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending, count = eval_loop.eval_batches(model.module, ds, ecfg,
+                                                    ids)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        compare_metrics(eval_loop.average_metrics(pending, count), results,
+                        f"bf16 fused={fused} guarded")
+        if "--profile" in sys.argv[1:]:
+            device_profile(f"evaluate {BF16_EVAL_CONFIG} fused_upsample_"
+                           f"argmin={fused}, {n} samples", lambda: (
+                               eval_loop.evaluate(model.module, ds, ecfg,
+                                                  ids)), reps=1)
+        step = eval_loop.make_eval_metrics_step(
+            model.module, ecfg["lower_bound"], ecfg["upper_bound"], ids,
+            ecfg["eval_occlusion"])
+        b4 = eval_loop.to_device(collate([ds[i] for i in range(
+            EVAL_BATCH)]), model.device)
+        b1 = {k: v[:1] for k, v in b4.items()}
+        ms4 = time_ms(lambda: step(b4), 3) / EVAL_BATCH
+        ms1 = time_ms(lambda: step(b1), 3)
+        print(f"eval {BF16_EVAL_CONFIG} fused_upsample_argmin={fused}: {n} "
+              f"samples, batches of {EVAL_BATCH}; launches {counts} (bf16 "
+              f"{bf16}); disp_0 EPE {results['disp_0/epe']:.4f} px (float32 "
+              f"{f32_results[fused]['disp_0/epe']:.4f}; largest EPE gap "
+              f"{epe_gap:.4f}, tolerance {BF16_GAP_ATOL}), 3px "
+              f"{results['disp_0/3px']:.4f} %; eval step {ms4:.2f} ms a "
+              f"sample at batch {EVAL_BATCH}, {ms1:.2f} at batch 1 (device, "
+              f"CUDA events); peak {peak:.2f} GiB at batch {EVAL_BATCH}; no "
+              f"synchronising call per batch; {smi}")
+        del model, b4, b1, step
+        torch.cuda.empty_cache()
+    return launches
+
+
+def damp_bn(module, seed):
+    """Give every BatchNorm of ``module`` (on the CPU) random parameters
+    and running statistics from ``seed``, drawn as the CPU tests draw them
+    against JAX (tests/test_torch_psmnet.py: scale 0.7-1.1, var 0.9-1.4,
+    bias and mean 0.1 N(0, 1)); returns the module. With gains under 1 a
+    random network's costs stay moderate, and its disparities move by
+    hundredths of a pixel under bfloat16 rounding; with the default BN
+    (identity) they move by tenths, wherever the rounding happens."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                n = m.num_features
+                m.weight.copy_(torch.rand(n, generator=gen) * 0.4 + 0.7)
+                m.running_var.copy_(torch.rand(n, generator=gen) * 0.5 + 0.9)
+                m.bias.copy_(torch.randn(n, generator=gen) * 0.1)
+                m.running_mean.copy_(torch.randn(n, generator=gen) * 0.1)
+    return module
+
+
+def bf16_small_phase(smi):
+    """A small bfloat16 model on the card and on the CPU (the plain
+    versions) from the same weights (BN as the CPU tests draw it,
+    ``damp_bn``) and inputs: the disparities of both eval modes within
+    BF16_CPU_ATOL px mean, and one train step's losses within
+    BF16_LOSS_RTOL, its gradients float32 and finite. For the record, the
+    same with the default BN beside the CPU's own bfloat16-vs-float32
+    gap."""
+    from densematchingbenchmark_tpu_torch.apis import (StereoModel,
+                                                       inference_stereo,
+                                                       init_model)
+    from densematchingbenchmark_tpu_torch.configs import get_config
+    from densematchingbenchmark_tpu_torch.models import build_model
+    rng = np.random.RandomState(2)
+    pair = random_pairs(rng, 1, SMALL_IMAGE)
+    pad = tuple(-(-s // 32) * 32 for s in SMALL_IMAGE)
+
+    def disps(model):
+        return inference_stereo(model, pair, pad_to_shape=pad)[0]["disps"]
+
+    def gap(a, b):
+        return max(float(np.abs(x - y).mean()) for x, y in zip(a, b))
+
+    gaps, default = {}, {}
+    for fused in (False, True):
+        over = dict(SMALL, **{"model.eval.fused_upsample_argmin": fused})
+        cpu = init_model("PSMNet/scene_flow_bf16", device="cpu", seed=3,
+                         **over)
+        card = StereoModel(cpu.cfg, copy.deepcopy(cpu.module).cuda(),
+                           torch.device("cuda"))
+        f32 = init_model("PSMNet/scene_flow_f32", device="cpu", seed=3,
+                         **over)
+        want = disps(cpu)
+        default[fused] = (gap(disps(card), want), gap(want, disps(f32)))
+        damp_bn(cpu.module, 3)
+        card.module = copy.deepcopy(cpu.module).cuda()
+        got, want = disps(card), disps(cpu)
+        assert all(np.isfinite(g).all() for g in got)
+        gaps[fused] = gap(got, want)
+        assert gaps[fused] <= BF16_CPU_ATOL, (fused, gaps)
+    cfg = get_config("PSMNet/scene_flow_bf16", **SMALL)
+    cpu = damp_bn(build_model(cfg, torch.Generator().manual_seed(1)), 1)
+    card = copy.deepcopy(cpu).cuda()
+    batch = small_batch(cfg, (64, 128), (96, 192), 24, "cuda")
+    g_card, m_card, p_card, _ = grads_and_step(card, batch, cfg)
+    _, m_cpu, _, _ = grads_and_step(
+        cpu, {k: v.cpu() for k, v in batch.items()}, cfg)
+    loss_err = max(abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k])
+                   for k in m_cpu if k != "grad_norm")
+    assert loss_err <= BF16_LOSS_RTOL, (m_card, m_cpu)
+    for n, g in g_card.items():
+        assert g.dtype == torch.float32 and torch.isfinite(g).all(), n
+        assert p_card[n].dtype == torch.float32, n
+    print(f"bf16 small model, card vs CPU at {SMALL['model.max_disp']} "
+          f"disps, {SMALL_IMAGE}: disparities mean |gap| {gaps[False]:.4f} "
+          f"px plain, {gaps[True]:.4f} fused (tolerance {BF16_CPU_ATOL}); "
+          f"with the default BN {default[False][0]:.4f} / "
+          f"{default[True][0]:.4f} px, where the CPU's own bf16 and float32 "
+          f"lie {default[False][1]:.4f} / {default[True][1]:.4f} px apart; "
+          f"one train step 2x64x128: losses rel err {loss_err:.3g} "
+          f"(tolerance {BF16_LOSS_RTOL}), grad_norm "
+          f"{m_card['grad_norm']:.4f} vs {m_cpu['grad_norm']:.4f}; "
+          f"gradients and parameters float32; {smi}")
 
 
 def main():
@@ -1583,28 +2027,50 @@ def main():
                  "cuda", gen)}
     stats["conv3d_packed_s1_v2"], bf16_check = check_packed_v2("cuda", gen)
     torch.cuda.empty_cache()
+    bf16_trunk = check_bf16_trunk(gen, smi)
+    check_bf16_regression(gen)
+    torch.cuda.empty_cache()
     print("sync guard (torch.cuda.set_sync_debug_mode('error')):")
     sync_guard_phase(gen)
     torch.cuda.empty_cache()
     micro, micro_bf16, bf16_times = microbench_phase()
     torch.cuda.empty_cache()
-    launches, models = slice_phase()
+    launches, models, pairs, f32_disps = slice_phase()
     for name, n in micro.items():
         launches[name] += n
     if "--profile" in sys.argv[1:]:
         profile_phase(models)
     del models
     torch.cuda.empty_cache()
-    for name, n in eval_phase(smi, gen).items():
-        launches[name] += n
+    # the bfloat16 paths' launches, kept apart: K4's are its bfloat16 row's
+    bf16_launches = bf16_slice_phase(pairs, f32_disps, smi)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        ann, items = write_kitti_dataset(root)
+        counts, f32_eval = eval_phase(smi, gen, root, ann, items)
+        for name, n in counts.items():
+            launches[name] += n
+        for name, n in bf16_eval_phase(smi, root, ann, f32_eval).items():
+            bf16_launches[name] += n
     png_decode_phase(smi)
     torch.cuda.empty_cache()
     bench_phase(smi)
     torch.cuda.empty_cache()
-    for name, n in train_phase().items():
+    for name, n in train_phase(smi).items():
         launches[name] += n
+    torch.cuda.empty_cache()
+    for name, n in train_phase(smi, "PSMNet/scene_flow_bf16").items():
+        bf16_launches[name] += n
+    torch.cuda.empty_cache()
     same_weights_phase()
     overfit_phase()
+    bf16_small_phase(smi)
+    # the bfloat16 paths ran K2 and K3 on bfloat16 costs, K1 never
+    assert bf16_launches["fused_conv3d"] == 0, bf16_launches
+    for name in ("fused_soft_argmin", "fused_soft_argmin_backward",
+                 "fused_upsample_soft_argmin"):
+        assert bf16_launches[name] > 0, (name, bf16_launches)
+        launches[name] += bf16_launches[name]
     rows = []
     for k in kernels.KERNELS:
         name = k.__name__
@@ -1625,6 +2091,13 @@ def main():
                          "max_abs_err": bf16_check[label],
                          "plain_ms": bf16_check["plain_ms"],
                          **bf16_times[label]})
+        if name == "conv3d_packed_s1":
+            # K4's bfloat16 route at pack 1 on the bfloat16 model's paths
+            assert bf16_launches[name] > 0, "K4 bf16 never ran the trunk"
+            rows.append({"name": "conv3d_packed_s1_bf16_pack1",
+                         "route": "cuda", "source": WGMMA_SOURCE,
+                         "replaces": replaces,
+                         "launches": bf16_launches[name], **bf16_trunk})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

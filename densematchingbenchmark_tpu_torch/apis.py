@@ -55,7 +55,11 @@ def init_model(config_name_or_cfg, device=None, seed=0, checkpoint_dir=None,
     latest checkpoint under <checkpoint_dir>/checkpoints/ (written by
     ``train_matcher``), and keep the seeded ones when there is none.
 
-    On a CUDA device this sets ``torch.backends.cudnn.allow_tf32`` and
+    The compute dtype is the config's ``model.dtype``: a ``_bf16`` name (or
+    a name without a suffix on a machine with a GPU, as in the JAX package)
+    computes in bfloat16 with float32 parameters and BN statistics, a
+    ``_f32`` name in float32. On a CUDA device this sets
+    ``torch.backends.cudnn.allow_tf32`` and
     ``torch.backends.cuda.matmul.allow_tf32`` to False: the float32 configs
     compute in float32, as the JAX package does, and TF32 library convs
     round to a 10-bit mantissa, which soft-argmin amplifies into whole-pixel

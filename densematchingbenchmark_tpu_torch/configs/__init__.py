@@ -1,33 +1,62 @@
 """Config zoo of the port: one module per model family, nested dicts with the
 JAX package's field names (densematchingbenchmark_tpu/configs/).
 
-Only the families ported so far are here. The compute dtype defaults to
-float32 with no backend probe; this slice runs float32 only, so a ``_bf16``
-name raises NotImplementedError (bf16 compute is queued in ROADMAP.md).
+Only the families ported so far are here. As in the JAX package
+(configs/__init__.py:40-103), ``<name>_bf16`` pins bfloat16 compute
+(float32 parameters and BN statistics, bfloat16 activations and
+convolutions, a float32 soft-argmin), ``<name>_f32`` pins float32, and a
+name without a suffix takes ``default_compute_dtype()``.
 """
+
+import os
+
+import torch
 
 from . import psmnet
 
-CONFIGS = {
+_FAMILIES = {
     "PSMNet/scene_flow": psmnet.scene_flow,
     "PSMNet/kitti_2015": psmnet.kitti_2015,
     "PSMNet/kitti_2012": psmnet.kitti_2012,
 }
+_SUFFIXES = {"_bf16": "bfloat16", "_f32": "float32"}
+
+
+def _dtype_variant(factory, dtype):
+    def f(**overrides):
+        overrides.setdefault("model.dtype", dtype)
+        return factory(**overrides)
+    return f
+
+
+CONFIGS = dict(_FAMILIES)
+CONFIGS.update({name + suffix: _dtype_variant(fn, dtype)
+                for suffix, dtype in _SUFFIXES.items()
+                for name, fn in _FAMILIES.items()})
+
+
+def default_compute_dtype():
+    """The compute dtype of a config name without a suffix: the
+    ``DMB_DEFAULT_DTYPE`` environment variable when it is set, else
+    "bfloat16" on a machine with a CUDA device and "float32" without one
+    (JAX's rule: bfloat16 on an accelerator, float32 on the CPU). It asks
+    the driver for a device count and creates no CUDA context."""
+    env = os.environ.get("DMB_DEFAULT_DTYPE")
+    if env:
+        return env
+    return "bfloat16" if torch.cuda.is_available() else "float32"
 
 
 def get_config(name, **overrides):
-    """Config dict for ``name`` (optionally ``<name>_f32``), with dotted-key
-    overrides applied ({"model.max_disp": 64, ...})."""
-    if name.endswith("_bf16"):
-        raise NotImplementedError(
-            f"{name}: bf16 compute is not ported yet (ROADMAP.md queue 1, "
-            "bf16 compute); use the _f32 name")
-    base = name[:-len("_f32")] if name.endswith("_f32") else name
-    if base not in CONFIGS:
+    """Config dict for ``name`` (``<name>``, ``<name>_bf16`` or
+    ``<name>_f32``), with dotted-key overrides applied ({"model.max_disp":
+    64, ...}); an explicit ``model.dtype`` override wins over the name."""
+    if name not in CONFIGS:
         raise KeyError(f"unknown config {name!r}; the port has "
-                       f"{sorted(CONFIGS)} (+ '_f32')")
-    overrides.setdefault("model.dtype", "float32")
-    return CONFIGS[base](**overrides)
+                       f"{sorted(_FAMILIES)} (+ '_bf16', '_f32')")
+    if name in _FAMILIES:
+        overrides.setdefault("model.dtype", default_compute_dtype())
+    return CONFIGS[name](**overrides)
 
 
-__all__ = ["CONFIGS", "get_config"]
+__all__ = ["CONFIGS", "default_compute_dtype", "get_config"]

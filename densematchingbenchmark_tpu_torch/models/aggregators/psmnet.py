@@ -6,11 +6,17 @@ Input: raw cost volume [B, D/4, H/4, W/4, 2C]; output: 3 cost volumes
 (deepest) first.
 
 The 13 stride-1 conv+BN(+ReLU) units (4 dres, 2 per hourglass, 3 classify)
-run as the fused conv3d kernel at eval; the stride-2 and transposed convs of
-the hourglasses and the three Co=1 classify convs stay library calls
-(F.conv3d / F.conv_transpose3d), as the JAX package leaves them to XLA.
+run through the trunk kernels (layers.ConvUnit: K1 at eval in float32, K4
+in training and, on its tensor-core route, at eval in bfloat16); the
+stride-2 and transposed convs of the hourglasses and the three Co=1
+classify convs stay library calls (F.conv3d / F.conv_transpose3d), as the
+JAX package leaves them to XLA. Everything computes in ``dtype``, the
+full-resolution volumes too (JAX aggregators/psmnet.py:118-124); the
+soft-argmin promotes them to float32.
 """
 
+import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..layers import ConvUnit, Hourglass3D, channels_first, channels_last
@@ -19,21 +25,23 @@ from ...ops.interpolate import upsample_3d
 
 class PSMAggregator(nn.Module):
     def __init__(self, in_planes=64, max_disp=192, batch_norm=True,
-                 return_low_res=False):
+                 return_low_res=False, dtype=torch.float32):
         super().__init__()
         self.max_disp = max_disp
         self.return_low_res = return_low_res
+        self.dtype = dtype
 
         def unit(cin, relu=True):
             return ConvUnit(cin, 32, 3, 1, 1, dims=3, batch_norm=batch_norm,
-                            relu=relu, bias=False)
+                            relu=relu, bias=False, dtype=dtype)
 
         self.ConvUnit_0 = unit(in_planes)
         self.ConvUnit_1 = unit(32)
         self.ConvUnit_2 = unit(32)
         self.ConvUnit_3 = unit(32, relu=False)
         for i in range(3):
-            setattr(self, f"Hourglass3D_{i}", Hourglass3D(32, batch_norm))
+            setattr(self, f"Hourglass3D_{i}",
+                    Hourglass3D(32, batch_norm, dtype))
         for i in range(3):
             setattr(self, f"ConvUnit_{4 + i}", unit(32))
             setattr(self, f"Conv_{i}", nn.Conv3d(32, 1, 3, padding=1,
@@ -41,7 +49,8 @@ class PSMAggregator(nn.Module):
 
     def _classify(self, x, i):
         x = getattr(self, f"ConvUnit_{4 + i}")(x)
-        return channels_last(getattr(self, f"Conv_{i}")(channels_first(x)))
+        weight = getattr(self, f"Conv_{i}").weight.to(self.dtype)
+        return channels_last(F.conv3d(channels_first(x), weight, padding=1))
 
     def forward(self, raw_cost):
         b, d, h, w, _ = raw_cost.shape

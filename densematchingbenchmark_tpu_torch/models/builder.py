@@ -2,8 +2,10 @@
 
 Counterpart of densematchingbenchmark_tpu/models/builder.py:106-182, the
 GeneralizedStereoModel branch with a PSMNet backbone and aggregator,
-including the fused upsample + soft-argmin decision (:119-136). Families not
-ported yet raise NotImplementedError naming their ROADMAP.md item.
+including the fused upsample + soft-argmin decision (:119-136), and the
+compute dtype (``model.dtype``, :31, :115) handed to the backbone and the
+aggregator. Families not ported yet raise NotImplementedError naming their
+ROADMAP.md item.
 """
 
 import torch
@@ -35,16 +37,17 @@ def _not_ported(what):
 
 
 VOLUME_TYPES = {"Concatenation": "concatenation"}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def build_model(cfg, generator=None):
     """cfg (nested dict, see configs/) -> nn.Module, parameters initialised
     from ``generator`` (a torch.Generator; a fresh one seeded 0 if None)."""
     model_cfg = cfg["model"]
-    if model_cfg.get("dtype", "float32") != "float32":
-        raise NotImplementedError(
-            f"model.dtype={model_cfg['dtype']!r}: this port runs float32 "
-            "only so far (ROADMAP.md queue 1, bf16 compute)")
+    name = model_cfg.get("dtype", "float32")
+    if name not in DTYPES:
+        raise ValueError(f"model.dtype={name!r}: one of {sorted(DTYPES)}")
+    dtype = DTYPES[name]
     if cfg.get("task") == "flow":
         _not_ported("flow")
     arch = model_cfg.get("meta_architecture", "GeneralizedStereoModel")
@@ -77,10 +80,10 @@ def build_model(cfg, generator=None):
     # the configs' ``pack`` fields are TPU schedules with the same
     # parameters as the unpacked modules; the port has one schedule
     backbone = PSMNetBackbone(in_planes=bcfg.get("in_planes", 3),
-                              batch_norm=bn)
+                              batch_norm=bn, dtype=dtype)
     aggregator = PSMAggregator(
         in_planes=64, max_disp=agg.get("max_disp", 192), batch_norm=bn,
-        return_low_res=fused)
+        return_low_res=fused, dtype=dtype)
     model = GeneralizedStereoModel(
         backbone=backbone,
         cost_processor=CostProcessor(

@@ -15,6 +15,12 @@ utils/jax_weights.py maps the two by path. BatchNorm is the port's own
 update ``running_var`` (torch's own BatchNorm updates it with the unbiased
 one).
 
+Every module takes the compute ``dtype`` (JAX's ``dtype`` field): float32,
+or bfloat16 with float32 parameters, as JAX's ``ConvUnit`` (:377-489). A
+unit casts its input and its weights to the compute dtype at use, adds the
+conv bias in that dtype, and runs BatchNorm in float32 (the running
+statistics stay float32) with one rounding back.
+
 The TPU schedules of the JAX layers (trunk ``pack``, PackedBatchNorm,
 DispatchConv2D row packing, remat, sharding constraints) have no
 counterpart: their parameter trees equal the unpacked ones.
@@ -61,7 +67,9 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     layers.py:89-101): in training it normalises with the biased batch
     variance and moves ``running_var`` toward that same biased variance
     (momentum 0.1 here is Flax's 0.9); in eval it uses the running
-    statistics."""
+    statistics. A bfloat16 input is normalised in float32 (``nn.BatchNorm``
+    with ``dtype=float32``, JAX layers.py:414-423) and the result rounded
+    once to bfloat16."""
 
     def _check_input_dim(self, x):
         if x.dim() < 2:
@@ -70,9 +78,11 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
 
     def forward(self, x):
         self._check_input_dim(x)
+        dtype, x = x.dtype, x.float()
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
+                                self.weight, self.bias, False, 0.0,
+                                self.eps).to(dtype)
         # one pass: no running buffers given, so it normalises with the
         # batch statistics and returns the mean and 1 / sqrt(var + eps)
         y, mean, invstd = torch.native_batch_norm(
@@ -81,7 +91,7 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(invstd.pow(-2) - self.eps, self.momentum)
             self.num_batches_tracked += 1
-        return y
+        return y.to(dtype)
 
 
 class ConvUnit(nn.Module):
@@ -90,18 +100,22 @@ class ConvUnit(nn.Module):
     ``pre_norm=True`` gives the bn_relu_conv ordering. A 3x3x3 stride-1
     non-transposed unit with BN (``fusable``) runs its conv through a
     kernel: in eval one fused kernel, the running-stat BN folded into a
-    per-channel (inv, bias - mean * inv) epilogue of ``fused_conv3d`` (the
-    JAX layers.py:434-447 fold); in training ``conv3d_packed_s1`` with
-    pack 1 (JAX layers.py:459-466, the trunk's ``DispatchConv3D``), then
-    the conv bias, batch-statistics BN and ReLU (:486-488).
+    per-channel (inv, bias - mean * inv) epilogue (the JAX layers.py:429-447
+    fold), ``fused_conv3d`` in float32 and ``conv3d_packed_s1`` at pack 1
+    in bfloat16 (its tensor-core route); in training ``conv3d_packed_s1``
+    with pack 1 and unit scale (JAX layers.py:459-466, the trunk's
+    ``DispatchConv3D``), then the conv bias, batch-statistics BN and ReLU
+    (:486-488). In bfloat16 the fused eval unit rounds once, after the
+    epilogue, where JAX's unpacked unit rounds the conv and then the BN:
+    the two differ by at most one bfloat16 step.
     """
 
     def __init__(self, in_features, features, kernel_size=3, stride=1,
                  padding=1, dilation=1, dims=2, batch_norm=True, relu=True,
                  pre_norm=False, bias=True, transpose=False,
-                 output_padding=0):
+                 output_padding=0, dtype=torch.float32):
         super().__init__()
-        self.relu, self.pre_norm = relu, pre_norm
+        self.relu, self.pre_norm, self.dtype = relu, pre_norm, dtype
         ks = _tuple(kernel_size, dims)
         stride = _tuple(stride, dims)
         if transpose:
@@ -136,6 +150,23 @@ class ConvUnit(nn.Module):
             x = channels_last(self.BatchNorm_0(channels_first(x)))
         return torch.relu(x) if self.relu else x
 
+    def _library_conv(self, x):
+        """The conv on the library (cuDNN, or the CPU's), its weights cast
+        to the compute dtype, then the conv bias added in that dtype."""
+        conv = self.conv
+        weight = conv.weight.to(self.dtype)
+        x = channels_first(x)
+        if isinstance(conv, nn.modules.conv._ConvTransposeNd):
+            fn = (F.conv_transpose2d, F.conv_transpose3d)[x.dim() - 4]
+            y = fn(x, weight, None, conv.stride, conv.padding,
+                   conv.output_padding, conv.groups, conv.dilation)
+        else:
+            fn = (F.conv2d, F.conv3d)[x.dim() - 4]
+            y = fn(x, weight, None, conv.stride, conv.padding, conv.dilation,
+                   conv.groups)
+        y = channels_last(y)
+        return y if conv.bias is None else y + conv.bias.to(self.dtype)
+
     def folded_bn(self):
         """Eval-mode BN (and conv bias) as a per-channel affine
         (scale, bias) with conv(x) -> conv(x) * scale + bias."""
@@ -147,48 +178,57 @@ class ConvUnit(nn.Module):
         return inv.float().contiguous(), shift.float().contiguous()
 
     def forward(self, x):
+        x = x.to(self.dtype)
         if self.pre_norm:
             x = self._norm_act(x)
         if self.fusable:
-            kernel = self.Conv_0.weight.permute(2, 3, 4, 1, 0).contiguous()
+            x = x.contiguous()
+            kernel = self.Conv_0.weight.permute(2, 3, 4, 1, 0).to(
+                self.dtype).contiguous()
             if not self.training:
                 scale, bias = self.folded_bn()
-                return fused_conv3d(x.contiguous(), kernel, scale, bias,
-                                    relu=self.relu)
-            x = conv3d_packed_s1(x.contiguous(), kernel, pack=1)
+                if self.dtype == torch.float32:
+                    return fused_conv3d(x, kernel, scale, bias,
+                                        relu=self.relu)
+                return conv3d_packed_s1(x, kernel, scale, bias, pack=1,
+                                        relu=self.relu)
+            x = conv3d_packed_s1(x, kernel, pack=1)
             if self.Conv_0.bias is not None:
-                x = x + self.Conv_0.bias
+                x = x + self.Conv_0.bias.to(self.dtype)
             return self._norm_act(x)
-        x = channels_last(self.conv(channels_first(x)))
+        x = self._library_conv(x)
         return x if self.pre_norm else self._norm_act(x)
 
 
 def conv_bn(batch_norm, in_features, features, kernel_size=3, stride=1,
-            padding=1, dilation=1, bias=True):
+            padding=1, dilation=1, bias=True, dtype=torch.float32):
     return ConvUnit(in_features, features, kernel_size, stride, padding,
                     dilation, dims=2, batch_norm=batch_norm, relu=False,
-                    bias=bias)
+                    bias=bias, dtype=dtype)
 
 
 def conv_bn_relu(batch_norm, in_features, features, kernel_size=3, stride=1,
-                 padding=1, dilation=1, bias=True):
+                 padding=1, dilation=1, bias=True, dtype=torch.float32):
     return ConvUnit(in_features, features, kernel_size, stride, padding,
                     dilation, dims=2, batch_norm=batch_norm, relu=True,
-                    bias=bias)
+                    bias=bias, dtype=dtype)
 
 
 class BasicBlock(nn.Module):
     """ResNet basic block (basic_layers.py:217-243), expansion 1."""
 
     def __init__(self, in_features, features, stride=1, padding=1,
-                 dilation=1, batch_norm=True, downsample=False):
+                 dilation=1, batch_norm=True, downsample=False,
+                 dtype=torch.float32):
         super().__init__()
         self.ConvUnit_0 = conv_bn_relu(batch_norm, in_features, features, 3,
-                                       stride, padding, dilation, bias=False)
+                                       stride, padding, dilation, bias=False,
+                                       dtype=dtype)
         self.ConvUnit_1 = conv_bn(batch_norm, features, features, 3, 1,
-                                  padding, dilation, bias=False)
+                                  padding, dilation, bias=False, dtype=dtype)
         self.ConvUnit_2 = (conv_bn(batch_norm, in_features, features, 1,
-                                   stride, 0, 1) if downsample else None)
+                                   stride, 0, 1, dtype=dtype)
+                           if downsample else None)
 
     def forward(self, x):
         out = self.ConvUnit_1(self.ConvUnit_0(x))
@@ -205,7 +245,7 @@ class Hourglass3D(nn.Module):
     skips.
     """
 
-    def __init__(self, features, batch_norm=True):
+    def __init__(self, features, batch_norm=True, dtype=torch.float32):
         super().__init__()
         c2 = features * 2
 
@@ -213,7 +253,8 @@ class Hourglass3D(nn.Module):
             return ConvUnit(cin, cout, 3, stride, 1, dims=3,
                             batch_norm=batch_norm, relu=relu, bias=False,
                             transpose=transpose,
-                            output_padding=1 if transpose else 0)
+                            output_padding=1 if transpose else 0,
+                            dtype=dtype)
 
         self.ConvUnit_0 = unit(features, c2, stride=2)
         self.ConvUnit_1 = unit(c2, c2, relu=False)

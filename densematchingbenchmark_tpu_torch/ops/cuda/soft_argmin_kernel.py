@@ -25,9 +25,11 @@ in coalesced rows. A program owns one (b, y) row and a block of W columns,
 so neighbouring lanes load neighbouring W addresses, and it walks D in
 chunks.
 
-The forward (redesigned for the H100): a program owns 128 x FWD_WARPS
-columns, so each thread holds four neighbouring columns (one 16-byte load
-per depth row) and every depth row of a chunk of FWD_DEPTH in its own
+The forward (redesigned for the H100): a program owns 32 x FWD_WARPS
+threads' columns, each thread 16 bytes of neighbouring columns (four
+float32 or eight bfloat16 values, one 16-byte load per depth row; Triton
+vectorises the load to 16 bytes, so a narrower block would spread D
+across the warps) and every depth row of a chunk of FWD_DEPTH in its own
 registers. Its online (running-max) softmax, the running max m, sum l and
 weighted sum per column, then reduces over D inside each thread: no shared
 memory and no barrier in the loop (the earlier [32, 128] tile over four
@@ -63,6 +65,12 @@ BLOCK_W = 128
 # (of 1, 2 or 4 warps and 4, 8 or 16 rows, these ran fastest on the card)
 FWD_WARPS = 2
 FWD_DEPTH = 4
+
+
+def fwd_block_w(dtype):
+    """Columns a forward program owns: 16 bytes of the cost's dtype a
+    thread, FWD_WARPS warps."""
+    return 16 // torch.empty((), dtype=dtype).element_size() * 32 * FWD_WARPS
 
 
 def soft_argmin_plain(cost_volume, vals, alpha=1.0):
@@ -190,7 +198,7 @@ def _forward(cost_volume, vals, alpha, stats=True):
     if out.numel() == 0:
         return out, m, l
     triton, kernel, _ = _triton_kernels()
-    block_w = 128 * FWD_WARPS
+    block_w = fwd_block_w(cost_volume.dtype)
     grid = (triton.cdiv(w, block_w), h, b)
     with torch.cuda.device(device):
         kernel[grid](cost_volume, vals, out, out if m is None else m,

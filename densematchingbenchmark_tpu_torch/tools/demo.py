@@ -2,15 +2,17 @@
 
     python -m densematchingbenchmark_tpu_torch.tools.demo \\
         --config PSMNet/kitti_2015_f32 --data-dir pairs --out-dir out \\
-        [--work-dir work/psmnet] [--pad-to H W] [--cpu]
+        [--work-dir work/psmnet] [--pad-to H W] [--cpu] [--dtype bfloat16]
 
 The counterpart of the JAX package's tools/demo.py for stereo models:
 <data-dir>/left/*.png and <data-dir>/right/*.png with matching names in;
 per pair, <out-dir>/<name>.pfm (the disparity) and <name>.png (its colour
 map) out, through ``apis.inference_stereo``, each pair padded to
 ``--pad-to`` or to the next multiple of 64. Weights come from
-<work-dir>/checkpoints/ when given, else from seed 0. Runs on the GPU
-unless ``--cpu``; with neither it raises.
+<work-dir>/checkpoints/ when given, else from seed 0. ``--dtype bfloat16``
+(or a ``_bf16`` config name) runs the network in bfloat16 compute; the
+disparities are float32. Runs on the GPU unless ``--cpu``; with neither it
+raises.
 """
 
 import argparse
@@ -24,11 +26,14 @@ from ..apis import inference_stereo, init_model
 from ..configs import get_config
 from ..data import io
 from ..visualization import disp_to_color
+from .common import add_dtype_arg
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Stereo inference demo")
-    p.add_argument("--config", required=True)
+    p.add_argument("--config", required=True,
+                   help="config name, e.g. PSMNet/kitti_2015_f32 or "
+                        "PSMNet/kitti_2015_bf16")
     p.add_argument("--data-dir", required=True,
                    help="directory with left/ and right/ subdirs")
     p.add_argument("--out-dir", required=True)
@@ -40,12 +45,14 @@ def parse_args(argv=None):
                         "of 64)")
     p.add_argument("--cpu", action="store_true",
                    help="run the plain PyTorch versions on the CPU")
+    add_dtype_arg(p)
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    cfg = get_config(args.config)
+    cfg = get_config(args.config, **({"model.dtype": args.dtype}
+                                     if args.dtype else {}))
     if cfg.get("task") == "flow":
         raise NotImplementedError("the flow demo is not ported yet "
                                   "(ROADMAP.md queue 1 item 11)")

@@ -4,6 +4,7 @@
         --config PSMNet/kitti_2015_f32 --work-dir work/psmnet \\
         --data-root /data/KITTI-2015 --annfile /data/kitti15_val.json \\
         [--out-dir results] [--override data.test.use_right_disp=True] [--cpu]
+        [--dtype bfloat16]
 
 The counterpart of the JAX package's tools/test.py for stereo models:
 the test split's file dataset (or ``--synthetic``) through the eval
@@ -11,7 +12,9 @@ transform, the model restored from <work-dir>/checkpoints/ (seeded random
 weights, with a warning, when there is none), the batched evaluation on the
 device, and the metric table. ``--out-dir`` writes, per sample, the KITTI
 submission PNG, the colour map and the 2x2 panel, cropped to the sample's
-original size. Runs on the GPU unless ``--cpu``; with neither it raises.
+original size. ``--dtype bfloat16`` (or a ``_bf16`` config name) evaluates
+in bfloat16 compute; the metrics stay float32. Runs on the GPU unless
+``--cpu``; with neither it raises.
 Flow configs (ROADMAP.md queue 1 item 11), confidence outputs (item 6) and
 multi-process launchers (item 5) are not ported and raise.
 """
@@ -28,12 +31,15 @@ from ..evaluation.format import metrics_table
 from ..evaluation.metrics import remove_padding
 from ..utils.checkpoint import CheckpointManager
 from ..visualization import SaveResultTool
-from .common import add_distributed_args, check_launcher, parse_overrides
+from .common import (add_distributed_args, add_dtype_arg, check_launcher,
+                     config_overrides)
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Evaluate a dense matching model")
-    p.add_argument("--config", required=True)
+    p.add_argument("--config", required=True,
+                   help="config name, e.g. PSMNet/kitti_2015_f32 or "
+                        "PSMNet/kitti_2015_bf16")
     p.add_argument("--work-dir", required=True,
                    help="dir containing checkpoints/ (from train.py)")
     p.add_argument("--data-root", default=None)
@@ -44,6 +50,7 @@ def parse_args(argv=None):
     p.add_argument("--cpu", action="store_true",
                    help="run the plain PyTorch versions on the CPU")
     p.add_argument("--override", nargs="*", default=[])
+    add_dtype_arg(p)
     add_distributed_args(p)
     return p.parse_args(argv)
 
@@ -69,7 +76,7 @@ def main(argv=None):
     """Returns ({f'disp_{id}/{metric}': mean}, samples)."""
     args = parse_args(argv)
     check_launcher(args)
-    cfg = get_config(args.config, **parse_overrides(args.override))
+    cfg = get_config(args.config, **config_overrides(args))
     if cfg.get("task") == "flow":
         raise NotImplementedError("flow evaluation is not ported yet "
                                   "(ROADMAP.md queue 1 item 11)")

@@ -7,12 +7,17 @@
     python -m densematchingbenchmark_tpu_torch.tools.train \\
         --config PSMNet/scene_flow_f32 --synthetic --work-dir /tmp/smoke \\
         --max-steps 20                  # no dataset needed
+    python -m densematchingbenchmark_tpu_torch.tools.train \\
+        --config PSMNet/scene_flow --dtype bfloat16 --synthetic \\
+        --work-dir /tmp/smoke_bf16 --max-steps 20
 
 The counterpart of the JAX package's tools/train.py for stereo models, with
-its flags: a thin CLI over ``trainer.loop.train_matcher``. Runs on the GPU
-unless ``--cpu``; with neither it raises. Flow configs (ROADMAP.md queue 1
-item 11), ``--profile`` (item 3) and multi-process launchers (item 5) are
-not ported and raise; so does ``--dtype bfloat16`` (item 2).
+its flags: a thin CLI over ``trainer.loop.train_matcher``. ``--dtype
+bfloat16`` (or a ``_bf16`` config name) trains with float32 parameters, BN
+statistics and gradients and bfloat16 activations, as JAX's
+``model.dtype``; no loss scaling. Runs on the GPU unless ``--cpu``; with
+neither it raises. Flow configs (ROADMAP.md queue 1 item 11), ``--profile``
+(item 3) and multi-process launchers (item 5) are not ported and raise.
 """
 
 import argparse
@@ -20,13 +25,15 @@ import argparse
 from ..configs import get_config
 from ..data import SyntheticStereoDataset, transforms
 from ..trainer.loop import train_matcher
-from .common import add_distributed_args, check_launcher, parse_overrides
+from .common import (add_distributed_args, add_dtype_arg, check_launcher,
+                     config_overrides)
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Train a dense matching model")
     p.add_argument("--config", required=True,
-                   help="config name, e.g. PSMNet/scene_flow_f32")
+                   help="config name, e.g. PSMNet/scene_flow_f32 or "
+                        "PSMNet/scene_flow_bf16")
     p.add_argument("--work-dir", required=True)
     p.add_argument("--data-root", default=None)
     p.add_argument("--annfile", default=None, help="train annotation JSON")
@@ -45,7 +52,7 @@ def parse_args(argv=None):
                         "samples after every epoch")
     p.add_argument("--cpu", action="store_true",
                    help="run the plain PyTorch versions on the CPU")
-    p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"])
+    add_dtype_arg(p)
     p.add_argument("--override", nargs="*", default=[],
                    help="dotted config overrides, e.g. model.max_disp=96")
     p.add_argument("--profile", default=None, metavar="START:STOP")
@@ -60,10 +67,7 @@ def main(argv=None):
     if args.profile:
         raise NotImplementedError("--profile: the profiler window is not "
                                   "ported yet (ROADMAP.md queue 1 item 3)")
-    overrides = parse_overrides(args.override)
-    if args.dtype:
-        overrides["model.dtype"] = args.dtype
-    cfg = get_config(args.config, **overrides)
+    cfg = get_config(args.config, **config_overrides(args))
     cfg["seed"] = args.seed
     if cfg.get("task") == "flow":
         raise NotImplementedError("flow training is not ported yet "

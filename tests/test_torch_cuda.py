@@ -831,3 +831,124 @@ def test_eval_loop_issues_no_synchronising_call_per_batch_on_card(cuda,
         model.module, eval_set(), ecfg, (0, 1, 2), batch_size=2)))
     results = eval_loop.average_metrics(*pending[-1])
     assert pending[-1][1] == 5 and np.isfinite(list(results.values())).all()
+
+
+# bfloat16 compute (model.dtype="bfloat16"): the trunk's 13 stride-1 units
+# run K4's tensor-core route at pack 1, in eval with the folded-BN [Co]
+# epilogue and in training with unit scale; K1 stays idle.
+
+def draw_bn(module, seed):
+    """Give every BatchNorm of ``module`` (on the CPU) random parameters
+    and running statistics, drawn as the CPU tests draw them against JAX
+    (tests/test_torch_psmnet.py): with gains under 1 a random network's
+    disparities move by hundredths of a pixel under bfloat16 rounding,
+    with the default (identity) BN by tenths, wherever it rounds."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                n = m.num_features
+                m.weight.copy_(torch.rand(n, generator=gen) * 0.4 + 0.7)
+                m.running_var.copy_(torch.rand(n, generator=gen) * 0.5 + 0.9)
+                m.bias.copy_(torch.randn(n, generator=gen) * 0.1)
+                m.running_mean.copy_(torch.randn(n, generator=gen) * 0.1)
+    return module
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_tiny_bf16_slice_on_card_matches_cpu(cuda, fused):
+    """The bfloat16 forward on the card (K4's wgmma route, then K2 or K3)
+    against the plain versions on the CPU, same weights (BN drawn as the
+    CPU tests draw it): disparities float32, a mean |difference| within
+    0.05 px and the largest within 0.3 px, the bound the CPU tests hold the
+    port to against JAX (both sides round to bfloat16, in sums of another
+    order)."""
+    from densematchingbenchmark_tpu_torch.apis import StereoModel
+    over = dict(TINY, **{"model.eval.fused_upsample_argmin": fused})
+    cpu = init_model("PSMNet/scene_flow_bf16", device="cpu", seed=1, **over)
+    draw_bn(cpu.module, 1)
+    model = StereoModel(cpu.cfg, copy.deepcopy(cpu.module).to(cuda), cuda)
+    rng = np.random.RandomState(0)
+    batch = [{"leftImage": rng.rand(50, 60, 3).astype(np.float32) * 255,
+              "rightImage": rng.rand(50, 60, 3).astype(np.float32) * 255}]
+    kernels.reset_launch_counts()
+    got = inference_stereo(model, batch, pad_to_shape=(64, 64))
+    counts, bf16 = kernels.launch_counts(), kernels.bf16_launch_counts()
+    regress = "fused_upsample_soft_argmin" if fused else "fused_soft_argmin"
+    assert counts["fused_conv3d"] == 0 and counts[regress] == 3, counts
+    assert counts["conv3d_packed_s1"] == bf16["conv3d_packed_s1"] == 13
+    want = inference_stereo(cpu, batch, pad_to_shape=(64, 64))
+    for g, w in zip(got[0]["disps"], want[0]["disps"]):
+        assert g.shape == (1, 50, 60, 1) and g.dtype == np.float32
+        diff = np.abs(g - w)
+        assert diff.mean() <= 0.05 and diff.max() <= 0.3, (diff.mean(),
+                                                           diff.max())
+
+
+@pytest.mark.cuda
+def test_tiny_bf16_train_step_on_card_matches_cpu(cuda):
+    """One bfloat16 train step on the card and on the CPU from the same
+    weights: K4's bfloat16 route 13 launches a forward, K2 forward and
+    backward 3 each; the losses within 1 %, the gradient norm within
+    10 %; gradients and parameters float32 and finite."""
+    cfg = get_config("PSMNet/scene_flow_bf16", **TRAIN_TINY)
+    cpu = draw_bn(build_model(cfg, torch.Generator().manual_seed(0)), 0)
+    card = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.RandomState(0)
+    batch = {"leftImage": rng.randn(2, 32, 64, 3),
+             "rightImage": rng.randn(2, 32, 64, 3),
+             "leftDisp": rng.uniform(0, 20, (2, 32, 64, 1))}
+    batch = {k: torch.tensor(v, dtype=torch.float32) for k, v in
+             batch.items()}
+    kernels.reset_launch_counts()
+    g_card, m_card, p_card = grads_and_step(
+        card, {k: v.to(cuda) for k, v in batch.items()}, cfg)
+    counts, bf16 = kernels.launch_counts(), kernels.bf16_launch_counts()
+    # the probe and the step: two forwards, one backward each
+    assert counts == {"fused_conv3d": 0, "fused_soft_argmin": 6,
+                      "fused_soft_argmin_backward": 6,
+                      "fused_upsample_soft_argmin": 0,
+                      "conv3d_packed_s1": 26, "conv3d_packed_s1_v2": 0}, counts
+    assert bf16["conv3d_packed_s1"] == 26, bf16
+    _, m_cpu, _ = grads_and_step(cpu, batch, cfg)
+    for k in m_cpu:
+        # the losses are means over every pixel; the gradients' norm, of
+        # bfloat16 backward passes that round apart, within 10 % (the
+        # port's bf16 and float32 gradient norms on the CPU: 3.9 %)
+        tol = 0.1 if k == "grad_norm" else 0.01
+        assert abs(m_card[k] - m_cpu[k]) <= tol * abs(m_cpu[k]), (
+            k, m_card[k], m_cpu[k])
+    for n, g in g_card.items():
+        assert g.dtype == torch.float32 and torch.isfinite(g).all(), n
+        assert p_card[n].dtype == torch.float32, n
+        assert torch.isfinite(p_card[n]).all(), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [False, True])
+def test_bf16_unit_at_an_unsupported_width_raises_on_card(cuda, train):
+    """A bfloat16 trunk unit whose widths K4's wgmma route does not take
+    (Cin 24) raises, in eval and in training: no unit falls back to
+    float32 or to the plain version."""
+    from densematchingbenchmark_tpu_torch.models.layers import ConvUnit
+    unit = ConvUnit(24, 32, 3, 1, 1, dims=3, bias=False,
+                    dtype=torch.bfloat16).to(cuda).train(train)
+    x = torch.randn((1, 4, 6, 8, 24), device=cuda)
+    before = kernels.conv3d_packed_s1.launches
+    with pytest.raises(ValueError, match="bfloat16"):
+        unit(x)
+    assert kernels.conv3d_packed_s1.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_tiny_bf16_eval_forward_issues_no_synchronising_call_on_card(
+        cuda, fused):
+    """The bfloat16 casts of the float32 weights and the folded epilogue
+    are made on the card: the forward waits for nothing."""
+    model = init_model("PSMNet/scene_flow_bf16", device=cuda, seed=0,
+                       **dict(TINY, **{
+                           "model.eval.fused_upsample_argmin": fused}))
+    x = torch.randn((1, 64, 64, 3), device=cuda)
+    _sync_free(lambda: model.forward(x, x))

@@ -291,10 +291,14 @@ def test_configs_match_jax(name):
 
 
 def test_config_bf16_and_unknown_raise():
-    with pytest.raises(NotImplementedError):
-        tconfigs.get_config("PSMNet/scene_flow_bf16")
+    # the _bf16 names build since bf16 compute was ported (as JAX's); an
+    # unknown family or dtype suffix raises
+    assert tconfigs.get_config("PSMNet/scene_flow_bf16") == \
+        jconfigs.get_config("PSMNet/scene_flow_bf16")
     with pytest.raises(KeyError):
         tconfigs.get_config("GCNet/scene_flow")
+    with pytest.raises(KeyError):
+        tconfigs.get_config("PSMNet/scene_flow_f16")
 
 
 def test_transforms_and_remove_padding_match_jax():

@@ -124,8 +124,9 @@ def test_scale_factor_and_crop_run_on_the_port():
 
 
 def test_port_imports_no_jax():
-    # inference, one training step and the packed-conv microbench, with
-    # every module of the port and its four command-line tools imported
+    # inference and one training step in float32 and in bfloat16 and the
+    # packed-conv microbench, with every module of the port and its four
+    # command-line tools imported
     train = dict(TINY, **{"model.losses.l1_loss.max_disp": 64,
                           "data.batch_size_per_device": 1})
     code = f"""
@@ -141,6 +142,7 @@ import densematchingbenchmark_tpu_torch.ops.cuda
 import densematchingbenchmark_tpu_torch.utils
 import densematchingbenchmark_tpu_torch.utils.checkpoint
 import densematchingbenchmark_tpu_torch.utils.logging
+import densematchingbenchmark_tpu_torch.utils.mixed_precision
 from densematchingbenchmark_tpu_torch.tools import microbench_packed
 import densematchingbenchmark_tpu_torch.data.io
 import densematchingbenchmark_tpu_torch.data.sampler
@@ -154,10 +156,13 @@ model = init_model("PSMNet/scene_flow_f32", device="cpu", **{TINY!r})
 rng = np.random.RandomState(0)
 img = rng.rand(64, 64, 3).astype(np.float32) * 255
 inference_stereo(model, [{{"leftImage": img, "rightImage": img}}])
+model = init_model("PSMNet/scene_flow_bf16", device="cpu", **{TINY!r})
+inference_stereo(model, [{{"leftImage": img, "rightImage": img}}])
 ds = SyntheticStereoDataset(length=1, height=32, width=64, max_disp=8)
 ds.transform = transforms.make_train_transform((32, 64), (128.,) * 3, (64.,) * 3)
-train_matcher(get_config("PSMNet/scene_flow_f32", **{train!r}),
-              tempfile.mkdtemp(), train_dataset=ds, max_steps=1, device="cpu")
+for name in ("PSMNet/scene_flow_f32", "PSMNet/scene_flow_bf16"):
+    train_matcher(get_config(name, **{train!r}), tempfile.mkdtemp(),
+                  train_dataset=ds, max_steps=1, device="cpu")
 microbench_packed.run(cases=(("tiny", (1, 8, 4, 6), 8, 4),), iters=1,
                       device="cpu")
 names = ("jax", "flax", "optax", "orbax", "densematchingbenchmark_tpu")
@@ -178,7 +183,7 @@ def test_init_model_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    {"model.dtype": "bfloat16"},
+    {"model.cost_processor.type": "Difference"},
     {"model.backbone.type": "GCNet"},
     {"model.cost_processor.cost_aggregator.type": "AcfNet"},
     {"model.cost_processor.type": "Correlation"},
