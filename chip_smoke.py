@@ -37,11 +37,16 @@ PyTorch version on the card. Phases, each fatal on failure:
      float64 operands): its error at most 2x the float32 plain version's
      plus CONV_RTOL of the reference's largest value (check_f64).
   3e. bfloat16 kernels: K4's bfloat16 (wgmma) route at pack 1, as the
-     bfloat16 trunk calls it, against its plain version at the four trunk
-     shapes of the 384x1248 forward at batch 1 and 4, with the folded-BN
-     [Co] epilogue and ReLU on and off (within BF16_STEP), timed by one
-     call and over 20 in a row beside cuDNN's bf16 F.conv3d + affine +
-     ReLU and the bound at 989 TFLOP/s; K2 (forward and backward) and K3 on
+     bfloat16 trunk calls it, at the four trunk shapes of the 384x1248
+     forward at batch 1 and 4 (tools/bench_trunk_conv.measure_shape): the
+     eval unit's call on its kept operands and the per-call route of
+     training, with the folded-BN [Co] epilogue and ReLU on and off,
+     against the plain version (within BF16_STEP); the unit's call by one
+     call and over 20 in a row, the kernel alone on prepared operands
+     chained, the per-call route, cuDNN's bf16 F.conv3d + affine + ReLU and
+     the bound at 989 TFLOP/s (with --profile the kernel's device time and
+     the unit call's launches); K2 (forward, and its backward through
+     autograd and alone, one call and chained, beside its bound) and K3 on
      bfloat16 costs at the path's shapes.
   3d. no synchronising copy: torch.cuda.set_sync_debug_mode("error")
      around a second call (the first fills the caches) of K3, the K2
@@ -62,7 +67,8 @@ PyTorch version on the card. Phases, each fatal on failure:
      with each other and, on a small pair, with the same weights run
      through the plain versions on the CPU. Then the same in bfloat16
      (PSMNet/scene_flow_bf16, seed 0: K4's bfloat16 route 13 launches a
-     forward, K1 none), its disparities against the float32 model's (mean
+     forward, K1 none; the trunk's K4 operands built in the first frame
+     and in none after), its disparities against the float32 model's (mean
      gap within BF16_GAP_ATOL), its forward time, peak memory and the
      forward under the sync guard.
   4b. eval: K1 and K3 against their plain versions at the batch-4 eval
@@ -116,7 +122,8 @@ and K4's bfloat16 route on the bfloat16 model's trunk in
     python3 chip_smoke.py --profile
 
 adds, before the JSON lines, the device time by kernel name
-(torch.profiler) and the device's busy share of one forward in each eval
+(torch.profiler; the bfloat16 conv block's, K4's, on a line of its own),
+the launch count and the device's busy share of one forward in each eval
 mode, of one evaluate over the eval phase's six pairs in each mode, and
 of one training step at 256x512 batch 3, in float32 and in bfloat16.
 """
@@ -246,12 +253,13 @@ SOURCES = {
     "conv3d_packed_s1_v2": ("cuda", "densematchingbenchmark_tpu_torch/csrc/packed_conv3d_v2_kernel.cu",
                             "densematchingbenchmark_tpu/ops/pallas/packed_conv3d_kernel.py:382"),
 }
-# the bfloat16 routes of K4 and K5 (the wgmma block), rows of their own
+# the bfloat16 routes of K4 and K5 (their wgmma blocks), rows of their own
 BF16_SOURCES = {
-    "conv3d_packed_s1": ("conv3d_packed_s1_bf16", "K4"),
-    "conv3d_packed_s1_v2": ("conv3d_packed_s1_v2_bf16", "K5"),
+    "conv3d_packed_s1": ("conv3d_packed_s1_bf16", "K4",
+                         "densematchingbenchmark_tpu_torch/csrc/conv3d_wgmma_persistent.cuh"),
+    "conv3d_packed_s1_v2": ("conv3d_packed_s1_v2_bf16", "K5",
+                            "densematchingbenchmark_tpu_torch/csrc/conv3d_wgmma.cuh"),
 }
-WGMMA_SOURCE = "densematchingbenchmark_tpu_torch/csrc/conv3d_wgmma.cuh"
 
 
 def bound_ms(flops, nbytes, peak_flops=PEAK_F32_FLOPS):
@@ -732,8 +740,8 @@ def check_soft_argmin_backward(device, gen):
     vals = torch.as_tensor(disp_sample_values(d), device=device)
     c = cost.detach()
     out, m, l = _forward(c, vals, 1.0)
-    ms = time_ms(lambda: fused_soft_argmin_backward(c, vals, 1.0, out, m, l,
-                                                    g))
+    call = lambda: fused_soft_argmin_backward(c, vals, 1.0, out, m, l, g)
+    ms, chain = time_ms(call), chained_ms(call)
     plain_out = soft_argmin_plain(cost, vals)
     plain = time_ms(lambda: torch.autograd.grad(plain_out, cost, g,
                                                 retain_graph=True), 3)
@@ -742,11 +750,12 @@ def check_soft_argmin_backward(device, gen):
     b_ms, b_by = bound_ms(7 * c.numel(),
                           4 * (2 * c.numel() + 4 * b * h * w + d))
     print(f"K2 fused_soft_argmin_backward {list(TRAIN_ARGMIN_SHAPE)} "
-          f"(x3/step): {ms:.3f} ms, plain (autograd of softmax + sum) "
-          f"{plain:.3f}, bound {b_ms:.3f} ({b_by}), max_abs_err {err:.3g}")
+          f"(x3/step): {ms:.3f} ms, chained {chain:.3f}, plain (autograd of "
+          f"softmax + sum) {plain:.3f}, bound {b_ms:.3f} ({b_by}), "
+          f"max_abs_err {err:.3g}")
     return {"unit": "per launch", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain, "library_ms": None, "bound_ms": b_ms,
-            "bound_by": b_by}
+            "chained_ms": chain, "plain_ms": plain, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def packed_bound(shape, cin, cout, dtype):
@@ -1587,6 +1596,11 @@ def device_profile(label, fn, reps=2, top=14, convs=0):
     print(f"profile {label}: wall {wall:.2f} ms per call under the "
           f"profiler, device busy {busy:.2f} ms ({100 * busy / wall:.1f}%), "
           f"{launches} kernel launches of {len(rows)} names")
+    wgmma = [r for r in rows if "conv3d_wgmma" in r[0]]
+    if wgmma:
+        print(f"  K4/K5 bfloat16 block (conv3d_wgmma): "
+              f"{sum(r[1] for r in wgmma):.3f} ms of device time, "
+              f"{sum(r[2] for r in wgmma)} launches")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         print(f"  {ms:8.3f} ms {count:4d}x  {key[:90]}")
     if convs:
@@ -1629,83 +1643,67 @@ def profile_phase(models, name="PSMNet/scene_flow_f32"):
     torch.backends.cudnn.benchmark = False
 
 
-def bf16_trunk_bound(b, d, h, w, cin, cout):
-    """bound_ms of K4's bfloat16 trunk call: its MACs at the tensor cores'
-    rate; x and the output in bfloat16, read and written once, the kernel
-    in bfloat16, the float32 [Co] scale and bias."""
-    vox = b * d * h * w
-    return bound_ms(2 * 27 * cin * cout * vox,
-                    2 * (vox * (cin + cout) + 27 * cin * cout) + 4 * 2 * cout,
-                    PEAK_BF16_FLOPS)
-
-
 def check_bf16_trunk(gen, smi):
-    """K4's bfloat16 (wgmma) route at pack 1, as the bfloat16 trunk units
-    call it, against conv3d_packed_s1_plain at the four trunk shapes of the
-    384x1248 forward, at batch 1 and at the eval batch 4, with the folded-BN
-    [Co] epilogue and ReLU on and off: within BF16_STEP (plus CONV_RTOL) of
-    the largest plain value. Its time by one call and over 20 in a row, the
-    plain version's, cuDNN's bfloat16 F.conv3d + affine + ReLU and the
-    bound at the tensor cores' rate. Returns the row of the batch-1 forward
-    (13 launches)."""
-    from densematchingbenchmark_tpu_torch.ops.cuda import (
-        conv3d_packed_s1, conv3d_packed_s1_plain)
+    """K4's bfloat16 (wgmma) route at pack 1 at the four trunk shapes of the
+    384x1248 forward, at batch 1 and at the eval batch 4, as
+    tools/bench_trunk_conv.measure_shape measures it: the eval unit's call
+    (a bfloat16 ConvUnit in eval, its operands kept: one launch) and the
+    per-call route conv3d_packed_s1(x, kernel, scale, bias) that training
+    takes (ReLU on and off) against conv3d_packed_s1_plain within
+    BF16_STEP (plus CONV_RTOL); the unit's call by one call and over 20 in
+    a row, the kernel alone on prepared operands chained, the per-call
+    route by one call and chained, cuDNN's bfloat16 F.conv3d + affine +
+    ReLU by one call and chained, the plain version and the bound at the
+    tensor cores' rate; with --profile the kernel's device time in the
+    unit's call and the call's launches. Returns the row of the batch-1
+    forward (13 launches)."""
+    from densematchingbenchmark_tpu_torch.tools.bench_trunk_conv import (
+        measure_shape)
+    profile = "--profile" in sys.argv[1:]
     rows = {}
     for batch in (1, EVAL_BATCH):
-        for cin, cout, (d, h, w), per_fwd in CONV_SHAPES:
-            x = torch.randn((batch, d, h, w, cin), device="cuda",
-                            generator=gen).bfloat16()
-            k = (torch.randn((3, 3, 3, cin, cout), device="cuda",
-                             generator=gen) * (27 * cin) ** -0.5).bfloat16()
-            scale = torch.rand(cout, device="cuda", generator=gen) + 0.5
-            bias = torch.randn(cout, device="cuda", generator=gen)
-            err = 0.0
-            for relu in (True, False):
-                got = conv3d_packed_s1(x, k, scale, bias, pack=1, relu=relu)
-                want = conv3d_packed_s1_plain(x, k, scale, bias, 1,
-                                              relu).float()
-                torch.cuda.synchronize()
-                assert got.dtype == torch.bfloat16, got.dtype
-                e = (got.float() - want).abs().max().item()
-                tol = (CONV_RTOL + BF16_STEP) * want.abs().max().item()
-                assert e <= tol, (batch, cin, cout, d, relu, e, tol)
-                err = max(err, e)
-                del got, want
-            call = lambda: conv3d_packed_s1(x, k, scale, bias, pack=1,
-                                            relu=True)
-            ms, chain = time_ms(call), chained_ms(call)
-            plain = time_ms(lambda: conv3d_packed_s1_plain(
-                x, k, scale, bias, 1, True), 3)
-            w_oi = k.permute(4, 3, 0, 1, 2).contiguous(
-                memory_format=torch.channels_last_3d)
-            x_cf = x.movedim(-1, 1)      # channels_last_3d storage, no copy
-            s5, b5 = (t.view(1, -1, 1, 1, 1).bfloat16() for t in (scale,
-                                                                 bias))
-            lib = time_ms(lambda: torch.relu(
-                F.conv3d(x_cf, w_oi, padding=1) * s5 + b5))
-            b_ms, b_by = bf16_trunk_bound(batch, d, h, w, cin, cout)
-            print(f"K4 bf16 pack 1 (trunk) {cin}->{cout} {batch}x{d}x{h}x{w}"
-                  f" (x{per_fwd}/fwd): {ms:.3f} ms, chained {chain:.3f}, "
-                  f"plain {plain:.3f}, F.conv3d bf16+affine+ReLU {lib:.3f}, "
-                  f"bound {b_ms:.4f} ({b_by}, {100 * b_ms / chain:.1f}% "
-                  f"chained), max_abs_err {err:.3g}")
-            rows.setdefault(batch, []).append(
-                (per_fwd, ms, chain, plain, lib, b_ms, err, b_by))
-            del x, x_cf
-    for batch, r in rows.items():
-        total = lambda i: sum(x[0] * x[i] for x in r)
+        for cin, cout, dhw, per_fwd in CONV_SHAPES:
+            # asserts each result within (1e-4 + BF16_STEP) of max|plain|
+            r = measure_shape(batch, cin, cout, dhw, gen, profile)
+            b_ms = r["bound_ms"]
+            dev = (f", kernel device {r['kernel_device_ms']:.4f} (profiler; "
+                   f"{r['unit_launches']:.0f} launches a unit call)"
+                   if profile else "")
+            print(f"K4 bf16 pack 1 (trunk) {cin}->{cout} {batch}x"
+                  f"{'x'.join(map(str, dhw))} (x{per_fwd}/fwd): eval unit "
+                  f"{r['unit_ms']:.3f} ms, chained {r['unit_chained_ms']:.3f}; "
+                  f"kernel alone chained {r['kernel_chained_ms']:.3f}{dev}; "
+                  f"per-call route {r['route_ms']:.3f}, chained "
+                  f"{r['route_chained_ms']:.3f}; F.conv3d bf16+affine+ReLU "
+                  f"{r['cudnn_ms']:.3f}, chained {r['cudnn_chained_ms']:.3f}; "
+                  f"plain {r['plain_ms']:.3f}; bound {b_ms:.4f} "
+                  f"({r['bound_by']}, {100 * b_ms / r['kernel_chained_ms']:.1f}"
+                  f"% of the kernel chained), max_abs_err "
+                  f"{r['max_abs_err']:.3g}")
+            rows.setdefault(batch, []).append((per_fwd, r))
+            torch.cuda.empty_cache()
+    for batch, rr in rows.items():
+        total = {k: sum(n * r[k] for n, r in rr) for k in rr[0][1]
+                 if k.endswith("_ms")}
         print(f"K4 bf16 pack 1 (trunk), a forward at batch {batch} (13 "
-              f"launches): {total(1):.3f} ms by one call a launch, chained "
-              f"{total(2):.3f}, plain {total(3):.3f}, cuDNN bf16 "
-              f"{total(4):.3f}, bound {total(5):.3f}; {smi}")
-    r = rows[1]
-    total = lambda i: sum(x[0] * x[i] for x in r)
-    return {"unit": "per forward (13 launches at the 4 trunk shapes, "
-                    "384x1248 batch 1)",
-            "max_abs_err": max(x[6] for rr in rows.values() for x in rr),
-            "ms": total(1), "chained_ms": total(2), "plain_ms": total(3),
-            "library_ms": total(4), "bound_ms": total(5),
-            "bound_by": max(r, key=lambda x: x[0] * x[5])[7]}
+              "launches): " + ", ".join(f"{k} {v:.3f}"
+                                        for k, v in total.items())
+              + f"; {smi}")
+        if batch == 1:
+            row = {"unit": "per forward (13 launches at the 4 trunk shapes, "
+                           "384x1248 batch 1): the eval unit's call",
+                   "max_abs_err": max(r["max_abs_err"] for rr in
+                                      rows.values() for _, r in rr),
+                   "ms": total["unit_ms"],
+                   "chained_ms": total["unit_chained_ms"],
+                   "kernel_chained_ms": total["kernel_chained_ms"],
+                   "route_ms": total["route_ms"],
+                   "plain_ms": total["plain_ms"],
+                   "library_ms": total["cudnn_ms"],
+                   "bound_ms": total["bound_ms"],
+                   "bound_by": max(rr, key=lambda x: x[0] * x[1][
+                       "bound_ms"])[1]["bound_by"]}
+    return row
 
 
 def check_bf16_regression(gen):
@@ -1718,8 +1716,11 @@ def check_bf16_regression(gen):
     from densematchingbenchmark_tpu_torch.ops.cost_volume import (
         disp_sample_values)
     from densematchingbenchmark_tpu_torch.ops.cuda import (
-        fused_soft_argmin, fused_upsample_soft_argmin, soft_argmin_plain,
+        fused_soft_argmin, fused_soft_argmin_backward,
+        fused_upsample_soft_argmin, soft_argmin_plain,
         upsample_soft_argmin_plain)
+    from densematchingbenchmark_tpu_torch.ops.cuda.soft_argmin_kernel import (
+        _forward)
     d = ARGMIN_SHAPE[1]
     vals = torch.as_tensor(disp_sample_values(d), device="cuda")
     cost = (torch.randn(ARGMIN_SHAPE, device="cuda", generator=gen)
@@ -1750,7 +1751,18 @@ def check_bf16_regression(gen):
     assert e_bwd <= tol, (e_bwd, tol)
     bwd_ms = time_ms(lambda: torch.autograd.grad(out, train, g,
                                                  retain_graph=True))
-    del train, out, plain_out, got, want
+    # the backward kernel alone on the bfloat16 cost, as the float32 row
+    # times it: bound by its bytes, the cost read and its gradient written
+    # in bfloat16, the per-pixel float32 terms (out, max, sum, gradient)
+    # and the sample values
+    c = train.detach()
+    k_out, m, l = _forward(c, vals, 1.0)
+    call = lambda: fused_soft_argmin_backward(c, vals, 1.0, k_out, m, l, g)
+    k_ms, k_chain = time_ms(call), chained_ms(call)
+    b, _, h, w = TRAIN_ARGMIN_SHAPE
+    k_bound, k_by = bound_ms(7 * c.numel(),
+                             2 * 2 * c.numel() + 4 * (4 * b * h * w + d))
+    del train, out, plain_out, got, want, c, k_out, m, l
     out_d, out_h, out_w = UPSAMPLE_OUT
     low = (torch.randn(UPSAMPLE_LOW, device="cuda", generator=gen)
            * 3).bfloat16()
@@ -1765,15 +1777,20 @@ def check_bf16_regression(gen):
           f"volume in bfloat16), {barriers}; K2 {list(TRAIN_ARGMIN_SHAPE)} "
           f"forward {e_train:.3g} px, backward (autograd through the "
           f"kernel) {bwd_ms:.3f} ms, max_abs_err {e_bwd:.3g} (tolerance "
-          f"{tol:.3g}, gradient in bfloat16); K3 {list(UPSAMPLE_LOW)} "
-          f"max_abs_err {e_k3:.3g} px, {k3_ms:.3f} ms (the low-resolution "
-          f"cost promoted to float32 first)")
+          f"{tol:.3g}, gradient in bfloat16), the backward kernel alone "
+          f"{k_ms:.3f} ms, chained {k_chain:.3f} (bound {k_bound:.3f}, "
+          f"{k_by}, {100 * k_bound / k_chain:.1f}% chained); K3 "
+          f"{list(UPSAMPLE_LOW)} max_abs_err {e_k3:.3g} px, {k3_ms:.3f} ms "
+          f"(the low-resolution cost promoted to float32 first)")
+    return {"bf16_ms": k_ms, "bf16_chained_ms": k_chain,
+            "bf16_bound_ms": k_bound}
 
 
 def run_bf16_mode(fused, pairs, f32_disps, smi):
     """init_model("PSMNet/scene_flow_bf16") in one eval mode and
     inference_stereo over ``pairs``, with its launches asserted (K4's
-    bfloat16 route 13 a forward, K1 none, K2 or K3 3); the disparities
+    bfloat16 route 13 a forward, K1 none, K2 or K3 3) and the trunk's K4
+    operands built in the first frame only (13, then none); the disparities
     against the float32 model's of the same seed (``f32_disps``); the
     forward's time and the peak memory; the forward under the sync guard.
     Returns (model, counts)."""
@@ -1783,10 +1800,18 @@ def run_bf16_mode(fused, pairs, f32_disps, smi):
     model = init_model("PSMNet/scene_flow_bf16", seed=0,
                        **{"model.eval.fused_upsample_argmin": fused})
     assert model.cfg["model"]["dtype"] == "bfloat16"
+    from densematchingbenchmark_tpu_torch.models.layers import ConvUnit
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    results = inference_stereo(model, pairs, pad_to_shape=PADDED)
+    # the first frame builds the 13 trunk units' K4 operands, the later
+    # frames none
+    builds = ConvUnit.operand_builds
+    results = inference_stereo(model, pairs[:1], pad_to_shape=PADDED)
+    first = ConvUnit.operand_builds - builds
+    results += inference_stereo(model, pairs[1:], pad_to_shape=PADDED)
+    later = ConvUnit.operand_builds - builds - first
+    assert (first, later) == (13, 0), (first, later)
     torch.cuda.synchronize()
     counts, bf16 = kernels.launch_counts(), kernels.bf16_launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1811,7 +1836,8 @@ def run_bf16_mode(fused, pairs, f32_disps, smi):
     ms = time_ms(lambda: model.forward(x, x), FORWARD_REPS)
     print(f"slice bf16 fused_upsample_argmin={fused}: forward {ms:.2f} ms "
           f"(median of {FORWARD_REPS}, 1x{PADDED[0]}x{PADDED[1]}), peak "
-          f"{peak:.2f} GiB, launches over {n} pairs {counts} (bf16 {bf16}); "
+          f"{peak:.2f} GiB, launches over {n} pairs {counts} (bf16 {bf16}), "
+          f"K4 operands built {first} in the first frame, {later} after; "
           f"vs float32, same seed: mean |gap| up to {mean_gap:.4f} px "
           f"(tolerance {BF16_GAP_ATOL}), largest {max_gap:.4f} px; {smi}")
     assert mean_gap <= BF16_GAP_ATOL, gaps
@@ -2028,7 +2054,8 @@ def main():
     stats["conv3d_packed_s1_v2"], bf16_check = check_packed_v2("cuda", gen)
     torch.cuda.empty_cache()
     bf16_trunk = check_bf16_trunk(gen, smi)
-    check_bf16_regression(gen)
+    # K2's backward on the bfloat16 training cost, beside its float32 row
+    stats["fused_soft_argmin_backward"].update(check_bf16_regression(gen))
     torch.cuda.empty_cache()
     print("sync guard (torch.cuda.set_sync_debug_mode('error')):")
     sync_guard_phase(gen)
@@ -2081,10 +2108,10 @@ def main():
         rows.append({"name": name, "route": route, "source": source,
                      "replaces": replaces, "launches": n, **stats[name]})
         if name in BF16_SOURCES:
-            row_name, label = BF16_SOURCES[name]
+            row_name, label, block = BF16_SOURCES[name]
             assert micro_bf16[name] > 0, f"{row_name} never launched"
             rows.append({"name": row_name, "route": "cuda",
-                         "source": WGMMA_SOURCE, "replaces": replaces,
+                         "source": block, "replaces": replaces,
                          "launches": micro_bf16[name],
                          "unit": "per microbench case set (3 cases, pack 4, "
                                  "bfloat16)",
@@ -2095,7 +2122,7 @@ def main():
             # K4's bfloat16 route at pack 1 on the bfloat16 model's paths
             assert bf16_launches[name] > 0, "K4 bf16 never ran the trunk"
             rows.append({"name": "conv3d_packed_s1_bf16_pack1",
-                         "route": "cuda", "source": WGMMA_SOURCE,
+                         "route": "cuda", "source": block,
                          "replaces": replaces,
                          "launches": bf16_launches[name], **bf16_trunk})
     print(json.dumps({"kernels": rows}))

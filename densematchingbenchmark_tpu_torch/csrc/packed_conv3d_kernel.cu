@@ -18,17 +18,16 @@
 // - float32: the float32 block on the CUDA cores that K1 runs too
 //   (conv3d_tile.cuh, which says what bounds it and how the design meets
 //   it), with the caller's launch plan.
-// - bfloat16: the wgmma block of conv3d_wgmma.cuh in K4's order, one output
-//   depth per block with its three input planes staged through the TMA
-//   ring; the launch plan (ops/cuda/packed_conv3d_kernel.py::wgmma_plan)
-//   puts depth fastest in the grid, so the blocks of neighbouring depths of
-//   one H / W tile run together and each plane's second and third reads
-//   come from L2 rather than HBM (at the microbench's full-resolution cases
-//   three HBM reads would cost 0.110 and 0.192 ms, above the operation
-//   bounds of 0.080 and 0.161 ms). conv3d_wgmma.cuh says what bounds it.
+// - bfloat16: the wgmma block of conv3d_wgmma_persistent.cuh on a
+//   persistent grid: about one block per SM for each Cout tile, each
+//   fetching its weights once and walking a contiguous share of the output,
+//   depth fastest, each input plane of a run of depths staged once through
+//   the TMA ring for the three outputs it feeds (ops/cuda/
+//   packed_conv3d_kernel.py::wgmma_plan). That header says what bounds it
+//   and why it walks so.
 
 #include "conv3d_tile.cuh"
-#include "conv3d_wgmma.cuh"
+#include "conv3d_wgmma_persistent.cuh"
 
 // xp [B, R, H, W, P*Cin] and out [B, R, H, W, P*Cout] float32; w the
 // wrapper's image of the true kernel [3, 3, 3, Cin, Cout]
@@ -67,29 +66,25 @@ extern "C" int packed_conv3d_f32_regs(int cob) {
 
 // The same function in bfloat16 (x, out, and w as the wrapper's
 // shared-memory image of the kernel, ops/cuda/packed_conv3d_kernel.py::
-// wgmma_weights), on the tensor cores, with the caller's launch plan:
-// channel slice ck, ring stages, tiles, blocks and dynamic shared memory
-// bytes (one output depth per block). Needs Cin % 16 == 0, Cout % 8 == 0
-// and 16-byte aligned operands (checked by the caller). Returns the CUDA
+// wgmma_weights), on the tensor cores: `dims` holds the shapes, ReLU and
+// the caller's launch plan (conv3d_wgmma_persistent::Dim: channel slice
+// ck, ring stages, tiles, blocks / Cout tiles persistent blocks for each
+// Cout tile, dynamic shared memory bytes). Needs Cin % 16 == 0, Cout % 8 ==
+// 0 and 16-byte aligned operands (checked by the caller). Returns the CUDA
 // error code of the launch (cudaErrorInvalidValue, launching nothing, when
-// smem is short of the block's layout), or 999 / 1000 + the CUresult when
-// the TMA tensor map cannot be made.
+// smem is short of the block's layout or the grid does not fit the work),
+// or 999 / 1000 + the CUresult when the TMA tensor map cannot be made.
 extern "C" int packed_conv3d_bf16(const __nv_bfloat16* x,
                                   const __nv_bfloat16* w, const float* scale,
                                   const float* bias, __nv_bfloat16* out,
-                                  int B, int R, int P, int H, int W, int Cin,
-                                  int Cout, int relu, int ck, int stages,
-                                  int tiles_h, int tiles_w, int blocks,
-                                  int smem, void* stream) {
-  const conv3d_wgmma::Geometry g{B, R, P, H, W, Cin, Cout, relu,
-                                 1, R * P, tiles_h, tiles_w, stages};
-  return conv3d_wgmma::launch<1>(x, w, scale, bias, out, g, ck, blocks, smem,
-                                 stream);
+                                  const int* dims, void* stream) {
+  return conv3d_wgmma_persistent::launch(x, w, scale, bias, out, dims,
+                                         stream);
 }
 
 // Registers a thread of the packed_conv3d_bf16 kernel of channel slice ck
 // (16, 32 or 64), for the launch plan's residency; minus the CUDA error
 // code when they cannot be read.
 extern "C" int packed_conv3d_bf16_regs(int ck) {
-  return conv3d_wgmma::registers<1>(ck);
+  return conv3d_wgmma_persistent::registers(ck);
 }

@@ -409,13 +409,13 @@ extern "C" int packed_conv3d_v2_bf16(const __nv_bfloat16* x,
                                      int blocks, int smem, void* stream) {
   const conv3d_wgmma::Geometry g{B, R, P, H, W, Cin, Cout, relu,
                                  dc, chunks, tiles_h, tiles_w, stages};
-  return conv3d_wgmma::launch<3>(x, w, scale, bias, out, g, ck, blocks, smem,
-                                 stream);
+  return conv3d_wgmma::launch(x, w, scale, bias, out, g, ck, blocks, smem,
+                              stream);
 }
 
 // Registers a thread of the packed_conv3d_v2_bf16 kernel of channel slice ck
 // (16, 32 or 64), for the launch plan's residency; minus the CUDA error
 // code when they cannot be read.
 extern "C" int packed_conv3d_v2_bf16_regs(int ck) {
-  return conv3d_wgmma::registers<3>(ck);
+  return conv3d_wgmma::registers(ck);
 }

@@ -33,7 +33,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cuda.conv3d_kernel import fused_conv3d
-from ..ops.cuda.packed_conv3d_kernel import conv3d_packed_s1
+from ..ops.cuda.packed_conv3d_kernel import (WgmmaOperands,
+                                             conv3d_packed_s1,
+                                             conv3d_packed_s1_prepared,
+                                             wgmma_operands)
 
 
 def _tuple(x, n):
@@ -108,7 +111,18 @@ class ConvUnit(nn.Module):
     (:486-488). In bfloat16 the fused eval unit rounds once, after the
     epilogue, where JAX's unpacked unit rounds the conv and then the BN:
     the two differ by at most one bfloat16 step.
+
+    When nothing needs a gradient, the fused eval unit keeps what its
+    kernel takes (``eval_operands``: the kernel in the compute dtype and
+    the folded scale and bias, in bfloat16 on the card as K4's prepared
+    operands, one launch a call), keyed on each source tensor's
+    ``data_ptr()`` and ``_version`` and on the dtype and device: an
+    optimizer step, ``load_state_dict``, an in-place update or ``.to()``
+    rebuilds them, and nothing else does. Training keeps none.
     """
+
+    # eval operands built, over all units (read by tests and chip_smoke.py)
+    operand_builds = 0
 
     def __init__(self, in_features, features, kernel_size=3, stride=1,
                  padding=1, dilation=1, dims=2, batch_norm=True, relu=True,
@@ -140,6 +154,7 @@ class ConvUnit(nn.Module):
                         and conv.stride == (1,) * 3
                         and conv.padding == (1,) * 3
                         and conv.dilation == (1,) * 3)
+        self._operands = None
 
     @property
     def conv(self):
@@ -177,22 +192,74 @@ class ConvUnit(nn.Module):
             shift = self.Conv_0.bias * inv + shift
         return inv.float().contiguous(), shift.float().contiguous()
 
+    def _sources(self):
+        """The tensors the fused eval unit's operands are made from, read
+        from the modules' dicts (``nn.Module.__getattr__`` costs about a
+        microsecond a name, on every eval call)."""
+        conv, bn = self._modules["Conv_0"], self._modules["BatchNorm_0"]
+        bias = conv._parameters["bias"]
+        return (conv._parameters["weight"], bn._parameters["weight"],
+                bn._parameters["bias"], bn._buffers["running_mean"],
+                bn._buffers["running_var"]) + (() if bias is None else
+                                               (bias,))
+
+    def _kernel(self):
+        return self.Conv_0.weight.permute(2, 3, 4, 1, 0).to(
+            self.dtype).contiguous()
+
+    def eval_operands(self, device, sources=None):
+        """What the fused eval unit's kernel takes, kept while its sources
+        are unchanged: in bfloat16 on the card K4's ``WgmmaOperands`` (the
+        weight image and the folded BN), else (kernel [3, 3, 3, Ci, Co] in
+        the compute dtype, scale, bias), the folded BN in float32. Built
+        outside inference mode, so that a later call with grad mode on can
+        use them too. None when a source is an inference tensor (it has no
+        version counter to key on)."""
+        sources = sources or self._sources()
+        try:
+            key = (self.dtype, device, *((t.data_ptr(), t._version)
+                                         for t in sources))
+        except RuntimeError:
+            return None
+        if self._operands is None or self._operands[0] != key:
+            with torch.inference_mode(False), torch.no_grad():
+                operands = (self._kernel(), *self.folded_bn())
+                if self.dtype == torch.bfloat16 and device.type == "cuda":
+                    operands = wgmma_operands(*operands)
+                # the sources' storage is held with the key, so that no
+                # other tensor takes one of their addresses meanwhile
+                self._operands = (key, tuple(t.detach() for t in sources),
+                                  operands)
+            ConvUnit.operand_builds += 1
+        return self._operands[2]
+
+    def _fused_eval(self, x):
+        sources = self._sources()
+        operands = None
+        if not (torch.is_grad_enabled() and (x.requires_grad or any(
+                t.requires_grad for t in sources))):
+            operands = self.eval_operands(x.device, sources)
+        if isinstance(operands, WgmmaOperands):
+            return conv3d_packed_s1_prepared(x, operands, relu=self.relu)
+        # differentiable, or sources without a version counter: made per
+        # call
+        kernel, scale, bias = operands or (self._kernel(),
+                                           *self.folded_bn())
+        if self.dtype == torch.float32:
+            return fused_conv3d(x, kernel, scale, bias, relu=self.relu)
+        return conv3d_packed_s1(x, kernel, scale, bias, pack=1,
+                                relu=self.relu)
+
     def forward(self, x):
         x = x.to(self.dtype)
         if self.pre_norm:
             x = self._norm_act(x)
         if self.fusable:
             x = x.contiguous()
-            kernel = self.Conv_0.weight.permute(2, 3, 4, 1, 0).to(
-                self.dtype).contiguous()
             if not self.training:
-                scale, bias = self.folded_bn()
-                if self.dtype == torch.float32:
-                    return fused_conv3d(x, kernel, scale, bias,
-                                        relu=self.relu)
-                return conv3d_packed_s1(x, kernel, scale, bias, pack=1,
-                                        relu=self.relu)
-            x = conv3d_packed_s1(x, kernel, pack=1)
+                return self._fused_eval(x)
+            self._operands = None
+            x = conv3d_packed_s1(x, self._kernel(), pack=1)
             if self.Conv_0.bias is not None:
                 x = x + self.Conv_0.bias.to(self.dtype)
             return self._norm_act(x)

@@ -378,6 +378,85 @@ def test_packed_conv3d_wgmma_matches_plain_on_card(cuda, wrapper, shape,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["per_call", "prepared"])
+@pytest.mark.parametrize("shape,pack,cout,form,relu", [
+    ((1, 1, 6, 45, 16), 1, 8, "scalar", True),       # D 1: 2 items, 2 blocks
+    ((2, 2, 5, 78, 32), 1, 40, "co", False),         # D 2, Co 40: 2 tiles
+    ((1, 13, 7, 130, 64), 1, 64, "co", True),        # D 13, H 7, W 130
+    ((3, 13, 9, 130, 112), 1, 64, "scalar", False),  # Ci 112; 351 items a
+                                                     # tile, 66 blocks
+    ((1, 12, 24, 78, 64), 1, 64, "co", True),        # the 12x24x78 trunk
+    ((2, 4, 6, 78, 4 * 16), 4, 40, "pco", True),     # pack 4, D 16
+    ((2, 3, 10, 45, 4 * 32), 4, 8, "pco", False),    # pack 4, W 45
+])
+def test_persistent_wgmma_grid_matches_plain_on_card(cuda, entry, shape,
+                                                     pack, cout, form, relu):
+    """K4's persistent bfloat16 grid, through the per-call route and on a
+    prepared image (the eval trunk's entry), against the plain version:
+    more work items than blocks and fewer, ragged D, H and W, every width
+    class, pack 1 and 4, every epilogue, ReLU both ways. Both entries launch
+    the same kernel on the same plan: their results are equal bit for
+    bit."""
+    xp, k, scale, bias = packed_inputs(shape, pack, cout, form, shape[1],
+                                       cuda, torch.bfloat16)
+    fn = kernels.conv3d_packed_s1
+    before = fn.bf16_launches
+    if entry == "prepared":
+        got = pk.conv3d_packed_s1_prepared(
+            xp, pk.wgmma_operands(k, scale, bias, pack), relu=relu)
+        assert torch.equal(got, fn(xp, k, scale, bias, pack=pack, relu=relu))
+        assert fn.bf16_launches == before + 2
+    else:
+        got = fn(xp, k, scale, bias, pack=pack, relu=relu)
+        assert fn.bf16_launches == before + 1
+    want = kernels.conv3d_packed_s1_plain(xp, k, scale, bias, pack, relu)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape == (*shape[:-1], pack * cout)
+    # float32 sums in another order, then one bfloat16 rounding each
+    tol = (1e-4 + BF16_STEP) * want.abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_prepared_entry_is_forward_only_on_card(cuda):
+    xp, k, scale, bias = packed_inputs((1, 2, 4, 8, 16), 1, 8, "co", 0,
+                                       cuda, torch.bfloat16)
+    prepared = pk.wgmma_operands(k, scale, bias)
+    before = kernels.conv3d_packed_s1.launches
+    xp.requires_grad_()
+    with pytest.raises(RuntimeError, match="forward only"):
+        pk.conv3d_packed_s1_prepared(xp, prepared)
+    with pytest.raises(ValueError, match="prepared"):
+        pk.conv3d_packed_s1_prepared(xp.detach().float(), prepared)
+    assert kernels.conv3d_packed_s1.launches == before
+
+
+@pytest.mark.cuda
+def test_tiny_bf16_model_picks_up_new_weights_on_card(cuda):
+    """The bfloat16 eval trunk keeps K4's prepared operands: a second
+    forward builds none, and after load_state_dict with other weights the
+    13 units build theirs again and give the new weights' result (cuDNN's
+    convolutions in sums of another order aside)."""
+    from densematchingbenchmark_tpu_torch.models.layers import ConvUnit
+    model = init_model("PSMNet/scene_flow_bf16", device=cuda, seed=0, **TINY)
+    other = init_model("PSMNet/scene_flow_bf16", device=cuda, seed=1, **TINY)
+    x = torch.randn((1, 64, 64, 3), device=cuda)
+    first = model.forward(x, x)["disps"][0]
+    builds = ConvUnit.operand_builds
+    kernels.reset_launch_counts()
+    model.forward(x, x)
+    assert ConvUnit.operand_builds == builds
+    assert kernels.bf16_launch_counts()["conv3d_packed_s1"] == 13
+    model.module.load_state_dict(other.module.state_dict())
+    got = model.forward(x, x)["disps"][0]
+    assert ConvUnit.operand_builds == builds + 13
+    want = other.forward(x, x)["disps"][0]
+    gap = (got - want).abs().mean().item()
+    assert gap <= 0.01 * (first - want).abs().mean().item(), gap
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,pack,cout,form,relu", [
     ((2, 3, 7, 78, 32), 1, 32, "co", True),
     ((1, 2, 5, 9, 4 * 16), 4, 16, "pco", False),     # bf16: Ci % 16 == 0
