@@ -112,6 +112,32 @@ PyTorch version on the card. Phases, each fatal on failure:
      and inputs on the card and through the plain versions on the CPU,
      both eval modes (mean disparity gap within BF16_CPU_ATOL), and one
      train step (losses within BF16_LOSS_RTOL, gradients float32).
+  3f. bias epilogue (run after 3e): a trunk unit with a conv bias (AcfNet's
+     7 aggregator units outside the hourglasses) in eval at its two
+     shapes, 64->32 and 32->32 at 48x96x312: K1 in float32 and K4's
+     bfloat16 route on the unit's kept operands, the bias folded into the
+     shift, against the plain version (CONV_RTOL; BF16_STEP besides) and
+     the unfused conv + bias, BN, ReLU; an in-place change of the bias
+     alone rebuilds the kept operands once.
+  9. AcfNet: init_model("AcfNet/scene_flow_adaptive_{f32,bf16}", seed 0)
+     at full width (max_disp 192, cmn in_planes 192) and inference_stereo
+     over three random 375x1242 pairs padded to 384x1248 (per forward K1
+     13 or K4's bf16 route 13, K2 3, K3 none; disparities finite in [0,
+     191], confidences in [0, 1]; forward ms; peak), the bf16-vs-float32
+     gap on the same weights, and a small model on the card against the
+     CPU in each dtype (CPU_ATOL max, BF16_CPU_ATOL mean). Then
+     tools/test.main on AcfNet/kitti_2015_adaptive over the eval phase's
+     six KITTI-layout pairs: float32 at batch 4 and at batch 1 (metrics
+     within the eval tolerances of each other), bf16 at batch 4 (EPE
+     within BF16_GAP_ATOL of float32's), each with its sparsification
+     pass and est / oracle / random rows, launches asserted; the eval
+     step's ms a sample and peak at batch 4 and 1. Then train_matcher on
+     AcfNet/scene_flow_adaptive for 5 steps at 256x512 batch 3 in each
+     dtype and on the uniform config for one (a step K4 13, K2 3 forward
+     and 3 backward; every focal and confidence loss finite; step ms and
+     peak), and tools/train.main --profile 2:3 on the uniform config
+     (--synthetic 256x512): the torch.profiler trace and the vis panels.
+     Its launches join the kernels line's counts.
 
 Prints a JSON line of per-kernel numbers before the last line (K4's and
 K5's bfloat16 routes in the microbench in rows of their own, ``*_bf16``,
@@ -125,7 +151,9 @@ adds, before the JSON lines, the device time by kernel name
 (torch.profiler; the bfloat16 conv block's, K4's, on a line of its own),
 the launch count and the device's busy share of one forward in each eval
 mode, of one evaluate over the eval phase's six pairs in each mode, and
-of one training step at 256x512 batch 3, in float32 and in bfloat16.
+of one training step at 256x512 batch 3, in float32 and in bfloat16; and
+the same for AcfNet's forward, train step and eval step, with the device
+time of its learned upsample's and ConfHead's convolutions named.
 """
 
 import contextlib
@@ -1115,13 +1143,18 @@ def train_phase(smi, name="PSMNet/scene_flow_f32"):
         bf16_counts = kernels.bf16_launch_counts()
         records = read_metrics(work)
         _, meta = CheckpointManager(work).restore()
+        vis = sorted(os.listdir(os.path.join(work, "vis")))
+    # the vis hook drew the eval set's samples after the epoch
+    assert vis == [f"sample_{i:03d}" for i in range(TRAIN_EVAL)], vis
     n_params = sum(p.numel() for p in state.module.parameters())
     assert all(p.dtype == torch.float32 for p in state.module.parameters())
-    # the steps, and one eval batch at the end (its 13 trunk units on K1 in
-    # float32, on K4 in bfloat16; K2 3: plain mode)
-    k4 = 13 * TRAIN_STEPS + (13 if bf16 else 0)
-    assert counts == {"fused_conv3d": 0 if bf16 else 13,
-                      "fused_soft_argmin": 3 * TRAIN_STEPS + 3,
+    # the steps, then one eval batch and the vis hook's TRAIN_EVAL batch-1
+    # forwards at the end (their 13 trunk units each on K1 in float32, on
+    # K4 in bfloat16; K2 3 each: plain mode)
+    forwards = 1 + TRAIN_EVAL
+    k4 = 13 * TRAIN_STEPS + (13 * forwards if bf16 else 0)
+    assert counts == {"fused_conv3d": 0 if bf16 else 13 * forwards,
+                      "fused_soft_argmin": 3 * TRAIN_STEPS + 3 * forwards,
                       "fused_soft_argmin_backward": 3 * TRAIN_STEPS,
                       "fused_upsample_soft_argmin": 0,
                       "conv3d_packed_s1": k4,
@@ -1149,7 +1182,8 @@ def train_phase(smi, name="PSMNet/scene_flow_f32"):
           f"GiB; launches per step {per_step}; checkpoint resumes at {meta}; "
           f"eval of {TRAIN_EVAL} samples at {PADDED} logged: disp_0 EPE "
           f"{evals[0]['eval/disp_0/epe']:.4f} px, 3px "
-          f"{evals[0]['eval/disp_0/3px']:.4f} %; {smi}")
+          f"{evals[0]['eval/disp_0/3px']:.4f} %; vis panels of "
+          f"{TRAIN_EVAL} samples; {smi}")
     return counts
 
 
@@ -1572,16 +1606,18 @@ def bench_phase(smi):
         torch.cuda.empty_cache()
 
 
-def device_profile(label, fn, reps=2, top=14, convs=0):
+def device_profile(label, fn, reps=2, top=14, convs=0, named=None):
     """Device time of one call of ``fn`` by kernel name (torch.profiler),
     after one call outside the profile; with ``convs``, also the ``convs``
     convolution ops (forward or backward, by input shapes) that take the
-    most device time, their kernels included."""
+    most device time, their kernels included; with ``named`` ({label:
+    weight shape}), the device time of the convolution ops (forward and
+    backward, their kernels included) of each weight shape."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=bool(convs)) as prof:
+                 record_shapes=bool(convs or named)) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -1603,12 +1639,20 @@ def device_profile(label, fn, reps=2, top=14, convs=0):
               f"{sum(r[2] for r in wgmma)} launches")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         print(f"  {ms:8.3f} ms {count:4d}x  {key[:90]}")
-    if convs:
-        ops = [e for e in prof.key_averages(group_by_input_shape=True)
-               if e.key in ("aten::convolution", "aten::convolution_backward")]
-        for e in sorted(ops, key=lambda e: -e.device_time_total)[:convs]:
-            print(f"  {e.device_time_total / 1e3 / reps:8.3f} ms "
-                  f"{e.count // reps:4d}x  {e.key} {e.input_shapes[:2]}")
+    ops = [e for e in prof.key_averages(group_by_input_shape=True)
+           if e.key in ("aten::convolution", "aten::convolution_backward")]
+    for e in sorted(ops, key=lambda e: -e.device_time_total)[:convs]:
+        print(f"  {e.device_time_total / 1e3 / reps:8.3f} ms "
+              f"{e.count // reps:4d}x  {e.key} {e.input_shapes[:3]}")
+    for name, weight in (named or {}).items():
+        # the weight is the second input of a forward, the third of a
+        # backward (grad_output, input, weight, ...)
+        hits = [e for e in ops if weight in [list(s) for s in
+                                             e.input_shapes[1:3]]]
+        ms = sum(e.device_time_total for e in hits) / 1e3 / reps
+        print(f"  {name}: {ms:.3f} ms of device time, "
+              f"{sum(e.count for e in hits) // reps} ops "
+              f"({', '.join(sorted({e.key for e in hits}))})")
 
 
 def profile_phase(models, name="PSMNet/scene_flow_f32"):
@@ -2040,6 +2084,480 @@ def bf16_small_phase(smi):
           f"gradients and parameters float32; {smi}")
 
 
+# AcfNet (adaptive and uniform) at full width: max_disp 192, trunk in_planes
+# 64, cmn in_planes 192. Its 13 trunk units are PSMNet's, the 7 outside the
+# hourglasses with a conv bias folded into the kernel's shift (ConvUnit_0
+# 64->32, ConvUnit_1-6 32->32, all at D/4 x H/4 x W/4 = 48x96x312 of a
+# 384x1248 frame); the three classified costs are upsampled by learned
+# transposed convs to full-resolution volumes that K2 regresses.
+ACF_CONFIG = "AcfNet/scene_flow_adaptive"
+ACF_EVAL_CONFIG = "AcfNet/kitti_2015_adaptive"
+BIAS_SHAPES = ((64, 32, (48, 96, 312)), (32, 32, (48, 96, 312)))
+ACF_SMALL = {"model.max_disp": 32,
+             "model.cost_processor.cost_computation.max_disp": 8,
+             "model.cost_processor.cost_aggregator.max_disp": 32,
+             "model.disp_predictor.max_disp": 32,
+             "model.losses.l1_loss.max_disp": 32,
+             "model.losses.focal_loss.max_disp": 32,
+             "model.cmn.in_planes": 32,
+             "model.cmn.losses.nll_loss.max_disp": 32,
+             "data.batch_size_per_device": 2}
+# the sparsification pass of tools/test.py: one batch-1 forward a sample
+ACF_SPARS = len(EVAL_SIZES)
+
+
+def check_bias_epilogue(gen):
+    """A biased trunk unit in eval at AcfNet's two biased shapes: K1
+    (float32) and K4's bfloat16 route on the unit's kept operands, whose
+    shift folds the conv bias (conv_bias * inv + bn_bias - mean * inv),
+    against the plain version on the same folded operands (CONV_RTOL;
+    BF16_STEP besides in bfloat16) and against the unfused conv + bias,
+    BN and ReLU in float32; after an in-place change of the bias alone the
+    kept operands are built again (one build) and give the new result.
+    Returns {dtype: largest error against the plain version}."""
+    from densematchingbenchmark_tpu_torch.models.layers import ConvUnit
+    from densematchingbenchmark_tpu_torch.ops import cuda as kernels
+    from densematchingbenchmark_tpu_torch.ops.cuda import (
+        conv3d_packed_s1_plain, conv3d_plain)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
+        for cin, cout, dhw in BIAS_SHAPES:
+            unit = ConvUnit(cin, cout, 3, 1, 1, dims=3, bias=True,
+                            dtype=dtype).cuda().eval()
+            conv, bn = unit.Conv_0, unit.BatchNorm_0
+            with torch.no_grad():
+                conv.weight.copy_(torch.randn(
+                    conv.weight.shape, device="cuda", generator=gen)
+                    * (27 * cin) ** -0.5)
+                conv.bias.copy_(torch.randn(cout, device="cuda",
+                                            generator=gen) * 0.5)
+                bn.weight.copy_(torch.rand(cout, device="cuda",
+                                           generator=gen) * 0.4 + 0.7)
+                bn.bias.copy_(torch.randn(cout, device="cuda",
+                                          generator=gen) * 0.1)
+                bn.running_mean.copy_(torch.randn(cout, device="cuda",
+                                                  generator=gen) * 0.1)
+                bn.running_var.copy_(torch.rand(cout, device="cuda",
+                                                generator=gen) * 0.5 + 0.9)
+            x = torch.randn((1, *dhw, cin), device="cuda",
+                            generator=gen).to(dtype)
+            for change in (False, True):
+                if change:                      # the bias alone
+                    with torch.no_grad():
+                        conv.bias.add_(0.25)
+                builds = ConvUnit.operand_builds
+                kernels.reset_launch_counts()
+                with torch.no_grad():
+                    got = unit(x)
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+                bf16 = kernels.bf16_launch_counts()["conv3d_packed_s1"]
+                if f32:
+                    assert counts["fused_conv3d"] == 1 and bf16 == 0, counts
+                else:
+                    assert counts["conv3d_packed_s1"] == bf16 == 1, counts
+                assert ConvUnit.operand_builds == builds + 1
+                with torch.no_grad():
+                    inv = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+                    shift = conv.bias * inv + bn.bias - bn.running_mean * inv
+                    kernel = conv.weight.permute(2, 3, 4, 1, 0).to(dtype)
+                    want = (conv3d_plain(x, kernel, inv, shift, True) if f32
+                            else conv3d_packed_s1_plain(x, kernel, inv,
+                                                        shift, 1, True))
+                    unfused = torch.relu(F.batch_norm(
+                        F.conv3d(x.float().movedim(-1, 1),
+                                 conv.weight.to(dtype).float(), conv.bias,
+                                 padding=1), bn.running_mean,
+                        bn.running_var, bn.weight, bn.bias, False, 0.0,
+                        bn.eps)).movedim(1, -1)
+                top = want.float().abs().max().item()
+                err = (got.float() - want.float()).abs().max().item()
+                tol = (CONV_RTOL if f32 else CONV_RTOL + BF16_STEP) * top
+                assert err <= tol, (dtype, cin, cout, change, err, tol)
+                err_unfused = (got.float() - unfused).abs().max().item()
+                assert err_unfused <= tol, (dtype, cin, cout, err_unfused)
+                errs[dtype] = max(errs.get(dtype, 0.0), err)
+            print(f"bias epilogue {'K1' if f32 else 'K4 bf16'} {cin}->{cout} "
+                  f"{'x'.join(map(str, dhw))}: conv bias folded into the "
+                  f"shift, max_abs_err {err:.3g} against the plain version "
+                  f"(tolerance {tol:.3g}), {err_unfused:.3g} against the "
+                  f"unfused conv + bias, BN, ReLU; after an in-place change "
+                  f"of the bias one operand build and the new result")
+            del unit, x, got, want, unfused
+    torch.cuda.empty_cache()
+    return errs
+
+
+def padded_input(model, pair):
+    """One pair through inference_stereo's preprocessing, on the card."""
+    from densematchingbenchmark_tpu_torch.data import transforms
+    data = model.cfg["data"]
+    sample = transforms.normalize(transforms.pad_to(
+        {k: pair[k].astype(np.float32) for k in pair}, PADDED),
+        data["mean"], data["std"])
+    return [torch.from_numpy(np.ascontiguousarray(sample[k]))[None].cuda()
+            for k in ("leftImage", "rightImage")]
+
+
+def acf_forward(name, pairs):
+    """init_model(name, seed 0) + inference_stereo over ``pairs`` padded
+    to PADDED, with the launches asserted (per forward K1 13 in float32 or
+    K4's bfloat16 route 13, K2 3, K3 none); confidences in [0, 1] and
+    variances 1 * (1 - conf) + 1 from one forward; the forward's ms.
+    Returns (model, disparities, counts, bf16 counts, ms, peak GiB, the
+    share of each confidence map strictly inside (0, 1))."""
+    from densematchingbenchmark_tpu_torch.apis import (inference_stereo,
+                                                       init_model)
+    from densematchingbenchmark_tpu_torch.ops import cuda as kernels
+    model = init_model(name, seed=0)
+    f32 = model.cfg["model"]["dtype"] == "float32"
+    n = len(pairs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    results = inference_stereo(model, pairs, pad_to_shape=PADDED)
+    torch.cuda.synchronize()
+    counts, bf16 = kernels.launch_counts(), kernels.bf16_launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert counts == {"fused_conv3d": 13 * n if f32 else 0,
+                      "fused_soft_argmin": 3 * n,
+                      "fused_soft_argmin_backward": 0,
+                      "fused_upsample_soft_argmin": 0,
+                      "conv3d_packed_s1": 0 if f32 else 13 * n,
+                      "conv3d_packed_s1_v2": 0}, counts
+    assert bf16["conv3d_packed_s1"] == (0 if f32 else 13 * n), bf16
+    disps = [r["disps"] for r in results]
+    for ds in disps:
+        assert len(ds) == 3
+        for d in ds:
+            assert d.shape == (1, *IMAGE, 1) and np.isfinite(d).all()
+            # an expectation over the samples 0..191, float32 sums
+            assert d.min() >= -1e-3 and d.max() <= 191 + 1e-3, (d.min(),
+                                                                 d.max())
+    left, right = padded_input(model, pairs[0])
+    out = model.forward(left, right)
+    inside = []
+    for c, v in zip(out["confs"], out["variances"]):
+        assert c.shape == (1, *PADDED, 1) and c.dtype == torch.float32
+        # sigmoid in float32: 0 and 1 only where it saturates
+        assert bool(((c >= 0) & (c <= 1)).all()), (c.min(), c.max())
+        assert torch.equal(v, 1.0 * (1.0 - c) + 1.0)
+        inside.append(((c > 0) & (c < 1)).float().mean().item())
+    ms = time_ms(lambda: model.forward(left, right), FORWARD_REPS)
+    return model, disps, counts, bf16, ms, peak, inside
+
+
+def acf_slice_phase(smi):
+    """AcfNet adaptive inference at full width in float32 and bfloat16 on
+    three random 375x1242 pairs, the bfloat16-vs-float32 gap on the same
+    weights, then a small model on the card against the CPU. Returns the
+    launch counts of each dtype's run."""
+    from densematchingbenchmark_tpu_torch.apis import (StereoModel,
+                                                       inference_stereo,
+                                                       init_model)
+    rng = np.random.RandomState(3)
+    pairs = random_pairs(rng, PAIRS, IMAGE)
+    runs = {}
+    for suffix in ("_f32", "_bf16"):
+        model, disps, counts, bf16, ms, peak, inside = acf_forward(
+            ACF_CONFIG + suffix, pairs)
+        runs[suffix] = (disps, counts)
+        n_params = sum(p.numel() for p in model.module.parameters())
+        print(f"acfnet {ACF_CONFIG + suffix} ({n_params / 1e6:.3f} M "
+              f"params): inference_stereo over {PAIRS} pairs {IMAGE} padded "
+              f"to {PADDED}, disparities finite in [0, 191], confidences in "
+              f"[0, 1] ({', '.join(f'{100 * x:.2f}' for x in inside)} % of "
+              f"the pixels strictly inside); launches {counts} (bf16 route "
+              f"{bf16}); forward "
+              f"{ms:.2f} ms (median of {FORWARD_REPS}, CUDA events), peak "
+              f"{peak:.2f} GiB at batch 1; {smi}")
+        del model
+        torch.cuda.empty_cache()
+    gaps = [float(np.abs(a - b).mean()) for da, db in zip(
+        runs["_f32"][0], runs["_bf16"][0]) for a, b in zip(da, db)]
+    print(f"acfnet: bf16 vs float32 on the same weights (seed 0): mean "
+          f"|gap| {min(gaps):.4f}-{max(gaps):.4f} px over the pairs' three "
+          f"disparities (PSMNet's measured 1.21-1.96, BF16_GAP_ATOL "
+          f"{BF16_GAP_ATOL})")
+    assert np.isfinite(gaps).all()
+
+    # a small model on the card against the same weights on the CPU
+    small = random_pairs(rng, 1, SMALL_IMAGE)
+    pad = tuple(-(-s // 32) * 32 for s in SMALL_IMAGE)
+    report = []
+    for suffix, atol in (("_f32", CPU_ATOL), ("_bf16", BF16_CPU_ATOL)):
+        cpu = init_model(ACF_CONFIG + suffix, device="cpu", seed=4,
+                         **ACF_SMALL)
+        damp_bn(cpu.module, 4)
+        card = StereoModel(cpu.cfg, copy.deepcopy(cpu.module).cuda(),
+                           torch.device("cuda"))
+        want = inference_stereo(cpu, small, pad_to_shape=pad)[0]["disps"]
+        got = inference_stereo(card, small, pad_to_shape=pad)[0]["disps"]
+        if suffix == "_f32":
+            err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+        else:
+            err = max(float(np.abs(g - w).mean()) for g, w in zip(got, want))
+        assert err <= atol, (suffix, err)
+        report.append(f"{suffix[1:]} {err:.4g} px "
+                      f"({'max' if suffix == '_f32' else 'mean'}, "
+                      f"tolerance {atol})")
+    print(f"acfnet small model ({ACF_SMALL['model.max_disp']} disps, "
+          f"{SMALL_IMAGE}), card vs CPU plain versions: " + ", ".join(report))
+    return runs["_f32"][1], runs["_bf16"][1]
+
+
+def acf_eval_phase(smi, root, ann):
+    """tools/test.main on AcfNet/kitti_2015_adaptive_f32 over the
+    KITTI-layout pairs at batch 4 and at batch 1 (metrics within the eval
+    tolerances of each other), then on _bf16 at batch 4 (each EPE within
+    BF16_GAP_ATOL of float32's): the metric table, then the sparsification
+    pass (a batch-1 forward a sample) with its est / oracle / random rows
+    printed and finite; launches asserted. The eval step's ms a sample and
+    its peak at batch 4 and at batch 1. Returns the float32 and bfloat16
+    launch counts."""
+    from densematchingbenchmark_tpu_torch.apis import init_model
+    from densematchingbenchmark_tpu_torch.configs import get_config
+    from densematchingbenchmark_tpu_torch.data import collate
+    from densematchingbenchmark_tpu_torch.evaluation import eval_loop
+    from densematchingbenchmark_tpu_torch.ops import cuda as kernels
+    from densematchingbenchmark_tpu_torch.tools import test as test_tool
+    launches = {"_f32": None, "_bf16": None}
+    by_run = {}
+    for suffix, batch in (("_f32", EVAL_BATCH), ("_f32", 1),
+                          ("_bf16", EVAL_BATCH)):
+        name = ACF_EVAL_CONFIG + suffix
+        batches = -(-len(EVAL_SIZES) // batch)
+        over = ["data.test.use_right_disp=True",
+                f"data.test.input_shape={PADDED}",
+                f"model.eval.batch_size={batch}"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            results, n = test_tool.main([
+                "--config", name, "--work-dir", os.path.join(root, "acf"),
+                "--data-root", root, "--annfile", ann, "--override", *over])
+        torch.cuda.synchronize()
+        counts, bf16 = kernels.launch_counts(), kernels.bf16_launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        trunk = 13 * (batches + ACF_SPARS)
+        f32 = suffix == "_f32"
+        assert n == len(EVAL_SIZES) and counts == {
+            "fused_conv3d": trunk if f32 else 0,
+            "fused_soft_argmin": 3 * (batches + ACF_SPARS),
+            "fused_soft_argmin_backward": 0,
+            "fused_upsample_soft_argmin": 0,
+            "conv3d_packed_s1": 0 if f32 else trunk,
+            "conv3d_packed_s1_v2": 0}, (n, counts)
+        assert bf16["conv3d_packed_s1"] == (0 if f32 else trunk), bf16
+        launches[suffix] = ({k: launches[suffix][k] + v
+                             for k, v in counts.items()}
+                            if launches[suffix] else counts)
+        rows = [line for line in text.getvalue().splitlines()
+                if line.split()[:1] in (["est"], ["oracle"], ["random"])]
+        assert f"sparsification ({n} samples" in text.getvalue()
+        assert [r.split()[0] for r in rows] == ["est", "oracle", "random"]
+        assert all(len(r.split()) == 12 for r in rows), rows
+        assert all(np.isfinite(v) for v in results.values()), results
+        by_run[suffix, batch] = results
+        print(f"eval {name} batch {batch}: {n} samples padded to {PADDED}, "
+              f"{batches} batches + the sparsification pass ({ACF_SPARS} "
+              f"forwards); launches {counts}; disp_0 EPE "
+              f"{results['disp_0/epe']:.4f} px, 3px "
+              f"{results['disp_0/3px']:.4f} %; peak {peak:.2f} GiB "
+              f"(the tool's run); {smi}")
+        for r in text.getvalue().splitlines()[-4:]:
+            print("  " + r)
+    metric = {k: v for k, v in by_run["_f32", EVAL_BATCH].items()
+              if not k.startswith("sparsification/")}
+    epe, px = compare_metrics(metric, {
+        k: by_run["_f32", 1][k] for k in metric}, "acfnet batch 4 vs 1")
+    sp = max(abs(by_run["_f32", EVAL_BATCH][k] - by_run["_f32", 1][k])
+             for k in by_run["_f32", 1] if k.startswith("sparsification/"))
+    epe_gap = max(abs(by_run["_bf16", EVAL_BATCH][k] - metric[k])
+                  for k in metric if k.endswith("epe"))
+    assert epe_gap <= BF16_GAP_ATOL, epe_gap
+    print(f"eval {ACF_EVAL_CONFIG}: batch 4 against batch 1 EPE {epe:.3g} "
+          f"px, n-px {px:.3g} points (tolerances {EVAL_EPE_ATOL}, "
+          f"{EVAL_PX_ATOL}); sparsification rows {sp:.3g} apart (the same "
+          f"batch-1 pass); bf16 EPE within {epe_gap:.4f} px of float32's")
+
+    # the eval step (forward + metrics, no confidence fetched) per sample
+    # and its peak, at batch 4 and 1
+    for suffix in ("_f32", "_bf16"):
+        cfg = get_config(ACF_EVAL_CONFIG + suffix)
+        model = init_model(cfg, seed=0)
+        ds = eval_dataset(cfg, root, ann)
+        ecfg, ids = cfg["model"]["eval"], cfg["eval_disparity_id"]
+        step = eval_loop.make_eval_metrics_step(
+            model.module, ecfg["lower_bound"], ecfg["upper_bound"], ids,
+            ecfg["eval_occlusion"])
+        b4 = eval_loop.to_device(collate([ds[i] for i in range(
+            EVAL_BATCH)]), model.device)
+        b1 = {k: v[:1] for k, v in b4.items()}
+        peaks = {}
+        for b, bt in ((EVAL_BATCH, b4), (1, b1)):
+            step(bt)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step(bt)
+            torch.cuda.synchronize()
+            peaks[b] = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms4 = time_ms(lambda: step(b4), 3) / EVAL_BATCH
+        ms1 = time_ms(lambda: step(b1), 3)
+        print(f"eval step {ACF_EVAL_CONFIG + suffix}: {ms4:.2f} ms a sample "
+              f"at batch {EVAL_BATCH}, {ms1:.2f} at batch 1 (device, CUDA "
+              f"events); peak {peaks[EVAL_BATCH]:.2f} GiB at batch "
+              f"{EVAL_BATCH}, {peaks[1]:.2f} at batch 1; {smi}")
+        if "--profile" in sys.argv[1:] and suffix == "_f32":
+            device_profile(f"{ACF_EVAL_CONFIG + suffix} eval step batch "
+                           f"{EVAL_BATCH}", lambda: step(b4),
+                           named=ACF_NAMED)
+        del model, step, b4, b1
+        torch.cuda.empty_cache()
+    return launches["_f32"], launches["_bf16"]
+
+
+def acf_train_phase(smi, name, steps):
+    """train_matcher on ``name`` at full width, its 256x512 crop at batch
+    3, for ``steps`` steps: launches asserted (a step K4 13, K2 3 forward
+    and 3 backward; the bfloat16 route in bfloat16), the loss and every
+    loss entry finite, the step's ms (median of steps 2 on, host clock)
+    and the peak. Returns the launch counts."""
+    from densematchingbenchmark_tpu_torch.configs import get_config
+    from densematchingbenchmark_tpu_torch.data import (SyntheticStereoDataset,
+                                                       transforms)
+    from densematchingbenchmark_tpu_torch.ops import cuda as kernels
+    from densematchingbenchmark_tpu_torch.trainer import train_matcher
+    from densematchingbenchmark_tpu_torch.trainer.loop import read_metrics
+    cfg = get_config(name)
+    bf16 = cfg["model"]["dtype"] == "bfloat16"
+    data = cfg["data"]
+    crop = data["train"]["input_shape"]
+    ds = SyntheticStereoDataset(
+        length=TRAIN_BATCH * (steps + 1), height=crop[0] + 32,
+        width=crop[1] + 64, max_disp=cfg["model"]["max_disp"],
+        transform=transforms.make_train_transform(crop, data["mean"],
+                                                  data["std"]))
+    with tempfile.TemporaryDirectory() as work:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        train_matcher(cfg, work, train_dataset=ds, max_steps=steps,
+                      log_interval=1)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        bf16_counts = kernels.bf16_launch_counts()
+        records = [r for r in read_metrics(work) if "train/loss" in r]
+    assert counts == {"fused_conv3d": 0,
+                      "fused_soft_argmin": 3 * steps,
+                      "fused_soft_argmin_backward": 3 * steps,
+                      "fused_upsample_soft_argmin": 0,
+                      "conv3d_packed_s1": 13 * steps,
+                      "conv3d_packed_s1_v2": 0}, counts
+    assert bf16_counts["conv3d_packed_s1"] == (13 * steps if bf16 else 0)
+    adaptive = "cmn" in cfg["model"]
+    keys = ["loss"] + [f"{k}_lvl{i}" for i in range(3) for k in (
+        ("l1_loss", "stereo_focal_loss", "conf_loss") if adaptive
+        else ("l1_loss", "stereo_focal_loss"))]
+    assert [r["step"] for r in records] == list(range(1, steps + 1))
+    for r in records:
+        for k in keys:
+            assert np.isfinite(r[f"train/{k}"]), (k, r)
+    step_ms = float(np.median([r["train/step_ms"]
+                               for r in records[1:] or records]))
+    which = f"median of steps 2-{steps}" if steps > 1 else "step 1"
+    peak = max(r["train/peak_mem_gib"] for r in records)
+    first = records[0]
+    print(f"train {name}: {TRAIN_BATCH}x{crop[0]}x{crop[1]}, {steps} steps: "
+          f"losses {[round(r['train/loss'], 4) for r in records]}; step 1 "
+          + ", ".join(f"{k} {first['train/' + k]:.4f}" for k in keys[1:])
+          + f"; step {step_ms:.2f} ms ({which}, host clock), peak "
+          f"{peak:.2f} GiB; launches {counts} (bf16 route "
+          f"{bf16_counts}); {smi}")
+    return counts
+
+
+def acf_profile_cli_phase():
+    """tools/train.main on AcfNet/scene_flow_uniform_f32 with --synthetic
+    at 256x512 (batch 1, three samples: one epoch of 3 steps, then the vis
+    hook's two synthetic samples) and --profile 2:3: the torch.profiler
+    trace of steps 2-3 in <work-dir>/profile, the vis hook's panels.
+    Returns the launch counts."""
+    from densematchingbenchmark_tpu_torch.ops import cuda as kernels
+    from densematchingbenchmark_tpu_torch.tools import train as train_tool
+    with tempfile.TemporaryDirectory() as work:
+        kernels.reset_launch_counts()
+        train_tool.main(["--config", "AcfNet/scene_flow_uniform_f32",
+                         "--work-dir", work, "--synthetic",
+                         "--synthetic-shape", "256", "512",
+                         "--synthetic-length", "3", "--max-steps", "3",
+                         "--log-interval", "1", "--profile", "2:3"])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        traces = os.listdir(os.path.join(work, "profile"))
+        size = os.path.getsize(os.path.join(work, "profile", traces[0]))
+        vis = sorted(os.listdir(os.path.join(work, "vis")))
+    assert traces == ["steps_2_3.pt.trace.json"], traces
+    assert vis == ["sample_000", "sample_001"], vis
+    # 3 steps, then the vis hook's 2 eval forwards (float32: K1)
+    assert counts == {"fused_conv3d": 26, "fused_soft_argmin": 9 + 6,
+                      "fused_soft_argmin_backward": 9,
+                      "fused_upsample_soft_argmin": 0,
+                      "conv3d_packed_s1": 39, "conv3d_packed_s1_v2": 0}, counts
+    print(f"tools/train.py --profile 2:3 on AcfNet/scene_flow_uniform_f32 "
+          f"(--synthetic 256x512, batch 1, 3 steps): trace {traces[0]} "
+          f"({size / 2 ** 20:.1f} MiB), vis panels of 2 samples; launches "
+          f"{counts}")
+    return counts
+
+
+# device-time rows named in the AcfNet profiles: the convolution ops
+# (forward and backward, their kernels included) of these weight shapes
+ACF_NAMED = {
+    "learned upsample (ConvTranspose3d 1->1 k8 s4)": [1, 1, 8, 8, 8],
+    "ConfHead 3x3 conv (192->64)": [64, 192, 3, 3],
+    "ConfHead 1x1 conv (64->1)": [1, 64, 1, 1],
+}
+
+
+def acf_profile_phase():
+    """The AcfNet adaptive forward at 384x1248 batch 1 and a train step at
+    256x512 batch 3, in float32 and bfloat16, by kernel, with the learned
+    upsample's and ConfHead's convolutions named."""
+    from densematchingbenchmark_tpu_torch.apis import init_model
+    from densematchingbenchmark_tpu_torch.configs import get_config
+    from densematchingbenchmark_tpu_torch.losses import make_loss_evaluator
+    from densematchingbenchmark_tpu_torch.models import build_model
+    from densematchingbenchmark_tpu_torch.trainer import (TrainState,
+                                                          build_optimizer,
+                                                          make_train_step)
+    x = torch.randn((1, *PADDED, 3), device="cuda")
+    for suffix in ("_f32", "_bf16"):
+        name = ACF_CONFIG + suffix
+        model = init_model(name, seed=0)
+        device_profile(f"{name} forward 1x{PADDED[0]}x{PADDED[1]}",
+                       lambda: model.forward(x, x), named=ACF_NAMED)
+        del model
+        cfg = get_config(name)
+        crop = cfg["data"]["train"]["input_shape"]
+        batch = small_batch(cfg, crop, (crop[0] + 32, crop[1] + 64), 192,
+                            "cuda")
+        module = build_model(cfg, torch.Generator().manual_seed(0)).cuda()
+        state = TrainState.create(module, build_optimizer(cfg, module,
+                                                          10)[0], 1)
+        step = make_train_step(make_loss_evaluator(
+            cfg["model"]["losses"],
+            cmn_losses_cfg=cfg["model"]["cmn"]["losses"]))
+        device_profile(f"{name} train step {TRAIN_BATCH}x{crop[0]}x"
+                       f"{crop[1]}", lambda: step(state, batch), top=20,
+                       named=ACF_NAMED)
+        del module, state, batch
+        torch.cuda.empty_cache()
+
+
 def main():
     smi = device_phase()
     build_phase()
@@ -2054,6 +2572,11 @@ def main():
     stats["conv3d_packed_s1_v2"], bf16_check = check_packed_v2("cuda", gen)
     torch.cuda.empty_cache()
     bf16_trunk = check_bf16_trunk(gen, smi)
+    # K1 and K4's bfloat16 route with AcfNet's conv bias in the shift
+    bias_errs = check_bias_epilogue(gen)
+    stats["fused_conv3d"]["bias_epilogue_max_abs_err"] = \
+        bias_errs[torch.float32]
+    bf16_trunk["bias_epilogue_max_abs_err"] = bias_errs[torch.bfloat16]
     # K2's backward on the bfloat16 training cost, beside its float32 row
     stats["fused_soft_argmin_backward"].update(check_bf16_regression(gen))
     torch.cuda.empty_cache()
@@ -2092,6 +2615,31 @@ def main():
     same_weights_phase()
     overfit_phase()
     bf16_small_phase(smi)
+    torch.cuda.empty_cache()
+
+    # AcfNet: inference, evaluation with sparsification, training, in
+    # float32 and bfloat16; its launches join each dtype's counts
+    acf_f32, acf_bf16 = acf_slice_phase(smi)
+    if "--profile" in sys.argv[1:]:
+        acf_profile_phase()
+    torch.cuda.empty_cache()
+    acf_runs = [(acf_f32, launches), (acf_bf16, bf16_launches)]
+    with tempfile.TemporaryDirectory() as root:
+        ann, _ = write_kitti_dataset(root)
+        f32_eval, bf16_eval = acf_eval_phase(smi, root, ann)
+        acf_runs += [(f32_eval, launches), (bf16_eval, bf16_launches)]
+    torch.cuda.empty_cache()
+    for name, steps, total in ((ACF_CONFIG + "_f32", TRAIN_STEPS, launches),
+                               (ACF_CONFIG + "_bf16", TRAIN_STEPS,
+                                bf16_launches),
+                               ("AcfNet/scene_flow_uniform_f32", 1,
+                                launches)):
+        acf_runs.append((acf_train_phase(smi, name, steps), total))
+        torch.cuda.empty_cache()
+    acf_runs.append((acf_profile_cli_phase(), launches))
+    for counts, total in acf_runs:
+        for name, n in counts.items():
+            total[name] += n
     # the bfloat16 paths ran K2 and K3 on bfloat16 costs, K1 never
     assert bf16_launches["fused_conv3d"] == 0, bf16_launches
     for name in ("fused_soft_argmin", "fused_soft_argmin_backward",

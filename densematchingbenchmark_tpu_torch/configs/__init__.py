@@ -12,12 +12,18 @@ import os
 
 import torch
 
-from . import psmnet
+from . import acfnet, psmnet
 
 _FAMILIES = {
     "PSMNet/scene_flow": psmnet.scene_flow,
     "PSMNet/kitti_2015": psmnet.kitti_2015,
     "PSMNet/kitti_2012": psmnet.kitti_2012,
+    "AcfNet/scene_flow_uniform": acfnet.scene_flow_uniform,
+    "AcfNet/scene_flow_adaptive": acfnet.scene_flow_adaptive,
+    "AcfNet/kitti_2015_uniform": acfnet.kitti_2015_uniform,
+    "AcfNet/kitti_2015_adaptive": acfnet.kitti_2015_adaptive,
+    "AcfNet/kitti_2012_uniform": acfnet.kitti_2012_uniform,
+    "AcfNet/kitti_2012_adaptive": acfnet.kitti_2012_adaptive,
 }
 _SUFFIXES = {"_bf16": "bfloat16", "_f32": "float32"}
 

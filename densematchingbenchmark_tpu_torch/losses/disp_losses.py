@@ -1,14 +1,15 @@
 """Disparity-map losses.
 
-Counterpart of densematchingbenchmark_tpu/losses/disp_losses.py:19-37, the
-smooth-L1 loss of the PSMNet configs: multi-scale, it takes the list of
-predictions (best first) and the full-resolution GT, rescales the GT per
-level and returns a dict of weighted per-level scalars. The GERF,
-confidence-NLL, focal and quantile losses arrive with their families
-(losses/builder.py names their ROADMAP.md items).
+Counterpart of densematchingbenchmark_tpu/losses/disp_losses.py:19-67,
+the smooth-L1 loss of the PSMNet and AcfNet configs and AcfNet's
+confidence NLL loss: multi-scale, each takes the list of predictions (best
+first) and the full-resolution GT, rescales the GT per level and returns a
+dict of weighted per-level scalars. The GERF and quantile losses arrive
+with their families (losses/builder.py names their ROADMAP.md items).
 """
 
 import torch
+import torch.nn.functional as F
 
 from .common import masked_mean, rescale_gt, valid_mask
 
@@ -33,3 +34,16 @@ def smooth_l1_loss(est_disps, gt_disp, max_disp, start_disp=0, weights=None,
         return masked_mean(huber, mask)
     return _per_level(est_disps, weights, "l1_loss", level)
 
+
+
+def conf_nll_loss(est_conf_costs, gt_disp, max_disp, start_disp=0,
+                  weights=None, sparse=False):
+    """-log(sigmoid(conf_cost)) over the valid GT pixels per level ->
+    {'conf_loss_lvl{i}'}. Takes the confidence network's pre-sigmoid costs
+    [B, H, W, 1]; softplus(-x) is JAX's logaddexp(0, -x)."""
+    def level(conf_cost):
+        sgt, scale = rescale_gt(gt_disp, conf_cost.shape[1],
+                                conf_cost.shape[2], sparse)
+        mask = valid_mask(sgt, max_disp / scale, start_disp)
+        return masked_mean(F.softplus(-conf_cost), mask)
+    return _per_level(est_conf_costs, weights, "conf_loss", level)

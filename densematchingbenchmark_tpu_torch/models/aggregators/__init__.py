@@ -1,3 +1,4 @@
+from .acfnet import AcfAggregator
 from .psmnet import PSMAggregator
 
-__all__ = ["PSMAggregator"]
+__all__ = ["AcfAggregator", "PSMAggregator"]

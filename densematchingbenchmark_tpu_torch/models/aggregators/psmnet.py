@@ -25,15 +25,17 @@ from ...ops.interpolate import upsample_3d
 
 class PSMAggregator(nn.Module):
     def __init__(self, in_planes=64, max_disp=192, batch_norm=True,
-                 return_low_res=False, dtype=torch.float32):
+                 return_low_res=False, dtype=torch.float32, bias=False):
         super().__init__()
         self.max_disp = max_disp
         self.return_low_res = return_low_res
         self.dtype = dtype
 
+        # ``bias``: a conv bias on the 7 units outside the hourglasses
+        # (AcfNet's aggregator keeps it; PSMNet's has none)
         def unit(cin, relu=True):
             return ConvUnit(cin, 32, 3, 1, 1, dims=3, batch_norm=batch_norm,
-                            relu=relu, bias=False, dtype=dtype)
+                            relu=relu, bias=bias, dtype=dtype)
 
         self.ConvUnit_0 = unit(in_planes)
         self.ConvUnit_1 = unit(32)
@@ -52,8 +54,9 @@ class PSMAggregator(nn.Module):
         weight = getattr(self, f"Conv_{i}").weight.to(self.dtype)
         return channels_last(F.conv3d(channels_first(x), weight, padding=1))
 
-    def forward(self, raw_cost):
-        b, d, h, w, _ = raw_cost.shape
+    def trunk(self, raw_cost):
+        """The three classified costs (cost1, cost2, cost3) at the raw
+        volume's resolution, [B, D/4, H/4, W/4, 1] each."""
         cost0 = self.ConvUnit_1(self.ConvUnit_0(raw_cost))
         cost0 = self.ConvUnit_3(self.ConvUnit_2(cost0)) + cost0
 
@@ -67,6 +70,11 @@ class PSMAggregator(nn.Module):
         cost1 = self._classify(out1, 0)
         cost2 = self._classify(out2, 1) + cost1
         cost3 = self._classify(out3, 2) + cost2
+        return cost1, cost2, cost3
+
+    def forward(self, raw_cost):
+        b, d, h, w, _ = raw_cost.shape
+        cost1, cost2, cost3 = self.trunk(raw_cost)
         costs = [c[..., 0] for c in (cost3, cost2, cost1)]
         if self.return_low_res:
             return costs

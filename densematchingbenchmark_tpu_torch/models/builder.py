@@ -1,17 +1,20 @@
 """Config-driven model builder.
 
 Counterpart of densematchingbenchmark_tpu/models/builder.py:106-182, the
-GeneralizedStereoModel branch with a PSMNet backbone and aggregator,
-including the fused upsample + soft-argmin decision (:119-136), and the
-compute dtype (``model.dtype``, :31, :115) handed to the backbone and the
-aggregator. Families not ported yet raise NotImplementedError naming their
-ROADMAP.md item.
+GeneralizedStereoModel branch with a PSMNet backbone, a PSMNet or AcfNet
+aggregator and the optional confidence network (``cmn``, AcfNet
+adaptive), including the fused upsample + soft-argmin decision (:119-136),
+and the compute dtype (``model.dtype``, :31, :115) handed to the backbone,
+the aggregator and the cmn. Families not ported yet raise
+NotImplementedError naming their ROADMAP.md item.
 """
 
 import torch
 
+from .aggregators.acfnet import AcfAggregator
 from .aggregators.psmnet import PSMAggregator
 from .backbones.psmnet import PSMNetBackbone
+from .cmn import Cmn
 from .cost_processors import CostProcessor
 from .generalized import GeneralizedStereoModel
 from .layers import init_parameters
@@ -24,8 +27,6 @@ _NOT_PORTED = {
     "FastDeepPruner": "queue 1 item 9 (DeepPruner)",
     "GCNet": "queue 1 item 8 (GCNet)",
     "StereoNet": "queue 1 item 7 (StereoNet)",
-    "AcfNet": "queue 1 item 6 (AcfNet)",
-    "cmn": "queue 1 item 6 (AcfNet)",
     "flow": "queue 1 item 11 (Flow)",
 }
 
@@ -53,17 +54,16 @@ def build_model(cfg, generator=None):
     arch = model_cfg.get("meta_architecture", "GeneralizedStereoModel")
     if arch != "GeneralizedStereoModel":
         _not_ported(arch)
-    for key in ("cmn", "disp_refinement"):
-        if key in model_cfg:
-            _not_ported("cmn" if key == "cmn"
-                        else model_cfg[key].get("type", key))
+    if "disp_refinement" in model_cfg:
+        _not_ported(model_cfg["disp_refinement"].get("type",
+                                                     "disp_refinement"))
     bn = model_cfg.get("batch_norm", True)
     bcfg = model_cfg["backbone"]
     if bcfg["type"] != "PSMNet":
         _not_ported(bcfg["type"])
     cp = model_cfg["cost_processor"]
     agg = cp["cost_aggregator"]
-    if agg["type"] != "PSMNet":
+    if agg["type"] not in ("PSMNet", "AcfNet"):
         _not_ported(agg["type"])
     if cp["type"] not in VOLUME_TYPES:
         raise NotImplementedError(
@@ -71,9 +71,11 @@ def build_model(cfg, generator=None):
             "queue 1)")
     pred_cfg = model_cfg["disp_predictor"]
     # fuse upsample + soft-argmin at eval only when nothing else needs the
-    # full-resolution cost volume (same rule as the JAX builder)
+    # full-resolution cost volume (no cmn) and the aggregator can return
+    # the low-resolution costs (PSMNet's): the JAX builder's rule
     fused = bool(model_cfg.get("eval", {}).get("fused_upsample_argmin",
                                                False)
+                 and "cmn" not in model_cfg and agg["type"] == "PSMNet"
                  and pred_cfg["type"] in ("FASTER", "DEFAULT"))
 
     comp = cp.get("cost_computation", {})
@@ -81,9 +83,19 @@ def build_model(cfg, generator=None):
     # parameters as the unpacked modules; the port has one schedule
     backbone = PSMNetBackbone(in_planes=bcfg.get("in_planes", 3),
                               batch_norm=bn, dtype=dtype)
-    aggregator = PSMAggregator(
-        in_planes=64, max_disp=agg.get("max_disp", 192), batch_norm=bn,
-        return_low_res=fused, dtype=dtype)
+    if agg["type"] == "AcfNet":
+        aggregator = AcfAggregator(in_planes=64,
+                                   max_disp=agg.get("max_disp", 192),
+                                   batch_norm=bn, dtype=dtype)
+    else:
+        aggregator = PSMAggregator(
+            in_planes=64, max_disp=agg.get("max_disp", 192), batch_norm=bn,
+            return_low_res=fused, dtype=dtype)
+    cmn = None
+    if "cmn" in model_cfg:
+        c = model_cfg["cmn"]
+        cmn = Cmn(in_planes=c["in_planes"], num=c["num"], alpha=c["alpha"],
+                  beta=c["beta"], batch_norm=bn, dtype=dtype)
     model = GeneralizedStereoModel(
         backbone=backbone,
         cost_processor=CostProcessor(
@@ -92,6 +104,7 @@ def build_model(cfg, generator=None):
             start_disp=comp.get("start_disp", 0),
             dilation=comp.get("dilation", 1)),
         disp_predictor=build_disp_predictor(pred_cfg),
+        cmn=cmn,
         fused_upsample_argmin=fused,
         max_disp=model_cfg["max_disp"])
     if generator is None:

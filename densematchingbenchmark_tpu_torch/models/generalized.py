@@ -1,10 +1,13 @@
-"""GeneralizedStereoModel: backbone -> cost processor -> predictor.
+"""GeneralizedStereoModel: backbone -> cost processor -> predictor
+[-> confidence].
 
 Counterpart of densematchingbenchmark_tpu/models/generalized.py:24-84, the
-plain branch and the ``fused_upsample_argmin`` branch. The module maps
-(left, right) [B, H, W, 3] to {'disps': [...], 'costs': [...]}, best first;
-losses live outside it. Refinement, confidence (cmn) and the GCNet
-phase-argmin head arrive with their families (ROADMAP.md queue 1).
+plain branch, the ``fused_upsample_argmin`` branch and the confidence
+network (``cmn``, AcfNet adaptive). The module maps (left, right)
+[B, H, W, 3] to {'disps': [...], 'costs': [...]} and, with a cmn,
+'variances', 'confs' and 'conf_costs', best first; losses live outside it.
+Refinement and the GCNet phase-argmin head arrive with their families
+(ROADMAP.md queue 1).
 """
 
 from torch import nn
@@ -14,12 +17,13 @@ from ..ops.interpolate import upsample_3d
 
 
 class GeneralizedStereoModel(nn.Module):
-    def __init__(self, backbone, cost_processor, disp_predictor,
+    def __init__(self, backbone, cost_processor, disp_predictor, cmn=None,
                  fused_upsample_argmin=False, max_disp=192):
         super().__init__()
         self.backbone = backbone
         self.cost_processor = cost_processor
         self.disp_predictor = disp_predictor
+        self.cmn = cmn
         # With an aggregator built in return_low_res mode, fuse the trilinear
         # upsample + soft-argmin into one kernel at eval (the full-res volume
         # is never written; eval 'costs' are then the LOW-RES volumes).
@@ -41,4 +45,9 @@ class GeneralizedStereoModel(nn.Module):
                 costs = [upsample_3d(c, self.max_disp, h, w,
                                      align_corners=True) for c in costs]
             disps = [p(cost) for cost in costs]
-        return {"disps": disps, "costs": costs}
+        out = {"disps": disps, "costs": costs}
+        if self.cmn is not None:
+            variances, confs, conf_costs = self.cmn(costs)
+            out.update(variances=variances, confs=confs,
+                       conf_costs=conf_costs)
+        return out

@@ -1,6 +1,7 @@
 """Soft-argmin disparity regression.
 
-Counterpart of densematchingbenchmark_tpu/ops/soft_argmin.py:21-47. With the
+Counterpart of densematchingbenchmark_tpu/ops/soft_argmin.py:21-47 and
+:100-130 (``local_soft_argmin``, AcfNet's windowed predictor). With the
 uniform sample range (``disp_sample=None``) and ``normalize=True`` this is
 the fused softmax-expectation, which runs through the Hopper kernel wrapper
 ``ops/cuda/soft_argmin_kernel.fused_soft_argmin`` (its plain version on the
@@ -44,3 +45,38 @@ def soft_argmin(cost_volume, disp_sample=None, max_disp=None, start_disp=0,
     if normalize:
         prob = torch.softmax(prob, dim=1)
     return (prob * disp_sample).sum(dim=1)[..., None]
+
+
+def local_soft_argmin(cost_volume, max_disp, radius, start_disp=0,
+                      dilation=1, radius_dilation=1, alpha=1.0):
+    """Soft-argmin over a window of +-``radius`` samples (step
+    ``radius_dilation``) around each pixel's argmax: the window's samples
+    outside [0, D) score -10000 * alpha, the softmax runs within the
+    window and the expectation is over start_disp + index * dilation. Not
+    differentiable through the argmax (an eval-time predictor).
+
+    Args:
+      cost_volume: [B, D, H, W], D = ceil(max_disp / dilation).
+
+    Returns:
+      [B, H, W, 1] float32 disparity map.
+    """
+    d = cost_volume.shape[1]
+    num = (max_disp + dilation - 1) // dilation
+    if d != num:
+        raise ValueError(f"cost volume D={d} inconsistent with range "
+                         f"D={num}")
+    cost = cost_volume.float()
+    max_index = cost.argmax(dim=1, keepdim=True)            # [B, 1, H, W]
+    offsets = torch.arange(-radius * radius_dilation,
+                           radius * radius_dilation + 1, radius_dilation,
+                           device=cost.device).reshape(1, -1, 1, 1)
+    index = max_index + offsets                             # [B, 2r+1, H, W]
+    in_range = (index >= 0) & (index <= d - 1)
+    clipped = index.clamp(0, d - 1)
+    gathered = torch.gather(cost, 1, clipped) * alpha
+    masked = torch.where(in_range, gathered,
+                         torch.full_like(gathered, -10000.0 * alpha))
+    prob = torch.softmax(masked, dim=1)
+    values = start_disp + clipped.float() * dilation
+    return (prob * values).sum(dim=1)[..., None]

@@ -12,25 +12,32 @@ transform, the model restored from <work-dir>/checkpoints/ (seeded random
 weights, with a warning, when there is none), the batched evaluation on the
 device, and the metric table. ``--out-dir`` writes, per sample, the KITTI
 submission PNG, the colour map and the 2x2 panel, cropped to the sample's
-original size. ``--dtype bfloat16`` (or a ``_bf16`` config name) evaluates
-in bfloat16 compute; the metrics stay float32. Runs on the GPU unless
-``--cpu``; with neither it raises.
-Flow configs (ROADMAP.md queue 1 item 11), confidence outputs (item 6) and
-multi-process launchers (item 5) are not ported and raise.
+original size. With a confidence network (AcfNet adaptive) a batch-1
+pass over the samples with GT measures the sparsification curves
+(evaluation/sparsification.py) and prints their average over the set as
+est / oracle / random rows; with ``--out-dir`` it also writes each
+sample's confidence map and histogram to confidence/. ``--dtype bfloat16``
+(or a ``_bf16`` config name) evaluates in bfloat16 compute; the metrics
+stay float32. Runs on the GPU unless ``--cpu``; with neither it raises.
+Flow configs (ROADMAP.md queue 1 item 11) and multi-process launchers
+(item 5) are not ported and raise.
 """
 
 import argparse
+import os
 
 import numpy as np
 
 from ..apis import init_model
 from ..configs import get_config
 from ..data import SyntheticStereoDataset, build_dataset, collate, transforms
+from ..data.io import save_png
 from ..evaluation.eval_loop import evaluate, to_device
 from ..evaluation.format import metrics_table
 from ..evaluation.metrics import remove_padding
+from ..evaluation.sparsification import sparsification_plot
 from ..utils.checkpoint import CheckpointManager
-from ..visualization import SaveResultTool
+from ..visualization import SaveResultTool, conf_to_hist, hist_to_vis
 from .common import (add_distributed_args, add_dtype_arg, check_launcher,
                      config_overrides)
 
@@ -55,35 +62,74 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def save_results(model, ds, out_dir, mean, std):
-    """Batch-1 forward of every sample; its best disparity, GT and left
-    image at the sample's original size through SaveResultTool."""
-    save = SaveResultTool(out_dir)
+def save_results(model, ds, out_dir, mean, std, eval_cfg=None):
+    """Batch-1 forward of every sample; with ``out_dir``, its best
+    disparity, GT and left image at the sample's original size through
+    SaveResultTool. With confidence outputs and GT, the sparsification
+    curves of each sample (bounds from ``eval_cfg``) and, with
+    ``out_dir``, its confidence map and histogram as PNGs. Returns
+    ({'est_P' | 'oracle_P' | 'random_P': EPE averaged over those
+    samples}, samples)."""
+    save = SaveResultTool(out_dir) if out_dir else None
+    eval_cfg = eval_cfg or {}
+    sums, count = {}, 0
     for i in range(len(ds)):
         batch = collate([ds[i]])
         h, w = batch["original_size"]
-        x = to_device(batch, model.device)
-        disp = model.forward(x["leftImage"], x["rightImage"])["disps"][0]
+        x = to_device({k: batch[k] for k in ("leftImage", "rightImage")},
+                      model.device)
+        out = model.forward(x["leftImage"], x["rightImage"])
+        disp = out["disps"][0].float().cpu().numpy()
         gt = batch.get("leftDisp")
-        left = batch["leftImage"] * np.asarray(std, np.float32) + \
-            np.asarray(mean, np.float32)
-        save(f"{i:06d}", remove_padding(disp.float().cpu().numpy(), h, w),
-             None if gt is None else remove_padding(gt, h, w),
-             remove_padding(left, h, w))
+        if save is not None:
+            left = batch["leftImage"] * np.asarray(std, np.float32) + \
+                np.asarray(mean, np.float32)
+            save(f"{i:06d}", remove_padding(disp, h, w),
+                 None if gt is None else remove_padding(gt, h, w),
+                 remove_padding(left, h, w))
+        if "confs" not in out or gt is None:
+            continue
+        # on the padded frame, as the JAX tool (the padding's GT is 0,
+        # outside the bounds)
+        conf = out["confs"][0].float().cpu().numpy()
+        curves = sparsification_plot(
+            disp, gt, conf, lb=eval_cfg.get("lower_bound", 0),
+            ub=eval_cfg.get("upper_bound", 192), seed=i)
+        for k, v in curves.items():
+            sums[k] = sums.get(k, 0.0) + v
+        count += 1
+        if save is not None:
+            conf_dir = os.path.join(out_dir, "confidence")
+            os.makedirs(conf_dir, exist_ok=True)
+            c = np.clip(remove_padding(conf, h, w)[0, ..., 0], 0, 1)
+            save_png(os.path.join(conf_dir, f"{i:06d}.png"),
+                     (c * 255).astype(np.uint8))
+            save_png(os.path.join(conf_dir, f"{i:06d}_hist.png"),
+                     np.clip(hist_to_vis(conf_to_hist(c)), 0,
+                             255).astype(np.uint8))
+    return {k: v / max(count, 1) for k, v in sums.items()}, count
+
+
+def sparsification_rows(curves, count):
+    """The est / oracle / random rows of averaged sparsification curves."""
+    lines = [f"sparsification ({count} samples, EPE after removing "
+             f"least-confident X%):"]
+    pcts = sorted({int(k.split("_")[-1]) for k in curves})
+    for series in ("est", "oracle", "random"):
+        row = " ".join(f"{curves[f'{series}_{p}']:7.3f}" for p in pcts)
+        lines.append(f"  {series:7s} {row}")
+    return "\n".join(lines)
 
 
 def main(argv=None):
-    """Returns ({f'disp_{id}/{metric}': mean}, samples)."""
+    """Returns ({f'disp_{id}/{metric}': mean, plus with a cmn
+    f'sparsification/{series}_{P}'}, samples)."""
     args = parse_args(argv)
     check_launcher(args)
     cfg = get_config(args.config, **config_overrides(args))
     if cfg.get("task") == "flow":
         raise NotImplementedError("flow evaluation is not ported yet "
                                   "(ROADMAP.md queue 1 item 11)")
-    if cfg["model"].get("cmn") is not None:
-        raise NotImplementedError("confidence outputs and sparsification "
-                                  "are not ported yet (ROADMAP.md queue 1 "
-                                  "item 6)")
     mean, std = cfg["data"]["mean"], cfg["data"]["std"]
     if args.synthetic:
         maxd = cfg["model"]["max_disp"]
@@ -106,9 +152,16 @@ def main(argv=None):
                           cfg.get("eval_disparity_id", (0,)))
     print(f"evaluated {n} samples:")
     print(metrics_table(results))
-    if args.out_dir:
-        save_results(model, ds, args.out_dir, mean, std)
-        print(f"results saved to {args.out_dir}")
+    has_conf = cfg["model"].get("cmn") is not None
+    if args.out_dir or has_conf:
+        curves, count = save_results(model, ds, args.out_dir, mean, std,
+                                     cfg["model"].get("eval", {}))
+        if count:
+            print(sparsification_rows(curves, count))
+            results.update({f"sparsification/{k}": v
+                            for k, v in curves.items()})
+        if args.out_dir:
+            print(f"results saved to {args.out_dir}")
     return results, n
 
 

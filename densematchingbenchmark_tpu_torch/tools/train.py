@@ -15,9 +15,10 @@ The counterpart of the JAX package's tools/train.py for stereo models, with
 its flags: a thin CLI over ``trainer.loop.train_matcher``. ``--dtype
 bfloat16`` (or a ``_bf16`` config name) trains with float32 parameters, BN
 statistics and gradients and bfloat16 activations, as JAX's
-``model.dtype``; no loss scaling. Runs on the GPU unless ``--cpu``; with
-neither it raises. Flow configs (ROADMAP.md queue 1 item 11), ``--profile``
-(item 3) and multi-process launchers (item 5) are not ported and raise.
+``model.dtype``; no loss scaling. ``--profile START:STOP`` writes a
+torch.profiler trace of those steps to <work-dir>/profile. Runs on the GPU
+unless ``--cpu``; with neither it raises. Flow configs (ROADMAP.md queue 1
+item 11) and multi-process launchers (item 5) are not ported and raise.
 """
 
 import argparse
@@ -55,7 +56,9 @@ def parse_args(argv=None):
     add_dtype_arg(p)
     p.add_argument("--override", nargs="*", default=[],
                    help="dotted config overrides, e.g. model.max_disp=96")
-    p.add_argument("--profile", default=None, metavar="START:STOP")
+    p.add_argument("--profile", default=None, metavar="START:STOP",
+                   help="write a torch.profiler trace of global steps "
+                        "START..STOP to <work-dir>/profile")
     add_distributed_args(p)
     return p.parse_args(argv)
 
@@ -64,9 +67,6 @@ def main(argv=None):
     """Returns the final TrainState."""
     args = parse_args(argv)
     check_launcher(args)
-    if args.profile:
-        raise NotImplementedError("--profile: the profiler window is not "
-                                  "ported yet (ROADMAP.md queue 1 item 3)")
     cfg = get_config(args.config, **config_overrides(args))
     cfg["seed"] = args.seed
     if cfg.get("task") == "flow":
@@ -74,7 +74,9 @@ def main(argv=None):
                                   "(ROADMAP.md queue 1 item 11)")
     run = dict(resume=args.resume, max_steps=args.max_steps,
                log_interval=args.log_interval,
-               device="cpu" if args.cpu else None)
+               device="cpu" if args.cpu else None,
+               profile_steps=(tuple(int(x) for x in args.profile.split(":"))
+                              if args.profile else None))
 
     if args.synthetic:
         maxd = cfg["model"]["max_disp"]

@@ -7,9 +7,10 @@ metrics go to the text log and to <work_dir>/metrics.log.json, and a
 checkpoint at the end of every epoch (or at ``max_steps``) records the
 exact (epoch, batch_in_epoch) position, so ``resume=True`` replays the same
 remaining batches. After each epoch's checkpoint the eval set, if any, is
-evaluated and its metrics logged under 'eval/'. The visualization hook, the
-profiler window and data parallelism arrive with ROADMAP.md queue 1 items 3
-and 5.
+evaluated and its metrics logged under 'eval/', and the visualization hook
+(trainer/vis_hook.py, unless ``vis.enabled`` is False) writes its panels.
+``profile_steps`` traces a window of steps with torch.profiler. Data
+parallelism arrives with ROADMAP.md queue 1 item 5.
 """
 
 import json
@@ -29,20 +30,27 @@ from ..utils.logging import MetricsLogger, get_logger
 from .optim import build_optimizer
 from .state import TrainState
 from .train_step import make_train_step
+from .vis_hook import VisHook, build_vis_dataset
 
 
 def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
-                  resume=False, log_interval=10, max_steps=None, device=None):
+                  resume=False, log_interval=10, max_steps=None, device=None,
+                  profile_steps=None):
     """Train a model per config on one device; returns the TrainState.
 
     Runs on ``cuda`` unless ``device`` says otherwise; with no GPU and no
     device given it raises. The logged metrics of a step are 'loss', each
-    'l1_loss_lvl<i>', 'grad_norm', 'throughput' (samples/s), 'lr',
-    'step_ms' (host clock around the step, ended by reading its metrics)
-    and, on a GPU, 'peak_mem_gib' (torch.cuda.max_memory_allocated).
-    ``eval_dataset`` defaults to the file dataset of data.eval.annfile,
-    when that is set; its metrics are logged after every epoch as
-    'eval/disp_<id>/<metric>'.
+    loss entry ('l1_loss_lvl<i>', and for AcfNet
+    'stereo_focal_loss_lvl<i>' and 'conf_loss_lvl<i>'), 'grad_norm',
+    'throughput' (samples/s), 'lr', 'step_ms' (host clock around the step,
+    ended by reading its metrics) and, on a GPU, 'peak_mem_gib'
+    (torch.cuda.max_memory_allocated). ``eval_dataset`` defaults to the
+    file dataset of data.eval.annfile, when that is set; its metrics are
+    logged after every epoch as 'eval/disp_<id>/<metric>'.
+
+    profile_steps: optional (start, stop) global step numbers; a
+    torch.profiler trace of those steps (the host's and, on a GPU, the
+    device's activity) is written to <work_dir>/profile as a Chrome trace.
     """
     device = resolve_device(device)
     if device.type == "cuda":
@@ -76,8 +84,9 @@ def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
     module = build_model(cfg, torch.Generator().manual_seed(seed))
     module.to(device)
     optimizer, schedule = build_optimizer(cfg, module, steps_per_epoch)
-    evaluator = make_loss_evaluator(cfg["model"]["losses"],
-                                    sparse=data_cfg.get("sparse", False))
+    evaluator = make_loss_evaluator(
+        cfg["model"]["losses"], sparse=data_cfg.get("sparse", False),
+        cmn_losses_cfg=cfg["model"].get("cmn", {}).get("losses"))
     state = TrainState.create(module, optimizer, seed + 1)
     n_params = sum(p.numel() for p in module.parameters())
     logger.info(f"model params: {n_params / 1e6:.3f}M, device: {device}, "
@@ -97,6 +106,28 @@ def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
     step_fn = make_train_step(evaluator)
     eval_cfg = cfg["model"].get("eval", {})
     eval_ids = tuple(cfg.get("eval_disparity_id", (0,)))
+    vis_hook = None
+    if cfg.get("vis", {}).get("enabled", True):
+        vis_dataset = build_vis_dataset(cfg, eval_dataset)
+        if vis_dataset is not None:
+            vis_hook = VisHook(
+                vis_dataset, work_dir, metrics_log, mean, std,
+                max_disp=cfg["model"].get("max_disp", 192),
+                max_samples=cfg.get("vis", {}).get("max_samples", 4))
+    prof_start, prof_stop = profile_steps or (None, None)
+    prof_dir = os.path.join(work_dir, "profile")
+    profiler = None
+
+    def stop_profiler(last_step):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        profiler.stop()
+        os.makedirs(prof_dir, exist_ok=True)
+        path = os.path.join(prof_dir,
+                            f"steps_{prof_start}_{last_step}.pt.trace.json")
+        profiler.export_chrome_trace(path)
+        logger.info(f"profiler trace of steps {prof_start}..{last_step} -> "
+                    f"{path}")
 
     def device_batches(epoch, start):
         for batch in loader.epoch(epoch, start=start):
@@ -113,7 +144,16 @@ def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
             batch_in_epoch += 1
             t1 = time.perf_counter()
             step_num = state.step + 1
+            if step_num == prof_start and profiler is None:
+                activities = [torch.profiler.ProfilerActivity.CPU]
+                if device.type == "cuda":
+                    activities.append(torch.profiler.ProfilerActivity.CUDA)
+                profiler = torch.profiler.profile(activities=activities)
+                profiler.start()
             state, metrics = step_fn(state, batch)
+            if profiler is not None and step_num >= prof_stop:
+                stop_profiler(step_num)
+                profiler = prof_start = None
             if step_num % log_interval == 0 or step_num == 1:
                 metrics = {k: float(v) for k, v in metrics.items()}
                 t2 = time.perf_counter()
@@ -153,8 +193,15 @@ def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
             logger.info(f"epoch {epoch + 1} eval ({n} samples):\n"
                         + metrics_table(results))
             metrics_log.log(state.step, results, prefix="eval/")
+        if vis_hook is not None:
+            vis_hook(module, epoch + 1)
+            logger.info(f"epoch {epoch + 1} visualization -> "
+                        f"{os.path.join(work_dir, 'vis')}")
         if done:
             break
+    if profiler is not None:     # the window ran past the last step
+        stop_profiler(state.step)
+    metrics_log.close()
     return state
 
 

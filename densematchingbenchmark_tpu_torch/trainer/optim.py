@@ -1,23 +1,30 @@
 """Optimizer and learning-rate schedule.
 
 Counterpart of densematchingbenchmark_tpu/trainer/optim.py: the
-optax.chain(clip_by_global_norm(35), rmsprop(schedule), paramwise scale)
-of the JAX package, written out as one update with optax 0.2.6's
-semantics, which differ from torch.optim.RMSprop's:
+optax.chain(clip_by_global_norm(max_norm), <optimizer>(schedule),
+paramwise scale) of the JAX package, written out with optax 0.2.6's
+semantics, which differ from torch.optim's:
 
-  g  <- g * min(1, max_norm / |g|)           clip at the global norm,
-                                              before the optimizer
-  nu <- decay * nu + (1 - decay) * g^2        nu_0 = 0, decay 0.99
-  u  <- g / sqrt(nu + eps)                    eps INSIDE the root
-                                              (torch: sqrt(nu) + eps),
-                                              eps 1e-8
-  p  <- p - schedule(count) * mult(p) * u     count of updates, from 0
+  g  <- g * min(1, max_norm / |g|)        clip at the global norm, before
+                                          the optimizer
+  rmsprop (decay = alpha 0.99, eps 1e-8, momentum 0):
+    nu <- decay * nu + (1 - decay) * g^2  nu_0 = 0
+    u  <- -lr(count) * g / sqrt(nu + eps) eps INSIDE the root (torch:
+                                          sqrt(nu) + eps)
+    u  <- u + momentum * t; t <- u        with momentum > 0: optax's trace
+                                          of the lr-scaled updates
+  adam (beta1 0.9, beta2 0.999, eps 1e-8):
+    mu <- b1 mu + (1 - b1) g;  nu <- b2 nu + (1 - b2) g^2
+    u  <- -lr(count) * mu_hat / (sqrt(nu_hat) + eps), bias-corrected
+          mu_hat = mu / (1 - b1^(count + 1)), eps OUTSIDE the root
+  sgd (momentum 0.9):
+    t  <- g + momentum * t;  u <- -lr(count) * t
+  p  <- p + mult(p) * u                   count of updates, from 0
 
 ``mult`` is the paramwise post-update scale (:74-101): ``norm_lr_mult``
 for BatchNorm parameters, ``bias_lr_mult`` for other biases, else 1. The
 state lives on the parameters' device and the step reads nothing back to
-the host. decay and eps are the defaults that every config of the repo
-uses; momentum (optax's trace) is not ported.
+the host.
 """
 
 import torch
@@ -55,8 +62,12 @@ def _param_mult(name, options):
     return 1.0
 
 
-class RMSprop:
-    """The update above over a fixed list of named parameters."""
+class _Optimizer:
+    """One optax-style update over a fixed list of named parameters; a
+    subclass's ``_updates`` turns the clipped gradients into updates
+    before the learning rate, and names its state tensors in ``_STATE``."""
+
+    _STATE = ()
 
     def __init__(self, named_params, schedule, max_norm=None,
                  paramwise=None):
@@ -66,7 +77,8 @@ class RMSprop:
         self.schedule = schedule
         self.max_norm = max_norm
         self.mults = [_param_mult(n, paramwise or {}) for n in self.names]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        for key in self._STATE:
+            setattr(self, key, [torch.zeros_like(p) for p in self.params])
         self.count = 0
 
     @torch.no_grad()
@@ -81,27 +93,88 @@ class RMSprop:
                                torch.ones_like(grad_norm),
                                self.max_norm / grad_norm)
             grads = torch._foreach_mul(grads, clip)
-        torch._foreach_mul_(self.nu, DECAY)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1 - DECAY)
-        denom = torch._foreach_add(self.nu, EPS)
-        torch._foreach_sqrt_(denom)
-        updates = torch._foreach_div(grads, denom)
-        lr = self.schedule(self.count)
+        updates, scale = self._updates(grads, self.schedule(self.count))
         for mult in set(self.mults):
             idx = [i for i, m in enumerate(self.mults) if m == mult]
             torch._foreach_add_([self.params[i] for i in idx],
                                 [updates[i] for i in idx],
-                                alpha=-lr * mult)
+                                alpha=scale * mult)
         self.count += 1
 
     def state_dict(self):
-        return {"nu": list(self.nu), "count": self.count}
+        return {**{k: list(getattr(self, k)) for k in self._STATE},
+                "count": self.count}
 
     def load_state_dict(self, state):
         with torch.no_grad():
-            for dst, src in zip(self.nu, state["nu"]):
-                dst.copy_(src)
+            for key in self._STATE:
+                for dst, src in zip(getattr(self, key), state[key]):
+                    dst.copy_(src)
         self.count = int(state["count"])
+
+
+class RMSprop(_Optimizer):
+    """optax.rmsprop: eps inside the root, and with ``momentum`` > 0 a
+    trace of the learning-rate-scaled updates."""
+
+    def __init__(self, named_params, schedule, max_norm=None,
+                 paramwise=None, decay=DECAY, eps=EPS, momentum=0.0):
+        self._STATE = ("nu", "trace") if momentum else ("nu",)
+        super().__init__(named_params, schedule, max_norm, paramwise)
+        self.decay, self.eps, self.momentum = decay, eps, momentum
+
+    def _updates(self, grads, lr):
+        torch._foreach_mul_(self.nu, self.decay)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1 - self.decay)
+        denom = torch._foreach_add(self.nu, self.eps)
+        torch._foreach_sqrt_(denom)
+        updates = torch._foreach_div(grads, denom)
+        if not self.momentum:
+            return updates, -lr
+        torch._foreach_mul_(updates, -lr)
+        torch._foreach_add_(updates, self.trace, alpha=self.momentum)
+        for dst, src in zip(self.trace, updates):
+            dst.copy_(src)
+        return updates, 1.0
+
+
+class Adam(_Optimizer):
+    """optax.adam: bias-corrected moments, eps outside the root."""
+
+    _STATE = ("mu", "nu")
+
+    def __init__(self, named_params, schedule, max_norm=None,
+                 paramwise=None, b1=0.9, b2=0.999, eps=EPS):
+        super().__init__(named_params, schedule, max_norm, paramwise)
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def _updates(self, grads, lr):
+        torch._foreach_lerp_(self.mu, grads, 1 - self.b1)
+        torch._foreach_mul_(self.nu, self.b2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1 - self.b2)
+        t = self.count + 1
+        mu_hat = torch._foreach_div(self.mu, 1 - self.b1 ** t)
+        denom = torch._foreach_div(self.nu, 1 - self.b2 ** t)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        return torch._foreach_div(mu_hat, denom), -lr
+
+
+class SGD(_Optimizer):
+    """optax.sgd: a trace of the gradients (momentum), then the learning
+    rate."""
+
+    _STATE = ("trace",)
+
+    def __init__(self, named_params, schedule, max_norm=None,
+                 paramwise=None, momentum=0.9):
+        super().__init__(named_params, schedule, max_norm, paramwise)
+        self.momentum = momentum
+
+    def _updates(self, grads, lr):
+        torch._foreach_mul_(self.trace, self.momentum)
+        torch._foreach_add_(self.trace, grads)
+        return self.trace, -lr
 
 
 def global_norm(tensors):
@@ -116,18 +189,22 @@ def build_optimizer(cfg, module, steps_per_epoch):
     opt_cfg = cfg["optimizer"]
     schedule = make_lr_schedule(opt_cfg["lr"], cfg.get("lr_schedule", {}),
                                 steps_per_epoch)
-    kind = opt_cfg.get("type", "rmsprop").lower()
-    if kind != "rmsprop":
-        raise NotImplementedError(
-            f"optimizer {kind!r} is not ported yet (the PSMNet configs use "
-            "rmsprop; ROADMAP.md queue 1)")
-    for key, default in (("alpha", DECAY), ("eps", EPS), ("momentum", 0.0)):
-        if opt_cfg.get(key, default) != default:
-            raise NotImplementedError(
-                f"rmsprop {key}={opt_cfg[key]!r} is not ported yet (only "
-                f"the default {default!r}; ROADMAP.md queue 1 item 3)")
     clip = cfg.get("grad_clip")
-    opt = RMSprop(module.named_parameters(), schedule,
-                  max_norm=clip["max_norm"] if clip else None,
+    common = dict(max_norm=clip["max_norm"] if clip else None,
                   paramwise=opt_cfg.get("paramwise_options"))
+    kind = opt_cfg.get("type", "rmsprop").lower()
+    if kind == "rmsprop":
+        opt = RMSprop(module.named_parameters(), schedule,
+                      decay=opt_cfg.get("alpha", DECAY),
+                      eps=opt_cfg.get("eps", EPS),
+                      momentum=opt_cfg.get("momentum", 0.0), **common)
+    elif kind == "adam":
+        opt = Adam(module.named_parameters(), schedule,
+                   b1=opt_cfg.get("beta1", 0.9),
+                   b2=opt_cfg.get("beta2", 0.999), **common)
+    elif kind == "sgd":
+        opt = SGD(module.named_parameters(), schedule,
+                  momentum=opt_cfg.get("momentum", 0.9), **common)
+    else:
+        raise ValueError(f"unknown optimizer {kind}")
     return opt, schedule

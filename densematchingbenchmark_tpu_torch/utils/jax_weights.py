@@ -7,7 +7,9 @@ module takes numpy only. Leaves are matched by tree path: the port names its
 submodules after the Flax tree (``ConvUnit_0``, ``Conv_0``, ``BatchNorm_0``,
 ...), and a ``torch.nn.ModuleList`` entry ``name.<i>`` is Flax's
 ``name_<i>``. The trunk-packed (``pack=4``) and unpacked Flax trees are
-identical, so one mapping serves every schedule.
+identical, so one mapping serves every schedule. AcfNet's trees follow
+the same names: the aggregator's ``ConvTransposeExact_0..2`` (its learned
+upsamplers, in up1, up2, up3 order) and the cmn's ``ConfHead_<i>``.
 
 Layout rules (the inverse of densematchingbenchmark_tpu/utils/
 torch_convert.py:60-81):

@@ -1,9 +1,10 @@
-"""Logging: a text logger and the JSON-lines metrics log.
+"""Logging: a text logger, the JSON-lines metrics log and TensorBoard.
 
-Counterpart of densematchingbenchmark_tpu/utils/logging.py:19-64 on one
+Counterpart of densematchingbenchmark_tpu/utils/logging.py:19-104 on one
 process (the JAX package's rank argument arrives with data-parallel
-training, ROADMAP.md queue 1 item 5). The tensorboard writer and media
-routing arrive with the visualization hook (queue 1 item 3).
+training, ROADMAP.md queue 1 item 5). As there, the TensorBoard writer
+(tensorboardX's, under <work_dir>/tb) is made only when that package
+imports; without it the JSON metrics log is the whole record.
 """
 
 import json
@@ -11,6 +12,8 @@ import logging
 import os
 import sys
 import time
+
+import numpy as np
 
 
 def get_logger(work_dir=None, name="dmb_torch"):
@@ -40,14 +43,60 @@ def get_logger(work_dir=None, name="dmb_torch"):
 
 
 class MetricsLogger:
-    """Appends one JSON object per call to <work_dir>/metrics.log.json."""
+    """Appends one JSON object per call to <work_dir>/metrics.log.json,
+    and the same scalars to TensorBoard when tensorboardX imports."""
 
-    def __init__(self, work_dir):
+    def __init__(self, work_dir, tensorboard=True):
         os.makedirs(work_dir, exist_ok=True)
         self.json_path = os.path.join(work_dir, "metrics.log.json")
+        self.tb = None
+        if tensorboard:
+            try:
+                from tensorboardX import SummaryWriter
+            except ImportError:
+                pass
+            else:
+                self.tb = SummaryWriter(os.path.join(work_dir, "tb"))
 
     def log(self, step, metrics, prefix=""):
         record = {"step": int(step),
                   **{prefix + k: float(v) for k, v in metrics.items()}}
         with open(self.json_path, "a") as fp:
             fp.write(json.dumps(record) + "\n")
+        if self.tb is not None:
+            for k, v in record.items():
+                if k != "step":
+                    self.tb.add_scalar(k, v, int(step))
+
+    def log_media(self, step, media, *, value_range=None):
+        """Media by tag prefix, to TensorBoard (nothing without it):
+        'image/<tag>' an HWC image (uint8, or float 0-255 or 0-1),
+        'histogram/<tag>' raw values, 'figure/<tag>' a matplotlib figure,
+        anything else a scalar. ``value_range``: optional {tag: 'unit' |
+        '255'} for float images, over the peak <= 1 rule."""
+        if self.tb is None:
+            return
+        for tag, rec in media.items():
+            prefix, _, suffix = tag.partition("/")
+            if prefix == "image":
+                img = np.asarray(rec)
+                if img.ndim == 2:
+                    img = img[..., None].repeat(3, -1)
+                if img.dtype != np.uint8:
+                    rng = (value_range or {}).get(tag)
+                    if rng is None:
+                        rng = "unit" if img.max() <= 1.0 + 1e-6 else "255"
+                    img = np.clip(img * (255.0 if rng == "unit" else 1.0),
+                                  0, 255).astype(np.uint8)
+                self.tb.add_image(suffix, img, int(step), dataformats="HWC")
+            elif prefix == "histogram":
+                self.tb.add_histogram(suffix, np.asarray(rec).ravel(),
+                                      int(step))
+            elif prefix == "figure":
+                self.tb.add_figure(suffix, rec, int(step))
+            else:
+                self.tb.add_scalar(tag, float(rec), int(step))
+
+    def close(self):
+        if self.tb is not None:
+            self.tb.close()

@@ -1031,3 +1031,169 @@ def test_tiny_bf16_eval_forward_issues_no_synchronising_call_on_card(
                            "model.eval.fused_upsample_argmin": fused}))
     x = torch.randn((1, 64, 64, 3), device=cuda)
     _sync_free(lambda: model.forward(x, x))
+
+
+def biased_unit(cuda, dtype, seed=0):
+    """A 32 -> 32 trunk unit with a conv bias (AcfNet's 7 aggregator units
+    outside the hourglasses), random BN statistics and bias, on the CPU
+    and a copy on the card."""
+    from densematchingbenchmark_tpu_torch.models.layers import (
+        ConvUnit, init_parameters)
+    unit = ConvUnit(32, 32, 3, 1, 1, dims=3, bias=True, dtype=dtype)
+    gen = torch.Generator().manual_seed(seed)
+    init_parameters(unit, gen)
+    bn = unit.BatchNorm_0
+    with torch.no_grad():
+        unit.Conv_0.bias.normal_(0.0, 0.5, generator=gen)
+        bn.weight.uniform_(0.7, 1.1, generator=gen)
+        bn.bias.normal_(0.0, 0.1, generator=gen)
+        bn.running_mean.normal_(0.0, 0.1, generator=gen)
+        bn.running_var.uniform_(0.9, 1.4, generator=gen)
+    return unit, copy.deepcopy(unit).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_biased_conv_unit_eval_matches_plain_on_card(cuda, dtype):
+    """A biased unit in eval: the conv bias folded into the shift of K1's
+    float32 epilogue, or of K4's bfloat16 kept operands, against the same
+    unit through the plain versions on the CPU; after an in-place change
+    to the bias alone the kept operands are built again and give the new
+    bias's result."""
+    from densematchingbenchmark_tpu_torch.models.layers import ConvUnit
+    cpu, card = biased_unit(cuda, dtype)
+    cpu.eval(), card.eval()
+    x = torch.randn((1, 6, 9, 78, 32), generator=torch.Generator()
+                    .manual_seed(1))
+    name = "fused_conv3d" if dtype == torch.float32 else "conv3d_packed_s1"
+    step = 1e-4 if dtype == torch.float32 else 1e-4 + BF16_STEP
+    for _ in range(2):
+        builds = ConvUnit.operand_builds
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            got = card(x.to(cuda))
+        assert kernels.launch_counts()[name] == 1
+        assert ConvUnit.operand_builds == builds + 1
+        with torch.no_grad():
+            want = cpu(x)
+        assert got.dtype == want.dtype == dtype
+        tol = step * want.abs().max().item()
+        assert (got.float().cpu() - want.float()).abs().max().item() <= tol
+        with torch.no_grad():                  # the bias alone changes
+            card.Conv_0.bias.add_(0.25)
+            cpu.Conv_0.bias.add_(0.25)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_biased_conv_unit_train_matches_plain_on_card(cuda, dtype):
+    """A biased unit in training (K4, then the conv bias, batch-statistics
+    BN and ReLU) on the card against the CPU: output, gradients of the
+    input and of every parameter, and the BN statistics."""
+    cpu, card = biased_unit(cuda, dtype, seed=2)
+    cpu.train(), card.train()
+    x = torch.randn((2, 4, 9, 40, 32), generator=torch.Generator()
+                    .manual_seed(3))
+    ct = torch.randn((2, 4, 9, 40, 32), generator=torch.Generator()
+                     .manual_seed(4))
+    outs = []
+    for unit, device in ((card, cuda), (cpu, torch.device("cpu"))):
+        xi = x.to(device).requires_grad_()
+        kernels.reset_launch_counts()
+        y = unit(xi)
+        assert kernels.launch_counts()["conv3d_packed_s1"] == (
+            1 if device.type == "cuda" else 0)
+        grads = torch.autograd.grad(y.float(), [xi, *unit.parameters()],
+                                    ct.to(device))
+        outs.append([t.detach().float().cpu() for t in (y, *grads)]
+                    + [unit.BatchNorm_0.running_mean.cpu(),
+                       unit.BatchNorm_0.running_var.cpu()])
+    # float32: sums in another order; bfloat16: both round their float32
+    # results, the gradients through cuDNN's bfloat16 convolutions
+    step = 1e-3 if dtype == torch.float32 else 4 * BF16_STEP
+    # [y, dx, dW, d(conv bias), d(BN scale), d(BN bias), mean, var]; the
+    # conv bias feeds batch-statistics BN: its gradient is zero in exact
+    # arithmetic, rounding noise on both sides
+    for i, (g, w) in enumerate(zip(*outs)):
+        assert g.shape == w.shape
+        if i == 3:
+            noise = step * outs[1][5].abs().max().item()
+            assert max(g.abs().max().item(), w.abs().max().item()) <= noise
+            continue
+        tol = step * w.abs().max().item()
+        assert (g - w).abs().max().item() <= tol, i
+
+
+ACF_TINY = {"model.max_disp": 16,
+            "model.cost_processor.cost_computation.max_disp": 4,
+            "model.cost_processor.cost_aggregator.max_disp": 16,
+            "model.disp_predictor.max_disp": 16,
+            "model.losses.l1_loss.max_disp": 16,
+            "model.losses.focal_loss.max_disp": 16,
+            "model.cmn.in_planes": 16,
+            "model.cmn.losses.nll_loss.max_disp": 16}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tiny_acfnet_on_card_matches_cpu(cuda, dtype):
+    """AcfNet adaptive at max_disp 16: the eval forward on the card (the
+    13 trunk units on K1 in float32 or K4's bfloat16 route, K2 on the
+    three learned-upsampled costs, no K3) against the plain versions on
+    the CPU, same weights; then one train step (K4 13, K2 3 forward and
+    3 backward) against the CPU's losses."""
+    from densematchingbenchmark_tpu_torch.apis import StereoModel
+    name = f"AcfNet/scene_flow_adaptive_{dtype}"
+    cfg = get_config(name, **ACF_TINY)
+    cpu = draw_bn(build_model(cfg, torch.Generator().manual_seed(0)), 0)
+    card = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.RandomState(0)
+    x = torch.tensor(rng.randn(1, 32, 64, 3), dtype=torch.float32)
+    kernels.reset_launch_counts()
+    got = StereoModel(cfg, card.eval(), cuda).forward(x.to(cuda),
+                                                      x.to(cuda))
+    counts, bf16 = kernels.launch_counts(), kernels.bf16_launch_counts()
+    k1 = 13 if dtype == "f32" else 0
+    assert counts == {"fused_conv3d": k1, "fused_soft_argmin": 3,
+                      "fused_soft_argmin_backward": 0,
+                      "fused_upsample_soft_argmin": 0,
+                      "conv3d_packed_s1": 13 - k1,
+                      "conv3d_packed_s1_v2": 0}, counts
+    assert bf16["conv3d_packed_s1"] == 13 - k1
+    want = StereoModel(cfg, cpu.eval(), torch.device("cpu")).forward(x, x)
+    # float32: cuDNN vs the CPU's convolutions through soft-argmin (the
+    # PSMNet slice's 1e-2 px); bfloat16: the CPU tests' 0.05 px mean
+    atol = 1e-2 if dtype == "f32" else 0.05
+    for g, w in zip(got["disps"], want["disps"]):
+        diff = (g.cpu() - w).abs()
+        assert (diff.max() if dtype == "f32" else diff.mean()) <= atol
+    for g, w in zip(got["confs"], want["confs"]):
+        assert ((g.cpu() - w).abs().mean() <= 1e-3 if dtype == "f32"
+                else (g.cpu() - w).abs().mean() <= 1e-2)
+    batch = {"leftImage": rng.randn(2, 32, 64, 3),
+             "rightImage": rng.randn(2, 32, 64, 3),
+             "leftDisp": rng.uniform(0, 20, (2, 32, 64, 1))}
+    batch = {k: torch.tensor(v, dtype=torch.float32) for k, v in
+             batch.items()}
+    losses = []
+    for module, device in ((card, cuda), (cpu, torch.device("cpu"))):
+        ev = make_loss_evaluator(cfg["model"]["losses"],
+                                 cmn_losses_cfg=cfg["model"]["cmn"]["losses"])
+        opt, _ = build_optimizer(cfg, module, 10)
+        kernels.reset_launch_counts()
+        _, metrics = make_train_step(ev)(
+            TrainState.create(module, opt, 1),
+            {k: v.to(device) for k, v in batch.items()})
+        if device.type == "cuda":
+            counts = kernels.launch_counts()
+            assert counts["conv3d_packed_s1"] == 13, counts
+            assert counts["fused_soft_argmin"] == 3, counts
+            assert counts["fused_soft_argmin_backward"] == 3, counts
+        losses.append({k: float(v) for k, v in metrics.items()})
+    for k, v in losses[1].items():
+        assert np.isfinite(losses[0][k]), k
+        # float32: cuDNN vs the CPU (the PSMNet step's 1e-3); bfloat16:
+        # the losses within 1 %, the gradients' norm within 10 %
+        tol = (1e-3 if dtype == "f32" else
+               0.1 if k == "grad_norm" else 0.01)
+        assert abs(losses[0][k] - v) <= tol * abs(v), (k, losses[0][k], v)

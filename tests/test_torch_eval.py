@@ -321,9 +321,15 @@ def test_train_tool_runs_with_synthetic_eval(tmp_path):
     assert np.isfinite(records[0]["train/loss"])
     assert "eval/disp_0/epe" in records[-1]
     assert os.listdir(os.path.join(work, "checkpoints")) == ["1.pt"]
-    with pytest.raises(NotImplementedError, match="item 3"):
-        ttrain.main(["--config", "PSMNet/scene_flow_f32", "--work-dir", work,
-                     "--cpu", "--profile", "1:2"])
+    # --profile: a torch.profiler trace of the window
+    prof = str(tmp_path / "prof")
+    ttrain.main(["--config", "PSMNet/scene_flow_f32", "--work-dir", prof,
+                 "--synthetic", "--synthetic-shape", "32", "64",
+                 "--synthetic-length", "1", "--max-steps", "1", "--cpu",
+                 "--profile", "1:2", "--override",
+                 *[f"{k}={v}" for k, v in TINY.items()]])
+    assert os.listdir(os.path.join(prof, "profile")) == [
+        "steps_1_1.pt.trace.json"]
 
 
 def test_demo_tool_runs_end_to_end(tmp_path, capsys):

@@ -129,6 +129,16 @@ def test_port_imports_no_jax():
     # command-line tools imported
     train = dict(TINY, **{"model.losses.l1_loss.max_disp": 64,
                           "data.batch_size_per_device": 1})
+    # AcfNet adaptive (with the vis hook, the profiler window and the
+    # TensorBoard writer) at max_disp 16
+    acf = {"model.max_disp": 16,
+           "model.cost_processor.cost_computation.max_disp": 4,
+           "model.cost_processor.cost_aggregator.max_disp": 16,
+           "model.disp_predictor.max_disp": 16,
+           "model.losses.l1_loss.max_disp": 16,
+           "model.losses.focal_loss.max_disp": 16,
+           "model.cmn.in_planes": 16,
+           "model.cmn.losses.nll_loss.max_disp": 16}
     code = f"""
 import sys, tempfile
 import numpy as np
@@ -151,6 +161,9 @@ import densematchingbenchmark_tpu_torch.evaluation.format
 import densematchingbenchmark_tpu_torch.evaluation.metrics
 import densematchingbenchmark_tpu_torch.ops.warp
 import densematchingbenchmark_tpu_torch.visualization
+import densematchingbenchmark_tpu_torch.evaluation.sparsification
+import densematchingbenchmark_tpu_torch.ops.disp2prob
+import densematchingbenchmark_tpu_torch.trainer.vis_hook
 from densematchingbenchmark_tpu_torch.tools import bench, demo, test, train
 model = init_model("PSMNet/scene_flow_f32", device="cpu", **{TINY!r})
 rng = np.random.RandomState(0)
@@ -163,6 +176,15 @@ ds.transform = transforms.make_train_transform((32, 64), (128.,) * 3, (64.,) * 3
 for name in ("PSMNet/scene_flow_f32", "PSMNet/scene_flow_bf16"):
     train_matcher(get_config(name, **{train!r}), tempfile.mkdtemp(),
                   train_dataset=ds, max_steps=1, device="cpu")
+acf = {acf!r}
+model = init_model("AcfNet/scene_flow_adaptive_f32", device="cpu", **acf)
+import torch
+out = model.forward(torch.zeros(1, 32, 64, 3), torch.zeros(1, 32, 64, 3))
+assert out["confs"][0].shape == (1, 32, 64, 1)
+train_matcher(get_config("AcfNet/scene_flow_adaptive_bf16", **acf,
+                         **{{"data.batch_size_per_device": 1}}),
+              tempfile.mkdtemp(), train_dataset=ds, eval_dataset=ds,
+              max_steps=1, device="cpu", profile_steps=(1, 1))
 microbench_packed.run(cases=(("tiny", (1, 8, 4, 6), 8, 4),), iters=1,
                       device="cpu")
 names = ("jax", "flax", "optax", "orbax", "densematchingbenchmark_tpu")
@@ -185,9 +207,9 @@ def test_init_model_without_cuda_raises(monkeypatch):
 @pytest.mark.parametrize("override", [
     {"model.cost_processor.type": "Difference"},
     {"model.backbone.type": "GCNet"},
-    {"model.cost_processor.cost_aggregator.type": "AcfNet"},
+    {"model.cost_processor.cost_aggregator.type": "StereoNet"},
     {"model.cost_processor.type": "Correlation"},
-    {"model.disp_predictor.type": "LOCAL"},
+    {"model.disp_refinement": {"type": "StereoNet"}},
     {"model.meta_architecture": "AnyNet"},
     {"task": "flow"},
 ])

@@ -87,18 +87,38 @@ def loss_inputs(seed):
     return est, gt
 
 
-def fake_params(seed):
-    """A flat parameter list with BN, bias and plain leaves."""
+def fake_params(seed, scales=(20.0, 1e-3, 0.3)):
+    """A flat parameter list with BN, bias and plain leaves, and one step
+    of gradients per scale."""
     rng = np.random.RandomState(seed)
     names = ["Conv_0.weight", "Conv_0.bias", "BatchNorm_0.weight",
              "BatchNorm_0.bias", "Conv_1.weight"]
     shapes = [(4, 3), (4,), (4,), (4,), (2, 2, 2)]
     params = [rng.randn(*s).astype(np.float32) for s in shapes]
-    # three steps of gradients, the first large enough to be clipped
+    # the first step large enough to be clipped
     grads = [[rng.randn(*s).astype(np.float32) * scale for s in shapes]
-             for scale in (20.0, 1e-3, 0.3)]
+             for scale in scales]
     grads[1][3][:] = 0.0         # a zero gradient: eps inside the root
     return names, params, grads
+
+
+# optimizer settings held against optax over five steps: RMSprop's three
+# options one at a time, Adam and SGD (their defaults and a variant)
+OPT_VARIANTS = {
+    "momentum-0.9": dict(type="rmsprop", momentum=0.9),
+    "alpha-0.9": dict(type="rmsprop", alpha=0.9),
+    "eps-1e-06": dict(type="rmsprop", eps=1e-6),
+    "adam": dict(type="adam"),
+    "adam-betas": dict(type="adam", beta1=0.8, beta2=0.99),
+    "sgd": dict(type="sgd"),
+    "sgd-0.5": dict(type="sgd", momentum=0.5),
+}
+OPT_SCALES = (20.0, 1e-3, 0.3, 1.0, 0.05)
+
+
+def optimizer_cfg(variant):
+    return dict(OPT_CFG, optimizer=dict(OPT_CFG["optimizer"],
+                                        **OPT_VARIANTS[variant]))
 
 
 def jax_tree(names, leaves):
@@ -176,6 +196,18 @@ def jax_results():
         traj.append(jax_leaves(names, p))
     out["optim"] = traj
     out["schedule"] = [float(schedule(i)) for i in range(10)]
+    names, params, grads = fake_params(6, OPT_SCALES)
+    for variant in OPT_VARIANTS:
+        tx, _ = joptim.build_optimizer(optimizer_cfg(variant),
+                                       STEPS_PER_EPOCH)
+        p = jax_tree(names, params)
+        opt_state = tx.init(p)
+        traj = []
+        for g in grads:
+            updates, opt_state = tx.update(jax_tree(names, g), opt_state, p)
+            p = optax.apply_updates(p, updates)
+            traj.append(jax_leaves(names, p))
+        out["optim", variant] = traj
 
     x = np.random.RandomState(7).randn(3, 4, 5, 6, 8).astype(np.float32) * 2
     bn = fnn.BatchNorm(use_running_average=False, momentum=0.9,
@@ -289,8 +321,7 @@ def test_smooth_l1_single_level_and_start_disp(jax_results):
                                rtol=1e-6)
 
 
-@pytest.mark.parametrize("name", ["gerf_loss", "focal_loss",
-                                  "quantile_loss"])
+@pytest.mark.parametrize("name", ["gerf_loss", "quantile_loss"])
 def test_unported_losses_raise(name):
     ev = tloss_builder.make_loss_evaluator({name: dict(max_disp=4)})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -333,11 +364,67 @@ def test_rmsprop_clip_and_paramwise_match_optax(jax_results):
     assert opt.count == 3
 
 
+def run_optimizer(variant):
+    """The port's optimizer of ``variant`` through OPT_SCALES' steps;
+    returns the parameters after each step and the optimizer."""
+    names, params, grads = fake_params(6, OPT_SCALES)
+    module = torch.nn.Module()
+    for name, value in zip(names, params):
+        mod, attr = name.split(".")
+        if not hasattr(module, mod):
+            module.add_module(mod, torch.nn.Module())
+        setattr(getattr(module, mod), attr,
+                torch.nn.Parameter(torch.from_numpy(value.copy())))
+    opt, _ = toptim.build_optimizer(optimizer_cfg(variant), module,
+                                    STEPS_PER_EPOCH)
+    assert opt.names == names
+    traj = []
+    for g in grads:
+        opt.step([torch.from_numpy(x) for x in g])
+        traj.append([p.detach().numpy().copy() for p in opt.params])
+    return traj, opt
+
+
+def assert_trajectory(got, want):
+    for step, (gs, ws) in enumerate(zip(got, want)):
+        for g, w in zip(gs, ws):
+            # rsqrt vs 1 / sqrt, the clip's and the bias correction's
+            # products in another order: ulps of updates of ~lr
+            np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6,
+                                       err_msg=f"step {step}")
+
+
 @pytest.mark.parametrize("key,value", [("momentum", 0.9), ("alpha", 0.9),
                                        ("eps", 1e-6)])
-def test_rmsprop_options_not_ported_raise(key, value):
-    cfg = {"optimizer": dict(OPT_CFG["optimizer"], **{key: value})}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_rmsprop_options_not_ported_raise(jax_results, key, value):
+    """RMSprop's options, once refused, now follow optax.rmsprop over five
+    steps (the momentum trace of the learning-rate-scaled updates, eps
+    inside the root), with the clip and the paramwise scales."""
+    variant = f"{key}-{value}"
+    assert OPT_VARIANTS[variant] == {"type": "rmsprop", key: value}
+    traj, opt = run_optimizer(variant)
+    assert_trajectory(traj, jax_results["optim", variant])
+    assert isinstance(opt, toptim.RMSprop) and opt.count == 5
+    state = opt.state_dict()
+    assert set(state) == ({"nu", "trace", "count"} if key == "momentum"
+                          else {"nu", "count"})
+
+
+@pytest.mark.parametrize("variant", ["adam", "adam-betas", "sgd",
+                                     "sgd-0.5"])
+def test_adam_and_sgd_match_optax(jax_results, variant):
+    traj, opt = run_optimizer(variant)
+    assert_trajectory(traj, jax_results["optim", variant])
+    # the state round-trips through a checkpoint
+    other = run_optimizer(variant)[1]
+    other.load_state_dict(opt.state_dict())
+    assert all(torch.equal(a, b) for key in opt._STATE
+               for a, b in zip(getattr(opt, key), getattr(other, key)))
+
+
+def test_unknown_optimizer_raises():
+    cfg = dict(OPT_CFG, optimizer=dict(type="lamb", lr=0.01))
+    with pytest.raises(ValueError, match="lamb"):
         toptim.build_optimizer(cfg, torch.nn.Linear(2, 2), STEPS_PER_EPOCH)
 
 
