@@ -138,6 +138,31 @@ PyTorch version on the card. Phases, each fatal on failure:
      peak), and tools/train.main --profile 2:3 on the uniform config
      (--synthetic 256x512): the torch.profiler trace and the vis panels.
      Its launches join the kernels line's counts.
+ 10. StereoNet (8x; max_disp 192, 24 cost disparities at 1/8): K1 and
+     K4's bfloat16 route as the biased 32->32 eval unit at 24x48x156,
+     batch 1 and 4, against the plain version and the unfused conv + bias,
+     BN, ReLU, with one call, chained, cuDNN and the bound; K4's training
+     route at 4x24x32x64 in both dtypes, forward and backward against the
+     plain autograd; K2 at 24 disparities (forward at the eval costs,
+     forward and backward at the training cost). Fault 8 (the width
+     dispatch): fusable units of 128->128, 65->64 and 32->32 in both
+     dtypes, eval and training, run on their kernels at widths the blocks
+     take (zero channels; 128 in bfloat16 as two Ci slices), one launch a
+     slice and no library conv, against the CPU.
+     Then init_model("StereoNet/scene_flow_8x_4stage_{f32,bf16}", seed 0)
+     + inference_stereo over three random 375x1242 pairs padded to
+     384x1248 and the 2-stage config over one, launches asserted (a
+     forward K1 4 or K4's bf16 route 4, K2 1, K3 none), the forward's ms
+     and its layers' (the refinement's share), the bf16-vs-float32 gap on
+     the same weights, a small model on the card against the CPU in each
+     dtype. tools/test.main on the 4-stage config in both dtypes over six
+     SceneFlow-layout pairs the script writes (540x960 PNGs, PFM
+     disparities of both views, an annotation JSON) padded to 544x960 at
+     eval batch 4, all four disparities scored, against batch-1
+     inference_stereo with float64 per-sample metrics; the eval step's ms
+     and peak at batch 4 and 1. train_matcher on the 4-stage config for 5
+     steps in each dtype at its 4x256x512 (a step K4 4, K2 1 forward and
+     1 backward).
 
 Prints a JSON line of per-kernel numbers before the last line (K4's and
 K5's bfloat16 routes in the microbench in rows of their own, ``*_bf16``,
@@ -153,7 +178,8 @@ the launch count and the device's busy share of one forward in each eval
 mode, of one evaluate over the eval phase's six pairs in each mode, and
 of one training step at 256x512 batch 3, in float32 and in bfloat16; and
 the same for AcfNet's forward, train step and eval step, with the device
-time of its learned upsample's and ConfHead's convolutions named.
+time of its learned upsample's and ConfHead's convolutions named, and for
+StereoNet's 4-stage forward, eval step and train step.
 """
 
 import contextlib
@@ -2420,12 +2446,13 @@ def acf_eval_phase(smi, root, ann):
     return launches["_f32"], launches["_bf16"]
 
 
-def acf_train_phase(smi, name, steps):
-    """train_matcher on ``name`` at full width, its 256x512 crop at batch
-    3, for ``steps`` steps: launches asserted (a step K4 13, K2 3 forward
-    and 3 backward; the bfloat16 route in bfloat16), the loss and every
-    loss entry finite, the step's ms (median of steps 2 on, host clock)
-    and the peak. Returns the launch counts."""
+def family_train_phase(smi, name, steps, units=13, argmins=3, keys=None):
+    """train_matcher on ``name`` at full width, its crop and batch, for
+    ``steps`` steps: launches asserted (a step K4 ``units``, K2 ``argmins``
+    forward and as many backward; the bfloat16 route in bfloat16), the
+    loss and every loss entry finite (``keys``; AcfNet's by default), the
+    step's ms (median of steps 2 on, host clock) and the peak. Returns the
+    launch counts."""
     from densematchingbenchmark_tpu_torch.configs import get_config
     from densematchingbenchmark_tpu_torch.data import (SyntheticStereoDataset,
                                                        transforms)
@@ -2435,9 +2462,9 @@ def acf_train_phase(smi, name, steps):
     cfg = get_config(name)
     bf16 = cfg["model"]["dtype"] == "bfloat16"
     data = cfg["data"]
-    crop = data["train"]["input_shape"]
+    crop, batch = data["train"]["input_shape"], data["batch_size_per_device"]
     ds = SyntheticStereoDataset(
-        length=TRAIN_BATCH * (steps + 1), height=crop[0] + 32,
+        length=batch * (steps + 1), height=crop[0] + 32,
         width=crop[1] + 64, max_disp=cfg["model"]["max_disp"],
         transform=transforms.make_train_transform(crop, data["mean"],
                                                   data["std"]))
@@ -2452,16 +2479,19 @@ def acf_train_phase(smi, name, steps):
         bf16_counts = kernels.bf16_launch_counts()
         records = [r for r in read_metrics(work) if "train/loss" in r]
     assert counts == {"fused_conv3d": 0,
-                      "fused_soft_argmin": 3 * steps,
-                      "fused_soft_argmin_backward": 3 * steps,
+                      "fused_soft_argmin": argmins * steps,
+                      "fused_soft_argmin_backward": argmins * steps,
                       "fused_upsample_soft_argmin": 0,
-                      "conv3d_packed_s1": 13 * steps,
+                      "conv3d_packed_s1": units * steps,
                       "conv3d_packed_s1_v2": 0}, counts
-    assert bf16_counts["conv3d_packed_s1"] == (13 * steps if bf16 else 0)
-    adaptive = "cmn" in cfg["model"]
-    keys = ["loss"] + [f"{k}_lvl{i}" for i in range(3) for k in (
-        ("l1_loss", "stereo_focal_loss", "conf_loss") if adaptive
-        else ("l1_loss", "stereo_focal_loss"))]
+    assert bf16_counts["conv3d_packed_s1"] == (units * steps if bf16
+                                               else 0)
+    if keys is None:
+        adaptive = "cmn" in cfg["model"]
+        keys = [f"{k}_lvl{i}" for i in range(3) for k in (
+            ("l1_loss", "stereo_focal_loss", "conf_loss") if adaptive
+            else ("l1_loss", "stereo_focal_loss"))]
+    keys = ["loss"] + list(keys)
     assert [r["step"] for r in records] == list(range(1, steps + 1))
     for r in records:
         for k in keys:
@@ -2471,7 +2501,7 @@ def acf_train_phase(smi, name, steps):
     which = f"median of steps 2-{steps}" if steps > 1 else "step 1"
     peak = max(r["train/peak_mem_gib"] for r in records)
     first = records[0]
-    print(f"train {name}: {TRAIN_BATCH}x{crop[0]}x{crop[1]}, {steps} steps: "
+    print(f"train {name}: {batch}x{crop[0]}x{crop[1]}, {steps} steps: "
           f"losses {[round(r['train/loss'], 4) for r in records]}; step 1 "
           + ", ".join(f"{k} {first['train/' + k]:.4f}" for k in keys[1:])
           + f"; step {step_ms:.2f} ms ({which}, host clock), peak "
@@ -2558,6 +2588,644 @@ def acf_profile_phase():
         torch.cuda.empty_cache()
 
 
+# StereoNet (8x, 2-stage and 4-stage) at full width: max_disp 192, 24 cost
+# disparities at 1/8 resolution. Its trunk is 4 biased 32->32 units at
+# D/8 x H/8 x W/8 = 24x48x156 of a 384x1248 frame (K1 in float32 eval, K4's
+# bfloat16 route in bf16 eval, K4 in training at the 256x512 crop's
+# 24x32x64), K2 regresses one float32 cost of 24 disparities (in both
+# dtypes: the aggregator returns float32, as JAX's), and the refinement's
+# full-resolution 2-D convs are cuDNN's.
+STEREO_CONFIG = "StereoNet/scene_flow_8x_4stage"
+STEREO_TWO = "StereoNet/scene_flow_8x_2stage"
+STEREO_UNITS, STEREO_TRUNK = 4, (24, 48, 156)
+STEREO_TRAIN_TRUNK = (24, 32, 64)
+# SceneFlow frames (540x960) padded to the config's test shape
+STEREO_EVAL_IMAGE, STEREO_EVAL_PAD, STEREO_EVAL_N = (540, 960), (544, 960), 6
+STEREO_SMALL = {"model.max_disp": 64,
+                "model.cost_processor.cost_computation.max_disp": 8,
+                "model.disp_predictor.max_disp": 8,
+                "model.losses.l1_loss.max_disp": 64,
+                "data.batch_size_per_device": 2}
+# A refined disparity in bfloat16 on the card against the CPU: two
+# bfloat16 runs that round at other points (cuDNN's convs and the CPU's)
+# each carry bfloat16's own error, which a refinement stage adds at the
+# scale of its residual (tens of px at random weights). So each refined
+# disparity's mean gap is held to STEREO_BF16_NOISE times the CPU's own
+# bfloat16-vs-float32 mean gap on the same weights (measured at the small
+# model: 0.149 / 0.125 / 0.082 px; the card's first run 0.213 px on the
+# best, 1.43x), plus 0.01 px; the initial disparity, the trunk's soft-argmin
+# as PSMNet's, within BF16_CPU_ATOL.
+STEREO_BF16_NOISE = 2.0
+# ... and the card's own bfloat16-vs-float32 mean gap on a refined
+# disparity between these multiples of the CPU's (+ 1e-3 px above), the
+# rule the CPU tests hold the port's own gap to against JAX's: the lower
+# side fails a refinement that ignores bfloat16 (its own gap is then 3 %
+# of JAX's at the CPU tests' size)
+STEREO_OWN_RANGE = (0.8, 1.25)
+# the widths of fault 8: (Ci, Co) of fusable units at widths the kernel
+# blocks do not take as they are (GCNet's 128 -> 128, above the bfloat16
+# block's Ci of 112; an odd width in both dtypes), and StereoNet's own,
+# which both blocks take
+FAULT8_WIDTHS = ((128, 128), (65, 64), (32, 32))
+
+
+def biased_unit(cin, cout, dtype, gen):
+    """A biased trunk ConvUnit on the card with random weights, conv bias
+    and BN (scale 0.7-1.1, var 0.9-1.4, bias and mean 0.1 N(0, 1))."""
+    from densematchingbenchmark_tpu_torch.models.layers import ConvUnit
+    unit = ConvUnit(cin, cout, 3, 1, 1, dims=3, bias=True,
+                    dtype=dtype).cuda()
+    conv, bn = unit.Conv_0, unit.BatchNorm_0
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, device="cuda",
+                                      generator=gen) * (27 * cin) ** -0.5)
+        conv.bias.copy_(torch.randn(cout, device="cuda", generator=gen)
+                        * 0.5)
+        bn.weight.copy_(torch.rand(cout, device="cuda", generator=gen) * 0.4
+                        + 0.7)
+        bn.bias.copy_(torch.randn(cout, device="cuda", generator=gen) * 0.1)
+        bn.running_mean.copy_(torch.randn(cout, device="cuda",
+                                          generator=gen) * 0.1)
+        bn.running_var.copy_(torch.rand(cout, device="cuda", generator=gen)
+                             * 0.5 + 0.9)
+    return unit
+
+
+def check_stereonet_kernels(gen):
+    """The kernels at StereoNet's shapes. K1 (float32) and K4's bfloat16
+    route (the eval unit on its kept operands) as the biased 32->32 unit
+    at 24x48x156, batch 1 and 4: against the plain version on the folded
+    operands (CONV_RTOL; BF16_STEP besides) and the unfused conv + bias,
+    BN, ReLU; one call, chained, the plain version, cuDNN's F.conv3d with
+    the same affine and ReLU in the unit's dtype, the bound. K4's
+    training route at the 256x512 crop's 4x24x32x64 in both dtypes,
+    forward and backward (x and the kernel) against the plain version's
+    autograd (CONV_GRAD_RTOL; BF16_STEP besides). K2 at 24 disparities:
+    forward at the 384x1248 and the 544x960 batch-4 costs, forward and
+    backward at the training cost. Returns {row: extra keys}."""
+    from densematchingbenchmark_tpu_torch.ops import cuda as kernels
+    from densematchingbenchmark_tpu_torch.ops.cost_volume import (
+        disp_sample_values)
+    from densematchingbenchmark_tpu_torch.ops.cuda import (
+        conv3d_packed_s1, conv3d_packed_s1_plain, conv3d_plain,
+        fused_soft_argmin, soft_argmin_plain)
+    out = {}
+    d, h, w = STEREO_TRUNK
+    for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
+        row = "fused_conv3d" if f32 else "conv3d_packed_s1_bf16_pack1"
+        for batch in (1, EVAL_BATCH):
+            unit = biased_unit(32, 32, dtype, gen).eval()
+            x = torch.randn((batch, d, h, w, 32), device="cuda",
+                            generator=gen).to(dtype)
+            kernels.reset_launch_counts()
+            with torch.inference_mode():
+                got = unit(x)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            assert counts["fused_conv3d" if f32 else "conv3d_packed_s1"] \
+                == 1 and sum(counts.values()) == 1, counts
+            with torch.no_grad():
+                inv, shift = unit.folded_bn()
+                kernel = unit.Conv_0.weight.permute(2, 3, 4, 1, 0).to(dtype)
+                want = (conv3d_plain(x, kernel, inv, shift, True) if f32
+                        else conv3d_packed_s1_plain(x, kernel, inv, shift,
+                                                    1, True))
+                conv, bn = unit.Conv_0, unit.BatchNorm_0
+                unfused = torch.relu(F.batch_norm(
+                    F.conv3d(x.float().movedim(-1, 1),
+                             conv.weight.to(dtype).float(), conv.bias,
+                             padding=1), bn.running_mean, bn.running_var,
+                    bn.weight, bn.bias, False, 0.0, bn.eps)).movedim(1, -1)
+            top = want.float().abs().max().item()
+            tol = (CONV_RTOL if f32 else CONV_RTOL + BF16_STEP) * top
+            err = (got.float() - want.float()).abs().max().item()
+            err_unfused = (got.float() - unfused).abs().max().item()
+            assert err <= tol and err_unfused <= tol, (dtype, batch, err,
+                                                       err_unfused, tol)
+            with torch.inference_mode():
+                call = lambda: unit(x)
+                ms, chain = time_ms(call), chained_ms(call)
+                x_cf = x.movedim(-1, 1)
+                w_oi = unit.Conv_0.weight.to(dtype)
+                s5, b5 = (t.view(1, -1, 1, 1, 1).to(dtype) for t in (inv,
+                                                                    shift))
+                lib = time_ms(lambda: torch.relu(
+                    F.conv3d(x_cf, w_oi, padding=1) * s5 + b5))
+                plain = time_ms(lambda: (
+                    conv3d_plain(x, kernel, inv, shift, True) if f32 else
+                    conv3d_packed_s1_plain(x, kernel, inv, shift, 1, True)),
+                    3)
+            vox = batch * d * h * w
+            size = 4 if f32 else 2
+            b_ms, b_by = bound_ms(2 * 27 * 32 * 32 * vox,
+                                  size * (2 * vox * 32 + 27 * 32 * 32)
+                                  + 8 * 32,
+                                  PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
+            print(f"stereonet trunk {'K1' if f32 else 'K4 bf16'} biased "
+                  f"32->32 {batch}x{d}x{h}x{w} (x{STEREO_UNITS}/fwd): eval "
+                  f"unit {ms:.3f} ms, chained {chain:.3f}; F.conv3d "
+                  f"{'bf16' if not f32 else 'f32'}+affine+ReLU {lib:.3f}; "
+                  f"plain {plain:.3f}; bound {b_ms:.4f} ({b_by}); "
+                  f"max_abs_err {err:.3g} against the plain version, "
+                  f"{err_unfused:.3g} against the unfused conv + bias, BN, "
+                  f"ReLU (tolerance {tol:.3g})")
+            if batch == 1:
+                out[row] = {"stereonet_unit": "per forward (4 launches, "
+                            "biased 32->32 at 24x48x156, batch 1)",
+                            "stereonet_ms": STEREO_UNITS * ms,
+                            "stereonet_chained_ms": STEREO_UNITS * chain,
+                            "stereonet_plain_ms": STEREO_UNITS * plain,
+                            "stereonet_library_ms": STEREO_UNITS * lib,
+                            "stereonet_bound_ms": STEREO_UNITS * b_ms,
+                            "stereonet_max_abs_err": err}
+            else:
+                out[row]["stereonet_max_abs_err"] = max(
+                    out[row]["stereonet_max_abs_err"], err)
+            del unit, x, got, want, unfused
+        # K4's training route, forward and backward
+        td, th, tw = STEREO_TRAIN_TRUNK
+        x = torch.randn((4, td, th, tw, 32), device="cuda",
+                        generator=gen).to(dtype).requires_grad_()
+        k = (torch.randn((3, 3, 3, 32, 32), device="cuda", generator=gen)
+             * (27 * 32) ** -0.5).to(dtype).requires_grad_()
+        g = torch.randn((4, td, th, tw, 32), device="cuda",
+                        generator=gen).to(dtype)
+        kernels.reset_launch_counts()
+        got = conv3d_packed_s1(x, k, pack=1)
+        gx, gk = torch.autograd.grad(got, (x, k), g)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["conv3d_packed_s1"] == 1
+        want = conv3d_packed_s1_plain(x, k, pack=1)
+        wx, wk = torch.autograd.grad(want, (x, k), g)
+        errs = []
+        for a, b, rtol in ((got, want, CONV_RTOL), (gx, wx, CONV_GRAD_RTOL),
+                           (gk, wk, CONV_GRAD_RTOL)):
+            tol = (rtol + (0 if f32 else BF16_STEP)) * \
+                b.float().abs().max().item()
+            e = (a.float() - b.float()).abs().max().item()
+            assert e <= tol, (dtype, e, tol)
+            errs.append(e)
+        print(f"stereonet K4 {'float32' if f32 else 'bf16'} training route "
+              f"4x{td}x{th}x{tw} 32->32: forward max_abs_err {errs[0]:.3g}, "
+              f"grad x {errs[1]:.3g}, grad kernel {errs[2]:.3g} against the "
+              f"plain version's autograd")
+        out.setdefault("conv3d_packed_s1" if f32 else
+                       "conv3d_packed_s1_bf16_pack1", {})[
+            "stereonet_train_max_abs_err"] = max(errs)
+        del x, k, g, got, gx, gk, want, wx, wk
+    # K2 at 24 disparities
+    vals = torch.as_tensor(disp_sample_values(24), device="cuda")
+    errs, times = [], {}
+    for shape in ((1, 24, 48, 156), (EVAL_BATCH, 24, 68, 120),
+                  (4, 24, 32, 64)):
+        cost = (torch.randn(shape, device="cuda", generator=gen)
+                * 3).requires_grad_()
+        kernels.reset_launch_counts()
+        got = fused_soft_argmin(cost, 24)
+        g = torch.randn_like(got)
+        (gc,) = torch.autograd.grad(got, cost, g)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["fused_soft_argmin"] == 1
+        assert kernels.launch_counts()["fused_soft_argmin_backward"] == 1
+        want = soft_argmin_plain(cost, vals)
+        (wc,) = torch.autograd.grad(want, cost, g)
+        e = (got - want).abs().max().item()
+        eg = (gc - wc).abs().max().item()
+        assert e <= ARGMIN_ATOL, (shape, e)
+        assert eg <= ARGMIN_GRAD_RTOL * wc.abs().max().item(), (shape, eg)
+        errs.append(e)
+        c = cost.detach()
+        times[shape] = (time_ms(lambda: fused_soft_argmin(c, 24)),
+                        bound_ms(6 * c.numel(), 4 * (c.numel() + 24
+                                                     + c[:, 0].numel()))[0])
+        del cost, got, gc, want, wc, c
+    print("stereonet K2 at 24 disparities (not a multiple of its 32-sample "
+          "block): " + ", ".join(
+              f"{list(s)} {t:.4f} ms, bound {b:.4f}" for s, (t, b)
+              in times.items()) + f"; forward max_abs_err {max(errs):.3g} "
+          "px, backward within ARGMIN_GRAD_RTOL of the plain autograd")
+    out["fused_soft_argmin"] = {"stereonet_max_abs_err": max(errs),
+                                "stereonet_ms": times[1, 24, 48, 156][0],
+                                "stereonet_bound_ms":
+                                    times[1, 24, 48, 156][1]}
+    torch.cuda.empty_cache()
+    return out
+
+
+def stereonet_breakdown(model, left, right):
+    """Device ms (CUDA events, median of 3) of the eval forward's layers
+    on one padded pair: the backbone, the cost processor (difference
+    volume and aggregator: the trunk on K1 / K4), the soft-argmin (K2) and
+    the refinement (cuDNN's 2-D convs), beside the whole forward."""
+    module = model.module
+    with torch.inference_mode():
+        feats = module.backbone(left, right)
+        costs = module.cost_processor(*feats)
+        disps = [module.disp_predictor(c) for c in costs]
+        parts = {
+            "backbone": time_ms(lambda: module.backbone(left, right), 3),
+            "volume + aggregator": time_ms(
+                lambda: module.cost_processor(*feats), 3),
+            "soft-argmin": time_ms(lambda: module.disp_predictor(costs[0]),
+                                   3),
+            "refinement": time_ms(lambda: module.disp_refinement(
+                disps, *feats, left, right), 3)}
+        parts["forward"] = time_ms(lambda: model.forward(left, right), 3)
+    return parts
+
+
+def stereonet_forward(name, pairs):
+    """init_model(name, seed 0) + inference_stereo over ``pairs`` padded to
+    PADDED, launches asserted (per forward K1 4 in float32 or K4's bf16
+    route 4, K2 1, K3 none); disparities finite, the refined ones >= 0
+    (a ReLU), the initial one in [0, 184] (24 samples x 8); the forward's
+    ms, its layers' and the peak. Returns (disparities, counts, bf16
+    counts, ms, layers, peak GiB)."""
+    from densematchingbenchmark_tpu_torch.apis import (inference_stereo,
+                                                       init_model)
+    from densematchingbenchmark_tpu_torch.ops import cuda as kernels
+    model = init_model(name, seed=0)
+    f32 = model.cfg["model"]["dtype"] == "float32"
+    stages = 4 if name.startswith(STEREO_CONFIG) else 2
+    n = len(pairs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    results = inference_stereo(model, pairs, pad_to_shape=PADDED)
+    torch.cuda.synchronize()
+    counts, bf16 = kernels.launch_counts(), kernels.bf16_launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    units = STEREO_UNITS * n
+    assert counts == {"fused_conv3d": units if f32 else 0,
+                      "fused_soft_argmin": n,
+                      "fused_soft_argmin_backward": 0,
+                      "fused_upsample_soft_argmin": 0,
+                      "conv3d_packed_s1": 0 if f32 else units,
+                      "conv3d_packed_s1_v2": 0}, counts
+    assert bf16["conv3d_packed_s1"] == (0 if f32 else units), bf16
+    disps = [r["disps"] for r in results]
+    for ds in disps:
+        assert len(ds) == stages
+        for d in ds:
+            assert d.shape == (1, *IMAGE, 1) and np.isfinite(d).all()
+            assert d.min() >= -1e-3, d.min()
+        # the upsampled soft-argmin: an expectation over 0..23 times 8
+        assert ds[-1].max() <= 23 * 8 + 1e-2, ds[-1].max()
+    left, right = padded_input(model, pairs[0])
+    with torch.inference_mode():
+        ms = time_ms(lambda: model.forward(left, right), FORWARD_REPS)
+    parts = stereonet_breakdown(model, left, right)
+    del model
+    torch.cuda.empty_cache()
+    return disps, counts, bf16, ms, parts, peak
+
+
+def stereonet_slice_phase(smi):
+    """StereoNet inference at full width: the 4-stage config in float32
+    and bfloat16 over three random 375x1242 pairs, the 2-stage config over
+    one pair in each dtype, with the launches of each run asserted; the
+    bfloat16-vs-float32 gap on the same weights; the layers of each
+    4-stage forward (the refinement's share); a small 4-stage model on the
+    card against the CPU in each dtype. Returns the float32 and bfloat16
+    launch counts."""
+    from densematchingbenchmark_tpu_torch.apis import (StereoModel,
+                                                       inference_stereo,
+                                                       init_model)
+    rng = np.random.RandomState(5)
+    pairs = random_pairs(rng, PAIRS, IMAGE)
+    launches = {"_f32": None, "_bf16": None}
+    runs = {}
+    for config, run_pairs in ((STEREO_CONFIG, pairs),
+                              (STEREO_TWO, pairs[:1])):
+        for suffix in ("_f32", "_bf16"):
+            disps, counts, bf16, ms, parts, peak = stereonet_forward(
+                config + suffix, run_pairs)
+            runs[config, suffix] = disps
+            launches[suffix] = (counts if launches[suffix] is None else
+                                {k: launches[suffix][k] + v
+                                 for k, v in counts.items()})
+            share = 100 * parts["refinement"] / parts["forward"]
+            print(f"stereonet {config + suffix}: inference_stereo over "
+                  f"{len(run_pairs)} pairs {IMAGE} padded to {PADDED}, "
+                  f"{len(disps[0])} disparities each, finite; launches "
+                  f"{counts} (bf16 route {bf16}); forward {ms:.2f} ms "
+                  f"(median of {FORWARD_REPS}, CUDA events), by layer "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+                  + f" ms: the refinement {share:.1f} % of the forward; "
+                  f"peak {peak:.2f} GiB at batch 1; {smi}")
+    gaps = [[float(np.abs(a - b).mean()) for a, b in zip(da, db)]
+            for da, db in zip(runs[STEREO_CONFIG, "_f32"],
+                              runs[STEREO_CONFIG, "_bf16"])]
+    init = max(g[-1] for g in gaps)
+    print(f"stereonet: bf16 vs float32 on the same weights (seed 0), mean "
+          f"|gap| by disparity (best first) over the pairs: "
+          + "; ".join(", ".join(f"{x:.4f}" for x in g) for g in gaps)
+          + f" px (the initial disparity's within BF16_GAP_ATOL "
+          f"{BF16_GAP_ATOL})")
+    assert np.isfinite(gaps).all() and init <= BF16_GAP_ATOL, gaps
+
+    # a small model on the card against the same weights on the CPU
+    small = random_pairs(rng, 1, SMALL_IMAGE)
+    pad = tuple(-(-s // 32) * 32 for s in SMALL_IMAGE)
+    cpu_disps, card_disps, report = {}, {}, []
+    for suffix in ("_f32", "_bf16"):
+        cpu = init_model(STEREO_CONFIG + suffix, device="cpu", seed=4,
+                         **STEREO_SMALL)
+        damp_bn(cpu.module, 4)
+        card = StereoModel(cpu.cfg, copy.deepcopy(cpu.module).cuda(),
+                           torch.device("cuda"))
+        want = inference_stereo(cpu, small, pad_to_shape=pad)[0]["disps"]
+        got = inference_stereo(card, small, pad_to_shape=pad)[0]["disps"]
+        cpu_disps[suffix], card_disps[suffix] = want, got
+        if suffix == "_f32":
+            err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+            assert err <= CPU_ATOL, (suffix, err)
+            report.append(f"float32 {err:.4g} px (max, tolerance "
+                          f"{CPU_ATOL})")
+            continue
+        gaps = [float(np.abs(g - w).mean()) for g, w in zip(got, want)]
+        own = [float(np.abs(a - b).mean()) for a, b in zip(
+            want, cpu_disps["_f32"])]
+        card_own = [float(np.abs(a - b).mean()) for a, b in zip(
+            got, card_disps["_f32"])]
+        assert gaps[-1] <= BF16_CPU_ATOL, (gaps, own)
+        assert all(g <= STEREO_BF16_NOISE * o + 0.01
+                   for g, o in zip(gaps, own)), (gaps, own)
+        assert all(STEREO_OWN_RANGE[0] * o <= c
+                   <= STEREO_OWN_RANGE[1] * o + 1e-3
+                   for c, o in zip(card_own[:-1], own)), (card_own, own)
+        report.append("bf16 mean " + ", ".join(f"{g:.4f}" for g in gaps)
+                      + " px by disparity (best first), where the CPU's own "
+                      "bf16 and float32 lie " + ", ".join(
+                          f"{o:.4f}" for o in own) + " px apart (tolerance "
+                      f"{STEREO_BF16_NOISE}x that + 0.01; the initial "
+                      f"disparity {BF16_CPU_ATOL}) and the card's own "
+                      + ", ".join(f"{c:.4f}" for c in card_own)
+                      + f" (refined within {STEREO_OWN_RANGE}x the CPU's)")
+    print(f"stereonet small model ({STEREO_SMALL['model.max_disp']} disps, "
+          f"{SMALL_IMAGE}), card vs CPU plain versions: " + "; ".join(report))
+    return launches["_f32"], launches["_bf16"]
+
+
+def write_sceneflow_dataset(root):
+    """SceneFlow-layout files from SyntheticStereoDataset (seeded,
+    disparities 1-191, 540x960): RGB PNGs (pair i with row filter i % 5),
+    PFM disparities of both views and an annotation JSON, as
+    data/datasets.SceneFlowDataset reads them. Returns (its path, the
+    items)."""
+    from densematchingbenchmark_tpu_torch.data import SyntheticStereoDataset
+    from densematchingbenchmark_tpu_torch.data import io as dio
+    items = []
+    for i in range(STEREO_EVAL_N):
+        s = SyntheticStereoDataset(length=1, height=STEREO_EVAL_IMAGE[0],
+                                   width=STEREO_EVAL_IMAGE[1], max_disp=192,
+                                   seed=10 + i, with_right_disp=True).load(0)
+        item = {"height": STEREO_EVAL_IMAGE[0],
+                "width": STEREO_EVAL_IMAGE[1]}
+        for key, kind, rel in (
+                ("leftImage", "left_image_path", f"frames/left/{i:04d}.png"),
+                ("rightImage", "right_image_path",
+                 f"frames/right/{i:04d}.png"),
+                ("leftDisp", "left_disp_map_path",
+                 f"disparity/left/{i:04d}.pfm"),
+                ("rightDisp", "right_disp_map_path",
+                 f"disparity/right/{i:04d}.pfm")):
+            path = os.path.join(root, rel)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            if key.endswith("Disp"):
+                dio.save_pfm(path, s[key][..., 0])
+            else:
+                dio.save_png(path, np.clip(np.round(s[key]), 0, 255).astype(
+                    np.uint8), i % 5)
+            item[kind] = rel
+        items.append(item)
+    ann = os.path.join(root, "sceneflow_test.json")
+    with open(ann, "w") as fp:
+        json.dump(items, fp)
+    return ann, items
+
+
+def stereonet_eval_phase(smi, root, ann, items):
+    """tools/test.main on StereoNet/scene_flow_8x_4stage in float32 and
+    bfloat16 over the SceneFlow-layout set at ``root``, padded to the
+    config's 544x960, at eval batch 4 (two batches), every disparity of
+    eval_disparity_id (0, 1, 2, 3) scored: launches asserted (a batch K1 4
+    or K4's bf16 route 4, K2 1); each run's metrics against batch-1
+    inference_stereo on the same files with per-sample metrics in float64
+    (EVAL_EPE_ATOL, EVAL_PX_ATOL); the bfloat16 EPEs beside float32's;
+    the eval step's ms a sample and peak at batch 4 and 1. Returns the
+    float32 and bfloat16 launch counts."""
+    from densematchingbenchmark_tpu_torch.apis import (inference_stereo,
+                                                       init_model)
+    from densematchingbenchmark_tpu_torch.configs import get_config
+    from densematchingbenchmark_tpu_torch.data import (build_dataset,
+                                                       collate, transforms)
+    from densematchingbenchmark_tpu_torch.data import io as dio
+    from densematchingbenchmark_tpu_torch.evaluation import eval_loop
+    from densematchingbenchmark_tpu_torch.ops import cuda as kernels
+    from densematchingbenchmark_tpu_torch.tools import test as test_tool
+    launches, by_dtype = {}, {}
+    batches = -(-STEREO_EVAL_N // EVAL_BATCH)
+    for suffix in ("_f32", "_bf16"):
+        name = STEREO_CONFIG + suffix
+        f32 = suffix == "_f32"
+        cfg = get_config(name)
+        assert tuple(cfg["eval_disparity_id"]) == (0, 1, 2, 3)
+        assert tuple(cfg["data"]["test"]["input_shape"]) == STEREO_EVAL_PAD
+        assert cfg["model"]["eval"]["batch_size"] == EVAL_BATCH
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        results, n = test_tool.main([
+            "--config", name, "--work-dir", os.path.join(root, "work"),
+            "--data-root", root, "--annfile", ann, "--override",
+            "data.test.use_right_disp=True"])
+        torch.cuda.synchronize()
+        counts, bf16 = kernels.launch_counts(), kernels.bf16_launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        units = STEREO_UNITS * batches
+        assert n == STEREO_EVAL_N and counts == {
+            "fused_conv3d": units if f32 else 0,
+            "fused_soft_argmin": batches,
+            "fused_soft_argmin_backward": 0,
+            "fused_upsample_soft_argmin": 0,
+            "conv3d_packed_s1": 0 if f32 else units,
+            "conv3d_packed_s1_v2": 0}, (n, counts)
+        assert bf16["conv3d_packed_s1"] == (0 if f32 else units), bf16
+        assert {k.split("/")[0] for k in results} == {
+            f"disp_{i}" for i in range(4)}, sorted(results)
+        launches[suffix] = counts
+        by_dtype[suffix] = results
+
+        # the reference: batch-1 inference_stereo on the same files,
+        # metrics per sample in float64
+        model = init_model(cfg, seed=0)
+        sums = {}
+        for item in items:
+            path = lambda k: os.path.join(root, item[k])
+            out = inference_stereo(model, [{
+                "leftImage": dio.load_image(path("left_image_path")),
+                "rightImage": dio.load_image(path("right_image_path"))}],
+                pad_to_shape=STEREO_EVAL_PAD)[0]["disps"]
+            gt = dio.load_pfm(path("left_disp_map_path"))[0]
+            rgt = dio.load_pfm(path("right_disp_map_path"))[0]
+            for did, d in enumerate(out):
+                for k, v in metrics_f64(d[0, ..., 0], gt, rgt).items():
+                    key = f"disp_{did}/{k}"
+                    sums[key] = sums.get(key, 0.0) + v
+        ref = {k: v / len(items) for k, v in sums.items()}
+        epe, px = compare_metrics(results, ref, f"stereonet {suffix}")
+
+        # the eval step (forward + metrics) a sample at batch 4 and 1
+        test_cfg = dict(cfg["data"], data_root=root, test=dict(
+            cfg["data"]["test"], annfile=ann, use_right_disp=True))
+        ds = build_dataset(test_cfg, "test", transforms.make_eval_transform(
+            STEREO_EVAL_PAD, cfg["data"]["mean"], cfg["data"]["std"]))
+        ecfg, ids = cfg["model"]["eval"], cfg["eval_disparity_id"]
+        step = eval_loop.make_eval_metrics_step(
+            model.module, ecfg["lower_bound"], ecfg["upper_bound"], ids,
+            ecfg["eval_occlusion"])
+        b4 = eval_loop.to_device(collate([ds[i] for i in range(
+            EVAL_BATCH)]), model.device)
+        b1 = {k: v[:1] for k, v in b4.items()}
+        peaks = {}
+        for b, bt in ((EVAL_BATCH, b4), (1, b1)):
+            step(bt)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step(bt)
+            torch.cuda.synchronize()
+            peaks[b] = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms4 = time_ms(lambda: step(b4), 3) / EVAL_BATCH
+        ms1 = time_ms(lambda: step(b1), 3)
+        print(f"eval {name}: {n} SceneFlow-layout samples "
+              f"{STEREO_EVAL_IMAGE} padded to {STEREO_EVAL_PAD}, "
+              f"{batches} batches of {EVAL_BATCH}; launches {counts}; EPE "
+              + ", ".join(f"disp_{i} {results[f'disp_{i}/epe']:.4f}"
+                          for i in range(4))
+              + f" px; vs the batch-1 reference: EPE {epe:.3g} px, n-px "
+              f"{px:.3g} points; eval step {ms4:.2f} ms a sample at batch "
+              f"{EVAL_BATCH}, {ms1:.2f} at batch 1 (device, CUDA events); "
+              f"peak {peaks[EVAL_BATCH]:.2f} GiB at batch {EVAL_BATCH}, "
+              f"{peaks[1]:.2f} at batch 1 ({peak:.2f} the tool's run); {smi}")
+        if "--profile" in sys.argv[1:]:
+            device_profile(f"{name} eval step batch {EVAL_BATCH}",
+                           lambda: step(b4))
+        del model, step, b4, b1
+        torch.cuda.empty_cache()
+    gap = max(abs(by_dtype["_bf16"][k] - by_dtype["_f32"][k])
+              for k in by_dtype["_f32"] if k.endswith("epe"))
+    print(f"eval {STEREO_CONFIG}: bf16 EPEs within {gap:.4f} px of "
+          f"float32's (random weights, the same seed)")
+    assert np.isfinite(gap)
+    return launches["_f32"], launches["_bf16"]
+
+
+def fault8_phase(smi):
+    """ROADMAP §3 fault 8 on the card: fusable units at any width run on
+    their kernels, in eval and in training, never the library's conv: one
+    launch a slice of Ci (``route_widths``: zero channels up to the
+    block's multiples, 128 -> 128 in bfloat16 as two slices of 64), against
+    the same unit on the CPU (float32 within CONV_RTOL, bfloat16 within
+    2 BF16_STEP, of the largest output); StereoNet's 32 -> 32 one launch.
+    In eval, the unit's call is timed beside the library's conv + BN +
+    ReLU on the same input (median of 10, CUDA events)."""
+    from densematchingbenchmark_tpu_torch.models import layers
+    from densematchingbenchmark_tpu_torch.ops import cuda as kernels
+    report = []
+
+    def refuse(*args):
+        raise AssertionError("a fusable unit ran the library's conv")
+    library_conv, layers.library_conv = layers.library_conv, refuse
+    try:
+        for ci, co in FAULT8_WIDTHS:
+            for dtype in (torch.float32, torch.bfloat16):
+                for train in (False, True):
+                    cpu = damp_bn(layers.ConvUnit(
+                        ci, co, 3, 1, 1, dims=3, bias=True, dtype=dtype),
+                        ci).train(train)
+                    with torch.no_grad():
+                        cpu.Conv_0.bias.normal_(0, 0.3, generator=torch
+                                                .Generator().manual_seed(co))
+                    card = copy.deepcopy(cpu).cuda()
+                    x = torch.randn((2, 12, 24, 78, ci), generator=torch
+                                    .Generator().manual_seed(1)).to(dtype)
+                    kernels.reset_launch_counts()
+                    with torch.no_grad():
+                        got = card(x.cuda())
+                    torch.cuda.synchronize()
+                    counts = kernels.launch_counts()
+                    slices = len(card.widths.slices)
+                    assert slices == (2 if (ci, dtype) == (
+                        128, torch.bfloat16) else 1), card.widths
+                    want = dict.fromkeys(counts, 0)
+                    want["conv3d_packed_s1" if train or dtype ==
+                         torch.bfloat16 else "fused_conv3d"] = slices
+                    assert counts == want, (ci, co, dtype, train, counts)
+                    with torch.no_grad():
+                        ref = cpu(x)
+                    top = ref.float().abs().max().item()
+                    tol = (CONV_RTOL if dtype == torch.float32
+                           else CONV_RTOL + 2 * BF16_STEP) * top
+                    err = (got.float().cpu() - ref.float()).abs().max() \
+                        .item()
+                    assert got.dtype == dtype and err <= tol, (
+                        ci, co, dtype, train, err, tol)
+                    times = ""
+                    if not train:
+                        xc = x.cuda()
+                        with torch.no_grad():
+                            ms = time_ms(lambda: card(xc), 10)
+                            lib_ms = time_ms(lambda: card._norm_act(
+                                library_conv(card.Conv_0, xc, dtype)), 10)
+                        times = (f" {ms:.3f} ms (cuDNN conv + BN + ReLU "
+                                 f"{lib_ms:.3f})")
+                    report.append(f"{ci}->{co} {str(dtype)[6:]} "
+                                  f"{'train' if train else 'eval'} "
+                                  f"{card.widths.ci}->{card.widths.co} "
+                                  f"x{slices} {err:.3g}{times}")
+    finally:
+        layers.library_conv = library_conv
+    print("fault 8 (width dispatch): units against the CPU, max_abs_err; "
+          "every unit on its kernels at the padded widths, one launch a "
+          "slice of Ci, no library conv: " + "; ".join(report) + f"; {smi}")
+
+
+def stereonet_profile_phase():
+    """The StereoNet 4-stage forward at 384x1248 batch 1 and a train step
+    at its 4x256x512, in float32 and bfloat16, by kernel."""
+    from densematchingbenchmark_tpu_torch.apis import init_model
+    from densematchingbenchmark_tpu_torch.configs import get_config
+    from densematchingbenchmark_tpu_torch.losses import make_loss_evaluator
+    from densematchingbenchmark_tpu_torch.models import build_model
+    from densematchingbenchmark_tpu_torch.trainer import (TrainState,
+                                                          build_optimizer,
+                                                          make_train_step)
+    x = torch.randn((1, *PADDED, 3), device="cuda")
+    for suffix in ("_f32", "_bf16"):
+        name = STEREO_CONFIG + suffix
+        model = init_model(name, seed=0)
+        with torch.inference_mode():
+            device_profile(f"{name} forward 1x{PADDED[0]}x{PADDED[1]}",
+                           lambda: model.forward(x, x), top=16, convs=6)
+        del model
+        cfg = get_config(name)
+        crop = cfg["data"]["train"]["input_shape"]
+        batch = small_batch(cfg, crop, (crop[0] + 32, crop[1] + 64), 192,
+                            "cuda")
+        module = build_model(cfg, torch.Generator().manual_seed(0)).cuda()
+        state = TrainState.create(module, build_optimizer(cfg, module,
+                                                          10)[0], 1)
+        step = make_train_step(make_loss_evaluator(cfg["model"]["losses"]))
+        device_profile(f"{name} train step "
+                       f"{cfg['data']['batch_size_per_device']}x{crop[0]}x"
+                       f"{crop[1]}", lambda: step(state, batch), top=20,
+                       convs=8)
+        del module, state, batch
+        torch.cuda.empty_cache()
+
+
 def main():
     smi = device_phase()
     build_phase()
@@ -2634,10 +3302,38 @@ def main():
                                 bf16_launches),
                                ("AcfNet/scene_flow_uniform_f32", 1,
                                 launches)):
-        acf_runs.append((acf_train_phase(smi, name, steps), total))
+        acf_runs.append((family_train_phase(smi, name, steps), total))
         torch.cuda.empty_cache()
     acf_runs.append((acf_profile_cli_phase(), launches))
     for counts, total in acf_runs:
+        for name, n in counts.items():
+            total[name] += n
+    torch.cuda.empty_cache()
+
+    # StereoNet: its kernels at its shapes, inference, evaluation over a
+    # SceneFlow-layout set, training, in float32 and bfloat16; fault 8's
+    # width dispatch on the card; its launches join each dtype's counts
+    for row, extra in check_stereonet_kernels(gen).items():
+        (bf16_trunk if row == "conv3d_packed_s1_bf16_pack1"
+         else stats[row]).update(extra)
+    fault8_phase(smi)
+    torch.cuda.empty_cache()
+    stereo_f32, stereo_bf16 = stereonet_slice_phase(smi)
+    stereo_runs = [(stereo_f32, launches), (stereo_bf16, bf16_launches)]
+    if "--profile" in sys.argv[1:]:
+        stereonet_profile_phase()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        ann, items = write_sceneflow_dataset(root)
+        f32_eval, bf16_eval = stereonet_eval_phase(smi, root, ann, items)
+        stereo_runs += [(f32_eval, launches), (bf16_eval, bf16_launches)]
+    torch.cuda.empty_cache()
+    for suffix, total in (("_f32", launches), ("_bf16", bf16_launches)):
+        stereo_runs.append((family_train_phase(
+            smi, STEREO_CONFIG + suffix, TRAIN_STEPS, units=STEREO_UNITS,
+            argmins=1, keys=[f"l1_loss_lvl{i}" for i in range(4)]), total))
+        torch.cuda.empty_cache()
+    for counts, total in stereo_runs:
         for name, n in counts.items():
             total[name] += n
     # the bfloat16 paths ran K2 and K3 on bfloat16 costs, K1 never

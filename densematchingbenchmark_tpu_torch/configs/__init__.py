@@ -12,7 +12,7 @@ import os
 
 import torch
 
-from . import acfnet, psmnet
+from . import acfnet, psmnet, stereonet
 
 _FAMILIES = {
     "PSMNet/scene_flow": psmnet.scene_flow,
@@ -24,6 +24,8 @@ _FAMILIES = {
     "AcfNet/kitti_2015_adaptive": acfnet.kitti_2015_adaptive,
     "AcfNet/kitti_2012_uniform": acfnet.kitti_2012_uniform,
     "AcfNet/kitti_2012_adaptive": acfnet.kitti_2012_adaptive,
+    "StereoNet/scene_flow_8x_2stage": stereonet.scene_flow_8x_2stage,
+    "StereoNet/scene_flow_8x_4stage": stereonet.scene_flow_8x_4stage,
 }
 _SUFFIXES = {"_bf16": "bfloat16", "_f32": "float32"}
 

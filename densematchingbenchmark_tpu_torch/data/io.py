@@ -9,6 +9,11 @@ PNG codec in numpy and zlib:
   all five row filters; a palette image or an Adam7-interlaced one raises.
 - encode: the same colour types and depths, with one filter for every row.
 
+``load_image`` reads what the codec refuses (another format such as JPEG,
+a palette or an Adam7 PNG) through imageio where that package imports,
+as the JAX package reads every image; without it the codec's refusal
+stands.
+
 Filters None, Sub and Up undo a row at a time with whole-row numpy ops.
 Average and Paeth need each pixel's reconstructed left neighbour, so an
 image that has one of those rows is undone along anti-diagonals instead:
@@ -207,11 +212,29 @@ def save_png(path, img, filter_type=0):
         fp.write(encode_png(img, filter_type))
 
 
+def _read_refused(path, refusal):
+    """An image the codec refused, through imageio where it imports (JAX's
+    reader, densematchingbenchmark_tpu/data/io.py:62-68); else the
+    refusal."""
+    try:
+        from imageio.v2 import imread
+    except ImportError:
+        raise refusal from None
+    return np.asarray(imread(path))
+
+
 def load_image(path):
-    """PNG image -> float32 [H, W, 3] (gray repeated, alpha dropped)."""
-    if not path.lower().endswith(".png"):
-        raise ValueError(f"{path}: the port reads PNG images only")
-    img = load_png(path).astype(np.float32)
+    """Image -> float32 [H, W, 3] (gray repeated, alpha dropped): a PNG
+    through the port's codec, any other file it refuses through imageio
+    where that imports (``_read_refused``)."""
+    try:
+        if not path.lower().endswith(".png"):
+            raise ValueError(f"{path}: the port's codec reads PNG images "
+                             "only")
+        img = load_png(path)
+    except ValueError as refusal:
+        img = _read_refused(path, refusal)
+    img = img.astype(np.float32)
     if img.ndim == 2:
         img = np.stack([img] * 3, axis=-1)
     elif img.shape[2] == 2:                      # gray + alpha

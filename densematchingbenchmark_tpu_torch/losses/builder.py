@@ -4,16 +4,16 @@ Counterpart of densematchingbenchmark_tpu/losses/builder.py:16-85. The
 loss section of a model config maps a loss name to its kwargs; each named
 loss contributes a weighted dict of per-level scalars, merged into one
 loss dict, and the training loss is the sum of every entry whose key holds
-'loss'. The port has the ``l1_loss`` and ``focal_loss`` branches and the
-confidence NLL loss of the cmn (``cmn_loss``); the others raise
-NotImplementedError naming their ROADMAP.md item.
+'loss'. The port has the ``l1_loss``, ``gerf_loss`` and ``focal_loss``
+branches and the confidence NLL loss of the cmn (``cmn_loss``); the
+quantile loss raises NotImplementedError naming its ROADMAP.md item.
 """
 
-from .disp_losses import conf_nll_loss, smooth_l1_loss
+from .disp_losses import conf_nll_loss, gerf_loss, smooth_l1_loss
 from .focal import stereo_focal_loss
 
 # loss name -> the ROADMAP.md queue 1 item that ports it
-_NOT_PORTED = {"gerf_loss": "7 (StereoNet)", "quantile_loss": "9 (DeepPruner)"}
+_NOT_PORTED = {"quantile_loss": "9 (DeepPruner)"}
 
 
 class CombinedLossEvaluator:
@@ -49,6 +49,11 @@ class CombinedLossEvaluator:
                     f"{_NOT_PORTED[name]})")
             if name == "l1_loss":
                 part = smooth_l1_loss(
+                    disps, gt_disp, max_disp=cfg["max_disp"],
+                    start_disp=cfg.get("start_disp", 0),
+                    weights=cfg.get("weights"), sparse=self.sparse)
+            elif name == "gerf_loss":
+                part = gerf_loss(
                     disps, gt_disp, max_disp=cfg["max_disp"],
                     start_disp=cfg.get("start_disp", 0),
                     weights=cfg.get("weights"), sparse=self.sparse)

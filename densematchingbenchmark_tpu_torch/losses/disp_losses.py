@@ -1,11 +1,11 @@
 """Disparity-map losses.
 
 Counterpart of densematchingbenchmark_tpu/losses/disp_losses.py:19-67,
-the smooth-L1 loss of the PSMNet and AcfNet configs and AcfNet's
-confidence NLL loss: multi-scale, each takes the list of predictions (best
-first) and the full-resolution GT, rescales the GT per level and returns a
-dict of weighted per-level scalars. The GERF and quantile losses arrive
-with their families (losses/builder.py names their ROADMAP.md items).
+the smooth-L1 loss of the PSMNet, AcfNet and StereoNet configs, the GERF
+loss and AcfNet's confidence NLL loss: multi-scale, each takes the list of
+predictions (best first) and the full-resolution GT, rescales the GT per
+level and returns a dict of weighted per-level scalars. The quantile loss
+arrives with DeepPruner (losses/builder.py names its ROADMAP.md item).
 """
 
 import torch
@@ -34,6 +34,18 @@ def smooth_l1_loss(est_disps, gt_disp, max_disp, start_disp=0, weights=None,
         return masked_mean(huber, mask)
     return _per_level(est_disps, weights, "l1_loss", level)
 
+
+def gerf_loss(est_disps, gt_disp, max_disp, start_disp=0, weights=None,
+              sparse=False):
+    """Generalized robust error per level -> {'gerf_loss_lvl{i}'}:
+    sqrt((gt - est)^2 * mask + 4) / 2 - 1 summed over every pixel (a
+    masked one gives exactly 0) over max(valid count, 1)."""
+    def level(est):
+        sgt, scale = rescale_gt(gt_disp, est.shape[1], est.shape[2], sparse)
+        maskf = valid_mask(sgt, max_disp / scale, start_disp).to(est.dtype)
+        per_px = torch.sqrt((sgt - est).square() * maskf + 4.0) / 2.0 - 1.0
+        return per_px.sum() / torch.clamp_min(maskf.sum(), 1.0)
+    return _per_level(est_disps, weights, "gerf_loss", level)
 
 
 def conf_nll_loss(est_conf_costs, gt_disp, max_disp, start_disp=0,

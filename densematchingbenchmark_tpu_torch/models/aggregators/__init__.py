@@ -1,4 +1,5 @@
 from .acfnet import AcfAggregator
 from .psmnet import PSMAggregator
+from .stereonet import StereoNetAggregator
 
-__all__ = ["AcfAggregator", "PSMAggregator"]
+__all__ = ["AcfAggregator", "PSMAggregator", "StereoNetAggregator"]

@@ -16,10 +16,9 @@ soft-argmin promotes them to float32.
 """
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from ..layers import ConvUnit, Hourglass3D, channels_first, channels_last
+from ..layers import ConvUnit, Hourglass3D, library_conv
 from ...ops.interpolate import upsample_3d
 
 
@@ -51,8 +50,7 @@ class PSMAggregator(nn.Module):
 
     def _classify(self, x, i):
         x = getattr(self, f"ConvUnit_{4 + i}")(x)
-        weight = getattr(self, f"Conv_{i}").weight.to(self.dtype)
-        return channels_last(F.conv3d(channels_first(x), weight, padding=1))
+        return library_conv(getattr(self, f"Conv_{i}"), x, self.dtype)
 
     def trunk(self, raw_cost):
         """The three classified costs (cost1, cost2, cost3) at the raw

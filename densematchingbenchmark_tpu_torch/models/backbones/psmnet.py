@@ -10,10 +10,9 @@ Output: [B, H/4, W/4, 32] per view.
 """
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from ..layers import BasicBlock, channels_first, channels_last, conv_bn_relu
+from ..layers import BasicBlock, conv_bn_relu, library_conv
 from ...ops.interpolate import upsample_2d
 from ...ops.pooling import avg_pool2d
 
@@ -77,9 +76,7 @@ class PSMNetBackbone(nn.Module):
         # concat order: skip, trunk, branches 4..1
         feat = torch.cat([out_4_0, out_8, branches[3], branches[2],
                           branches[1], branches[0]], dim=-1)
-        feat = self.lastconv1(feat)
-        return channels_last(F.conv2d(
-            channels_first(feat), self.lastconv2.weight.to(self.dtype)))
+        return library_conv(self.lastconv2, self.lastconv1(feat), self.dtype)
 
     def forward(self, left, right):
         """[B, H, W, 3] images -> ([B, H/4, W/4, 32], same) features."""

@@ -1,11 +1,14 @@
 """Config-driven model builder.
 
-Counterpart of densematchingbenchmark_tpu/models/builder.py:106-182, the
-GeneralizedStereoModel branch with a PSMNet backbone, a PSMNet or AcfNet
-aggregator and the optional confidence network (``cmn``, AcfNet
-adaptive), including the fused upsample + soft-argmin decision (:119-136),
-and the compute dtype (``model.dtype``, :31, :115) handed to the backbone,
-the aggregator and the cmn. Families not ported yet raise
+Counterpart of densematchingbenchmark_tpu/models/builder.py:36-182, the
+GeneralizedStereoModel branch: the backbone, aggregator and refinement
+registries of the families ported so far (PSMNet, AcfNet, StereoNet), the
+confidence network (``cmn``, AcfNet adaptive), the fused upsample +
+soft-argmin decision (:119-136), and the compute dtype (``model.dtype``,
+:31, :115) handed to every module. The configs' ``pack`` fields are TPU
+schedules with the same parameters as the unpacked modules (trunk
+D-packing, StereoNet's row-packed refinement): the port has one schedule
+and drops them here. Families not ported yet raise
 NotImplementedError naming their ROADMAP.md item.
 """
 
@@ -13,12 +16,15 @@ import torch
 
 from .aggregators.acfnet import AcfAggregator
 from .aggregators.psmnet import PSMAggregator
+from .aggregators.stereonet import StereoNetAggregator
 from .backbones.psmnet import PSMNetBackbone
+from .backbones.stereonet import StereoNetBackbone
 from .cmn import Cmn
 from .cost_processors import CostProcessor
 from .generalized import GeneralizedStereoModel
 from .layers import init_parameters
 from .predictors import build_disp_predictor
+from .refinement.stereonet import StereoNetRefinement
 
 _NOT_PORTED = {
     "AnyNet": "queue 1 item 10 (AnyNet)",
@@ -26,7 +32,6 @@ _NOT_PORTED = {
     "BestDeepPruner": "queue 1 item 9 (DeepPruner)",
     "FastDeepPruner": "queue 1 item 9 (DeepPruner)",
     "GCNet": "queue 1 item 8 (GCNet)",
-    "StereoNet": "queue 1 item 7 (StereoNet)",
     "flow": "queue 1 item 11 (Flow)",
 }
 
@@ -37,8 +42,26 @@ def _not_ported(what):
         f"{_NOT_PORTED.get(what, 'queue 1')})")
 
 
-VOLUME_TYPES = {"Concatenation": "concatenation"}
+BACKBONES = {"PSMNet": PSMNetBackbone, "StereoNet": StereoNetBackbone}
+AGGREGATORS = {"PSMNet": PSMAggregator, "AcfNet": AcfAggregator,
+               "StereoNet": StereoNetAggregator}
+REFINEMENTS = {"StereoNet": StereoNetRefinement}
+VOLUME_TYPES = {"Concatenation": "concatenation", "Difference": "difference"}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _lookup(registry, what):
+    if what not in registry:
+        _not_ported(what)
+    return registry[what]
+
+
+def _kwargs(cfg, drop=("in_planes",)):
+    """A module's config section as its keyword arguments: without its
+    type, its ``pack`` (a TPU schedule) and ``drop`` (JAX drops in_planes
+    for aggregators and refinements)."""
+    return {k: v for k, v in cfg.items()
+            if k not in ("type", "pack", *drop)}
 
 
 def build_model(cfg, generator=None):
@@ -54,21 +77,21 @@ def build_model(cfg, generator=None):
     arch = model_cfg.get("meta_architecture", "GeneralizedStereoModel")
     if arch != "GeneralizedStereoModel":
         _not_ported(arch)
-    if "disp_refinement" in model_cfg:
-        _not_ported(model_cfg["disp_refinement"].get("type",
-                                                     "disp_refinement"))
     bn = model_cfg.get("batch_norm", True)
     bcfg = model_cfg["backbone"]
-    if bcfg["type"] != "PSMNet":
-        _not_ported(bcfg["type"])
+    backbone_cls = _lookup(BACKBONES, bcfg["type"])
     cp = model_cfg["cost_processor"]
     agg = cp["cost_aggregator"]
-    if agg["type"] not in ("PSMNet", "AcfNet"):
-        _not_ported(agg["type"])
+    agg_cls = _lookup(AGGREGATORS, agg["type"])
     if cp["type"] not in VOLUME_TYPES:
         raise NotImplementedError(
             f"{cp['type']} cost processor is not ported yet (ROADMAP.md "
             "queue 1)")
+    refinement = None
+    if "disp_refinement" in model_cfg:
+        r = model_cfg["disp_refinement"]
+        refinement = _lookup(REFINEMENTS, r.get("type", "disp_refinement"))(
+            batch_norm=bn, dtype=dtype, **_kwargs(r))
     pred_cfg = model_cfg["disp_predictor"]
     # fuse upsample + soft-argmin at eval only when nothing else needs the
     # full-resolution cost volume (no cmn) and the aggregator can return
@@ -79,18 +102,12 @@ def build_model(cfg, generator=None):
                  and pred_cfg["type"] in ("FASTER", "DEFAULT"))
 
     comp = cp.get("cost_computation", {})
-    # the configs' ``pack`` fields are TPU schedules with the same
-    # parameters as the unpacked modules; the port has one schedule
-    backbone = PSMNetBackbone(in_planes=bcfg.get("in_planes", 3),
-                              batch_norm=bn, dtype=dtype)
-    if agg["type"] == "AcfNet":
-        aggregator = AcfAggregator(in_planes=64,
-                                   max_disp=agg.get("max_disp", 192),
-                                   batch_norm=bn, dtype=dtype)
-    else:
-        aggregator = PSMAggregator(
-            in_planes=64, max_disp=agg.get("max_disp", 192), batch_norm=bn,
-            return_low_res=fused, dtype=dtype)
+    backbone = backbone_cls(batch_norm=bn, dtype=dtype,
+                            **_kwargs(bcfg, drop=()))
+    agg_kwargs = _kwargs(agg)
+    if agg["type"] == "PSMNet":
+        agg_kwargs["return_low_res"] = fused
+    aggregator = agg_cls(batch_norm=bn, dtype=dtype, **agg_kwargs)
     cmn = None
     if "cmn" in model_cfg:
         c = model_cfg["cmn"]
@@ -102,9 +119,11 @@ def build_model(cfg, generator=None):
             aggregator, VOLUME_TYPES[cp["type"]],
             max_disp=comp.get("max_disp", model_cfg["max_disp"]),
             start_disp=comp.get("start_disp", 0),
-            dilation=comp.get("dilation", 1)),
+            dilation=comp.get("dilation", 1),
+            normalize=comp.get("normalize", False), p=comp.get("p", 1.0)),
         disp_predictor=build_disp_predictor(pred_cfg),
         cmn=cmn,
+        disp_refinement=refinement,
         fused_upsample_argmin=fused,
         max_disp=model_cfg["max_disp"])
     if generator is None:

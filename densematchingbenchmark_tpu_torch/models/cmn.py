@@ -11,10 +11,9 @@ confidence costs is computed outside the module
 """
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from .layers import channels_first, channels_last, conv_bn_relu
+from .layers import conv_bn_relu, library_conv
 
 
 class ConfHead(nn.Module):
@@ -30,8 +29,7 @@ class ConfHead(nn.Module):
 
     def forward(self, cost):
         x = self.ConvUnit_0(cost.movedim(1, -1))       # D -> channels
-        weight = self.Conv_0.weight.to(self.dtype)
-        return channels_last(F.conv2d(channels_first(x), weight)).float()
+        return library_conv(self.Conv_0, x, self.dtype).float()
 
 
 class Cmn(nn.Module):

@@ -36,7 +36,7 @@ from ..ops.cuda.conv3d_kernel import fused_conv3d
 from ..ops.cuda.packed_conv3d_kernel import (WgmmaOperands,
                                              conv3d_packed_s1,
                                              conv3d_packed_s1_prepared,
-                                             wgmma_operands)
+                                             route_widths, wgmma_operands)
 
 
 def _tuple(x, n):
@@ -62,6 +62,26 @@ def channels_first(x):
 def channels_last(x):
     """Logical [B, C, *spatial] -> contiguous [B, *spatial, C]."""
     return x.movedim(1, -1).contiguous()
+
+
+def library_conv(conv, x, dtype):
+    """``conv`` (an ``nn.Conv2d`` / ``Conv3d`` or ``nn.ConvTranspose2d`` /
+    ``3d``: Flax's ``nn.Conv`` with ``dtype``) on the library (cuDNN, or the
+    CPU's) on a channels-last map: the input and the weights cast to the
+    compute ``dtype``, then the conv bias added in that dtype; the result
+    contiguous channels-last."""
+    weight = conv.weight.to(dtype)
+    x = channels_first(x.to(dtype))
+    if isinstance(conv, nn.modules.conv._ConvTransposeNd):
+        fn = (F.conv_transpose2d, F.conv_transpose3d)[x.dim() - 4]
+        y = fn(x, weight, None, conv.stride, conv.padding,
+               conv.output_padding, conv.groups, conv.dilation)
+    else:
+        fn = (F.conv2d, F.conv3d)[x.dim() - 4]
+        y = fn(x, weight, None, conv.stride, conv.padding, conv.dilation,
+               conv.groups)
+    y = channels_last(y)
+    return y if conv.bias is None else y + conv.bias.to(dtype)
 
 
 class BatchNorm(nn.modules.batchnorm._BatchNorm):
@@ -101,21 +121,30 @@ class ConvUnit(nn.Module):
     """conv[Transpose] -> optional BN -> optional ReLU, order switchable.
 
     ``pre_norm=True`` gives the bn_relu_conv ordering. A 3x3x3 stride-1
-    non-transposed unit with BN (``fusable``) runs its conv through a
-    kernel: in eval one fused kernel, the running-stat BN folded into a
-    per-channel (inv, bias - mean * inv) epilogue (the JAX layers.py:429-447
-    fold), ``fused_conv3d`` in float32 and ``conv3d_packed_s1`` at pack 1
-    in bfloat16 (its tensor-core route); in training ``conv3d_packed_s1``
-    with pack 1 and unit scale (JAX layers.py:459-466, the trunk's
-    ``DispatchConv3D``), then the conv bias, batch-statistics BN and ReLU
-    (:486-488). In bfloat16 the fused eval unit rounds once, after the
-    epilogue, where JAX's unpacked unit rounds the conv and then the BN:
-    the two differ by at most one bfloat16 step.
+    non-transposed unit with BN and Co > 1 (``fusable``: the geometry of
+    JAX's Pallas eligibility, densematchingbenchmark_tpu/ops/conv3d.py:
+    87-100) runs its conv through a kernel: in eval one fused kernel, the
+    running-stat BN folded into a per-channel (inv, bias - mean * inv)
+    epilogue (the JAX layers.py:429-447 fold), ``fused_conv3d`` in float32
+    and ``conv3d_packed_s1`` at pack 1 in bfloat16 (its tensor-core route);
+    in training ``conv3d_packed_s1`` with pack 1 and unit scale (JAX
+    layers.py:459-466, the trunk's ``DispatchConv3D``), then the conv bias,
+    batch-statistics BN and ReLU (:486-488). In bfloat16 the fused eval
+    unit rounds once, after the epilogue, where JAX's unpacked unit rounds
+    the conv and then the BN: the two differ by at most one bfloat16 step.
+
+    Every width runs on the kernels, as JAX's take any: the unit runs its
+    conv at ``route_widths`` (``widths``), its input and weights padded
+    with zero channels to the block's multiples and the padding sliced off
+    the output; a bfloat16 Ci wider than the block takes (GCNet's 128)
+    runs in slices, one launch each with unit scale, their sums added in
+    float32, then the epilogue and one rounding (each slice's sum rounded
+    to bfloat16 first: within a bfloat16 step of one rounding).
 
     When nothing needs a gradient, the fused eval unit keeps what its
     kernel takes (``eval_operands``: the kernel in the compute dtype and
     the folded scale and bias, in bfloat16 on the card as K4's prepared
-    operands, one launch a call), keyed on each source tensor's
+    operands, one launch a slice of Ci), keyed on each source tensor's
     ``data_ptr()`` and ``_version`` and on the dtype and device: an
     optimizer step, ``load_state_dict``, an in-place update or ``.to()``
     rebuilds them, and nothing else does. Training keeps none.
@@ -150,10 +179,16 @@ class ConvUnit(nn.Module):
                                          momentum=0.1)
         conv = None if transpose else self.Conv_0
         self.fusable = (dims == 3 and batch_norm and not pre_norm
-                        and conv is not None and conv.kernel_size == (3,) * 3
+                        and features > 1 and conv is not None
+                        and conv.kernel_size == (3,) * 3
                         and conv.stride == (1,) * 3
                         and conv.padding == (1,) * 3
                         and conv.dilation == (1,) * 3)
+        self.in_features, self.features = in_features, features
+        self.widths = (route_widths(dtype, in_features, features)
+                       if self.fusable else None)
+        self.padded = self.fusable and self.widths[:2] != (in_features,
+                                                           features)
         self._operands = None
 
     @property
@@ -164,23 +199,6 @@ class ConvUnit(nn.Module):
         if self.BatchNorm_0 is not None:
             x = channels_last(self.BatchNorm_0(channels_first(x)))
         return torch.relu(x) if self.relu else x
-
-    def _library_conv(self, x):
-        """The conv on the library (cuDNN, or the CPU's), its weights cast
-        to the compute dtype, then the conv bias added in that dtype."""
-        conv = self.conv
-        weight = conv.weight.to(self.dtype)
-        x = channels_first(x)
-        if isinstance(conv, nn.modules.conv._ConvTransposeNd):
-            fn = (F.conv_transpose2d, F.conv_transpose3d)[x.dim() - 4]
-            y = fn(x, weight, None, conv.stride, conv.padding,
-                   conv.output_padding, conv.groups, conv.dilation)
-        else:
-            fn = (F.conv2d, F.conv3d)[x.dim() - 4]
-            y = fn(x, weight, None, conv.stride, conv.padding, conv.dilation,
-                   conv.groups)
-        y = channels_last(y)
-        return y if conv.bias is None else y + conv.bias.to(self.dtype)
 
     def folded_bn(self):
         """Eval-mode BN (and conv bias) as a per-channel affine
@@ -204,14 +222,35 @@ class ConvUnit(nn.Module):
                                                (bias,))
 
     def _kernel(self):
-        return self.Conv_0.weight.permute(2, 3, 4, 1, 0).to(
-            self.dtype).contiguous()
+        """The weights as the kernels take them: [3, 3, 3, Ci, Co] in the
+        compute dtype, zero past the unit's widths up to ``widths``."""
+        kernel = self.Conv_0.weight.permute(2, 3, 4, 1, 0).to(self.dtype)
+        if self.padded:
+            ci, co, _ = self.widths
+            kernel = F.pad(kernel, (0, co - self.features,
+                                    0, ci - self.in_features))
+        return kernel.contiguous()
+
+    def _parts(self, kernel):
+        """The kernel of each slice of Ci (``widths``)."""
+        slices = self.widths.slices
+        if len(slices) == 1:
+            return (kernel,)
+        return tuple(kernel[..., lo:hi, :].contiguous() for lo, hi in slices)
+
+    def _eval_tensors(self):
+        """(the parts of the kernel, scale, bias) of the fused eval unit,
+        the folded BN zero past Co up to ``widths``."""
+        pad = self.widths.co - self.features
+        return (self._parts(self._kernel()),
+                *(F.pad(v, (0, pad)) if pad else v for v in self.folded_bn()))
 
     def eval_operands(self, device, sources=None):
-        """What the fused eval unit's kernel takes, kept while its sources
-        are unchanged: in bfloat16 on the card K4's ``WgmmaOperands`` (the
-        weight image and the folded BN), else (kernel [3, 3, 3, Ci, Co] in
-        the compute dtype, scale, bias), the folded BN in float32. Built
+        """What the fused eval unit's kernels take, kept while its sources
+        are unchanged: (parts, scale, bias), the folded BN in float32 and
+        the parts the kernel of each slice of Ci in the compute dtype, in
+        bfloat16 on the card K4's ``WgmmaOperands`` (the weight image, with
+        the folded BN for a single slice, else with unit scale). Built
         outside inference mode, so that a later call with grad mode on can
         use them too. None when a source is an inference tensor (it has no
         version counter to key on)."""
@@ -223,15 +262,38 @@ class ConvUnit(nn.Module):
             return None
         if self._operands is None or self._operands[0] != key:
             with torch.inference_mode(False), torch.no_grad():
-                operands = (self._kernel(), *self.folded_bn())
+                parts, scale, bias = self._eval_tensors()
                 if self.dtype == torch.bfloat16 and device.type == "cuda":
-                    operands = wgmma_operands(*operands)
+                    epilogue = (scale, bias) if len(parts) == 1 else ()
+                    parts = tuple(wgmma_operands(k, *epilogue)
+                                  for k in parts)
                 # the sources' storage is held with the key, so that no
                 # other tensor takes one of their addresses meanwhile
                 self._operands = (key, tuple(t.detach() for t in sources),
-                                  operands)
+                                  (parts, scale, bias))
             ConvUnit.operand_builds += 1
         return self._operands[2]
+
+    def _conv(self, x, parts, scale=None, bias=None, relu=False):
+        """The conv of ``x`` [..., Ci] (padded) through ``parts``: one
+        launch with the epilogue, or (``scale`` None) unit scale, as
+        training runs; with several parts one launch a slice of Ci with
+        unit scale, summed in float32, then the epilogue and one
+        rounding."""
+        if len(parts) > 1:
+            y = sum(self._conv(x[..., lo:hi].contiguous(), (part,)).float()
+                    for (lo, hi), part in zip(self.widths.slices, parts))
+            if scale is not None:
+                y = y * scale + bias
+            return (y.clamp_min(0.0) if relu else y).to(self.dtype)
+        part = parts[0]
+        if isinstance(part, WgmmaOperands):
+            return conv3d_packed_s1_prepared(x, part, relu=relu)
+        if scale is None:
+            return conv3d_packed_s1(x, part, pack=1)
+        if self.dtype == torch.float32:
+            return fused_conv3d(x, part, scale, bias, relu=relu)
+        return conv3d_packed_s1(x, part, scale, bias, pack=1, relu=relu)
 
     def _fused_eval(self, x):
         sources = self._sources()
@@ -239,32 +301,31 @@ class ConvUnit(nn.Module):
         if not (torch.is_grad_enabled() and (x.requires_grad or any(
                 t.requires_grad for t in sources))):
             operands = self.eval_operands(x.device, sources)
-        if isinstance(operands, WgmmaOperands):
-            return conv3d_packed_s1_prepared(x, operands, relu=self.relu)
         # differentiable, or sources without a version counter: made per
         # call
-        kernel, scale, bias = operands or (self._kernel(),
-                                           *self.folded_bn())
-        if self.dtype == torch.float32:
-            return fused_conv3d(x, kernel, scale, bias, relu=self.relu)
-        return conv3d_packed_s1(x, kernel, scale, bias, pack=1,
-                                relu=self.relu)
+        parts, scale, bias = operands or self._eval_tensors()
+        return self._conv(x, parts, scale, bias, self.relu)
 
     def forward(self, x):
         x = x.to(self.dtype)
         if self.pre_norm:
             x = self._norm_act(x)
-        if self.fusable:
-            x = x.contiguous()
-            if not self.training:
-                return self._fused_eval(x)
-            self._operands = None
-            x = conv3d_packed_s1(x, self._kernel(), pack=1)
-            if self.Conv_0.bias is not None:
-                x = x + self.Conv_0.bias.to(self.dtype)
-            return self._norm_act(x)
-        x = self._library_conv(x)
-        return x if self.pre_norm else self._norm_act(x)
+        if not self.fusable:
+            x = library_conv(self.conv, x, self.dtype)
+            return x if self.pre_norm else self._norm_act(x)
+        x = x.contiguous()
+        if self.padded:
+            x = F.pad(x, (0, self.widths.ci - self.in_features))
+        if not self.training:
+            x = self._fused_eval(x)
+            return x[..., :self.features].contiguous() if self.padded else x
+        self._operands = None
+        x = self._conv(x, self._parts(self._kernel()))
+        if self.padded:
+            x = x[..., :self.features]
+        if self.Conv_0.bias is not None:
+            x = x + self.Conv_0.bias.to(self.dtype)
+        return self._norm_act(x)
 
 
 def conv_bn(batch_norm, in_features, features, kernel_size=3, stride=1,

@@ -1,8 +1,9 @@
-"""Cost-volume construction (concatenation), fixed-range path.
+"""Cost-volume construction (concatenation and difference), fixed-range
+path.
 
-Counterpart of densematchingbenchmark_tpu/ops/cost_volume.py:30-75. The
-per-pixel ``disp_sample`` path arrives with the slice that ports
-``ops/warp.py``.
+Counterpart of densematchingbenchmark_tpu/ops/cost_volume.py:30-118. The
+per-pixel ``disp_sample`` path (``inverse_warp_3d``) arrives with
+DeepPruner (ROADMAP.md queue 1 item 9).
 """
 
 import functools
@@ -58,4 +59,41 @@ def cat_volume(reference_fm, target_fm, max_disp, start_disp=0, dilation=1):
             continue
         vol[:, i, :, lo:hi, :c] = reference_fm[:, :, lo:hi]
         vol[:, i, :, lo:hi, c:] = target_fm[:, :, lo - d:hi - d]
+    return vol
+
+
+def dif_volume(reference_fm, target_fm, max_disp, start_disp=0, dilation=1,
+               disp_sample=None, normalize=False, p=1.0):
+    """Difference cost volume (StereoNet's).
+
+    For each sample value v (shift d = int(v)):
+    ``vol[:, i, :, x] = ref[:, :, x] - tgt[:, :, x - d]`` where
+    0 <= x - d < W, and zero elsewhere; with ``normalize`` the p-norm over
+    the channels, ``sum(|vol|)`` for p = 1.
+
+    Args:
+      reference_fm, target_fm: [B, H, W, C] left/right features.
+      disp_sample: per-pixel samples; not ported (DeepPruner's warped path,
+        ROADMAP.md queue 1 item 9), raises NotImplementedError.
+
+    Returns:
+      [B, D, H, W, C] volume, or [B, D, H, W] with ``normalize``.
+    """
+    if disp_sample is not None:
+        raise NotImplementedError(
+            "dif_volume with a per-pixel disp_sample (the warped path) is "
+            "not ported yet (ROADMAP.md queue 1 item 9 (DeepPruner))")
+    b, h, w, c = reference_fm.shape
+    vals = disp_sample_values(max_disp, start_disp, dilation)
+    vol = reference_fm.new_zeros((b, len(vals), h, w, c))
+    for i, val in enumerate(vals):
+        d = int(val)  # each sample is shifted by its value cast to int
+        lo, hi = max(0, d), min(w, w + d)
+        if lo < hi:
+            vol[:, i, :, lo:hi] = (reference_fm[:, :, lo:hi]
+                                   - target_fm[:, :, lo - d:hi - d])
+    if normalize:
+        if p == 1.0:
+            return vol.abs().sum(-1)
+        return vol.abs().pow(p).sum(-1).pow(1.0 / p)
     return vol

@@ -76,9 +76,13 @@ def fused_conv3d(x, kernel, scale=None, bias=None, relu=False):
                          "[3,3,3,Cin,Cout]")
     if tuple(scale.shape) != (cout,) or tuple(bias.shape) != (cout,):
         raise ValueError("fused_conv3d: scale and bias must be [Cout]")
-    if cin % 4 or cout % 4:
-        raise ValueError(f"fused_conv3d: Cin {cin} and Cout {cout} must be "
-                         "multiples of 4 (16-byte vector loads)")
+    # the weight image, plan and width rule are K4's (that module imports
+    # this one)
+    from .packed_conv3d_kernel import F32_PLAN_ARGS, conv3d_f32_weights, \
+        f32_plan, route_width_fault
+    fault = route_width_fault(torch.float32, cin, cout)
+    if fault:
+        raise ValueError(f"fused_conv3d: {fault}")
     tensors = (x, kernel, scale, bias)
     for t in tensors:
         if t.device != x.device or t.dtype != torch.float32:
@@ -94,9 +98,6 @@ def fused_conv3d(x, kernel, scale=None, bias=None, relu=False):
                       device=x.device)
     if out.numel() == 0:
         return out
-    # the weight image and plan are K4's (that module imports this one)
-    from .packed_conv3d_kernel import F32_PLAN_ARGS, conv3d_f32_weights, \
-        f32_plan
     with torch.cuda.device(x.device):
         lib = _build.load("conv3d_kernel", _SIGNATURES)
         plan = f32_plan(lib, "conv3d_bn_act", x.device.index, b, d, 1, h, w,

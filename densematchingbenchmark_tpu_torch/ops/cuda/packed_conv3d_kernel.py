@@ -31,14 +31,21 @@ fed by a TMA ring whose weights are the wrapper's image of the kernel
 K4's is reshaped from (``csrc/conv3d_wgmma.cuh``: a 4 x 64 tile on two
 warpgroups, a chunk of depths a block), with three accumulators.
 
-The route is picked by dtype alone. The bfloat16 route needs Ci % 16 == 0
+The route is picked by dtype alone. The bfloat16 block needs Ci % 16 == 0
 and Co % 8 == 0 (``wgmma``'s k16 steps, 8-channel core matrices) and
-Ci <= 112 (its weights and two ring stages in shared memory); a bfloat16
-CUDA tensor of another width raises. Its kernel operand is the weights'
-shared-memory image (``wgmma_weights``): built per call by
-``conv3d_packed_s1``, or once by ``wgmma_operands`` for
-``conv3d_packed_s1_prepared``, the entry of the eval trunk, whose weights
-do not change between calls (``models/layers.ConvUnit`` keeps the image).
+Ci <= 112 (its weights and two ring stages in shared memory), the float32
+one Ci % 4 == 0 and Co % 4 == 0; a CUDA tensor of another width raises.
+Both rules are one function, ``route_width_fault``, which the checks raise
+on. JAX's kernels take any widths: ``route_widths`` says how a conv of
+any Ci -> Co meets the rule (zero channels up to the block's multiples,
+and in bfloat16 a wider Ci in slices whose sums are added), and the trunk
+unit (``models/layers.ConvUnit``) runs its conv so.
+
+The bfloat16 route's kernel operand is the weights' shared-memory image
+(``wgmma_weights``): built per call by ``conv3d_packed_s1``, or once by
+``wgmma_operands`` for ``conv3d_packed_s1_prepared``, the entry of the
+eval trunk, whose weights do not change between calls
+(``models/layers.ConvUnit`` keeps the image).
 ``wgmma_plan`` computes its launch (channel slice, ring stages, depth
 chunk, grid, shared memory) from the shapes and the kernel's registers a
 thread, which the library reports as ptxas gave them; the wrapper keeps a
@@ -121,15 +128,60 @@ def _round_up(v, m):
     return -(-v // m) * m
 
 
-def check_wgmma_widths(ci, co, what="bfloat16 route"):
-    """Raise unless the bfloat16 (``wgmma``) route takes Ci and Co."""
+def route_width_fault(dtype, ci, co):
+    """Why the block of compute ``dtype`` refuses Ci and Co, or None where
+    it takes them: the bfloat16 (``wgmma``) block Ci % 16 == 0, Co % 8 == 0
+    and Ci <= 112, the float32 one (K1, and K4 / K5 in float32) Ci % 4 ==
+    0 and Co % 4 == 0. The one rule of the kernels' checks and of
+    ``route_widths``."""
+    if dtype != torch.bfloat16:
+        if ci % 4 or co % 4:
+            return (f"Cin {ci} and Cout {co} must be multiples of 4 (16-byte "
+                    "vector loads)")
+        return None
     if ci % 16 or co % 8:
-        raise ValueError(f"{what}: Cin {ci} must be a multiple of 16 and "
-                         f"Cout {co} a multiple of 8 (wgmma k16 steps, "
-                         "8-channel core matrices)")
+        return (f"Cin {ci} must be a multiple of 16 and Cout {co} a "
+                "multiple of 8 (wgmma k16 steps, 8-channel core matrices)")
     if max(_wgmma_smem(ci, 2, o) for o in WGMMA_TILES) > SMEM_PER_BLOCK:
-        raise ValueError(f"{what}: Cin {ci} above 112 (the weights and two "
-                         "ring stages exceed shared memory)")
+        return (f"Cin {ci} above 112 (the weights and two ring stages "
+                "exceed shared memory)")
+    return None
+
+
+def check_wgmma_widths(ci, co, what="bfloat16 route"):
+    """Raise unless the bfloat16 (``wgmma``) block takes Ci and Co."""
+    fault = route_width_fault(torch.bfloat16, ci, co)
+    if fault:
+        raise ValueError(f"{what}: {fault}")
+
+
+class RouteWidths(NamedTuple):
+    """How a conv of Ci -> Co runs on a block (``route_widths``): Ci and Co
+    padded with zero channels, and the slices [lo, hi) of the padded Ci
+    that one launch each takes."""
+    ci: int
+    co: int
+    slices: tuple
+
+
+@functools.lru_cache(maxsize=256)
+def route_widths(dtype, ci, co):
+    """``RouteWidths`` of a conv of any Ci -> Co on the block of compute
+    ``dtype``, as JAX's kernels take any widths: Ci and Co padded up to the
+    block's multiples (4 and 4 in float32, 16 and 8 in bfloat16); one slice
+    in float32, in bfloat16 the fewest slices of one width (a multiple of
+    16, the last one narrower) that the block takes, 128 as two of 64. The
+    padded channels are zero, so they add nothing."""
+    if dtype != torch.bfloat16:
+        ci, co = _round_up(ci, 4), _round_up(co, 4)
+        return RouteWidths(ci, co, ((0, ci),))
+    ci, co = _round_up(ci, 16), _round_up(co, 8)
+    n = 1
+    while route_width_fault(dtype, _round_up(-(-ci // n), 16), co):
+        n += 1
+    step = _round_up(-(-ci // n), 16)
+    return RouteWidths(ci, co, tuple((lo, min(lo + step, ci))
+                                     for lo in range(0, ci, step)))
 
 
 def _wgmma_ck(ci):
@@ -465,9 +517,8 @@ def _checked(name, xp, kernel, scale, bias, pack):
                          f"bfloat16, not {xp.dtype} and {kernel.dtype}")
     if xp.dtype == torch.bfloat16:
         check_wgmma_widths(cin, co, f"{name} in bfloat16")
-    elif cin % 4 or co % 4:
-        raise ValueError(f"{name}: Cin {cin} and Cout {co} must be multiples "
-                         "of 4 (4-value vector loads)")
+    elif (fault := route_width_fault(xp.dtype, cin, co)) is not None:
+        raise ValueError(f"{name}: {fault}")
     kernel = kernel.to(xp.dtype)
     scale, bias = scale.contiguous(), bias.contiguous()
     for t in (kernel, scale, bias):

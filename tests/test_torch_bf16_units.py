@@ -183,3 +183,82 @@ def test_fusable_unit_routes_by_dtype(monkeypatch):
                 assert scale.shape == bias.shape == (32,)
                 assert scale.dtype == bias.dtype == torch.float32
                 assert kwargs["relu"] is False
+
+
+# (Ci, Co) of fusable units at widths the kernel blocks do not take as
+# they are: GCNet's 128 -> 128 units (above the bfloat16 block's Ci of
+# 112: two slices) and an odd width (DeepPruner's 2C + 1 raw cost: zero
+# channels in both dtypes); and a Co = 1 unit, which JAX's Pallas
+# eligibility refuses (co > 1) and which so runs the library's conv
+WIDTHS = [(128, 128), (65, 64), (32, 1)]
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ci,co", WIDTHS)
+def test_unit_at_any_width_runs_its_kernels(monkeypatch, ci, co, dtype,
+                                            train):
+    """A fusable unit runs its conv on the kernel wrappers at any width:
+    each call at widths its block takes (``route_width_fault``), one call a
+    slice of Ci (``route_widths``), the library's conv never; the result
+    matches JAX's ConvUnit on the same weights and random BN (float32
+    within 1e-4 of the largest magnitude, a conv of 27 * Ci products in
+    another order; bfloat16 within 2 steps, as above). A Co = 1 unit is
+    not fusable, as JAX's Pallas eligibility, and runs the library's conv
+    and no kernel."""
+    from densematchingbenchmark_tpu_torch.ops.cuda import \
+        packed_conv3d_kernel as pk
+    calls = []
+
+    def spy(name):
+        fn = getattr(tlayers, name)
+
+        def wrapped(x, kernel, *args, **kwargs):
+            calls.append((name, x.shape[-1], *kernel.shape[-2:]))
+            return fn(x, kernel, *args, **kwargs)
+        monkeypatch.setattr(tlayers, name, wrapped)
+
+    def library(*args):
+        calls.append(("library_conv",))
+        return library_conv(*args)
+
+    library_conv = tlayers.library_conv
+    spy("fused_conv3d")
+    spy("conv3d_packed_s1")
+    monkeypatch.setattr(tlayers, "library_conv", library)
+    tdtype, jdtype = {"float32": (torch.float32, jnp.float32),
+                      "bfloat16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+    kw = dict(kernel_size=3, stride=1, padding=1, dims=3, bias=True)
+    rng = np.random.RandomState(ci)
+    x = bf16_numpy(rng.randn(1, 3, 4, 5, ci))
+    junit = jlayers.ConvUnit(co, dtype=jdtype, **kw)
+    tunit = tlayers.ConvUnit(ci, co, dtype=tdtype, **kw)
+    tlayers.init_parameters(tunit, torch.Generator().manual_seed(ci))
+    from densematchingbenchmark_tpu_torch.utils import flax_variables
+    variables = randomize_bn(flax_variables(tunit), rng)
+    variables["params"]["Conv_0"]["bias"] = (rng.randn(co) * 0.3).astype(
+        np.float32)
+    load_jax_variables(tunit, variables)
+    jvars = jax.tree.map(jnp.asarray, variables)
+    if train:
+        want, _ = junit.apply(jvars, x, train=True, mutable=["batch_stats"])
+    else:
+        want = junit.apply(jvars, x, train=False)
+    want = np.asarray(want.astype(jnp.float32))
+    tunit.train(train)
+    got = tunit(torch.from_numpy(x))
+    assert got.dtype == tdtype and got.shape == want.shape
+    step = 2 * BF16_STEP if dtype == "bfloat16" else 1e-4
+    np.testing.assert_allclose(got.detach().float().numpy(), want,
+                               atol=step * np.abs(want).max())
+    assert tunit.fusable is (co > 1)
+    if co == 1:
+        assert calls == [("library_conv",)]
+        return
+    widths = pk.route_widths(tdtype, ci, co)
+    assert len(calls) == len(widths.slices)
+    for (name, x_ci, k_ci, k_co), (lo, hi) in zip(calls, widths.slices):
+        assert name == ("fused_conv3d" if dtype == "float32" and not train
+                        else "conv3d_packed_s1")
+        assert x_ci == k_ci == hi - lo and k_co == widths.co
+        assert pk.route_width_fault(tdtype, k_ci, k_co) is None

@@ -1006,18 +1006,38 @@ def test_tiny_bf16_train_step_on_card_matches_cpu(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("train", [False, True])
-def test_bf16_unit_at_an_unsupported_width_raises_on_card(cuda, train):
-    """A bfloat16 trunk unit whose widths K4's wgmma route does not take
-    (Cin 24) raises, in eval and in training: no unit falls back to
-    float32 or to the plain version."""
-    from densematchingbenchmark_tpu_torch.models.layers import ConvUnit
-    unit = ConvUnit(24, 32, 3, 1, 1, dims=3, bias=False,
-                    dtype=torch.bfloat16).to(cuda).train(train)
+def test_bf16_unit_at_an_unsupported_width_raises_on_card(cuda, train,
+                                                         monkeypatch):
+    """K4's wgmma block raises for widths it does not take (Cin 24), on a
+    direct call; a bfloat16 trunk unit of those widths never falls back:
+    in eval and in training it runs the block on its input and weights
+    padded with zero channels to Cin 32 (one launch), never the library's
+    conv, never float32, within 2 bfloat16 steps of the same unit on the
+    CPU."""
+    from densematchingbenchmark_tpu_torch.models import layers
+    cpu = draw_bn(layers.ConvUnit(24, 32, 3, 1, 1, dims=3, bias=False,
+                                  dtype=torch.bfloat16), 1).train(train)
+    unit = copy.deepcopy(cpu).to(cuda)
+    assert cpu.fusable and cpu.widths == (32, 32, ((0, 32),))
     x = torch.randn((1, 4, 6, 8, 24), device=cuda)
-    before = kernels.conv3d_packed_s1.launches
+    want = cpu(x.cpu())
+    kernels.reset_launch_counts()
     with pytest.raises(ValueError, match="bfloat16"):
-        unit(x)
-    assert kernels.conv3d_packed_s1.launches == before
+        kernels.conv3d_packed_s1(x.bfloat16(), torch.randn(
+            (3, 3, 3, 24, 32), device=cuda), pack=1)
+
+    def refuse(*args):
+        raise AssertionError("the library's conv ran")
+    monkeypatch.setattr(layers, "library_conv", refuse)
+    got = unit(x)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts.pop("conv3d_packed_s1") == 1
+    assert kernels.bf16_launch_counts()["conv3d_packed_s1"] == 1
+    assert set(counts.values()) == {0}, counts
+    assert got.dtype == torch.bfloat16
+    tol = 2 * BF16_STEP * want.float().abs().max().item()
+    assert (got.float().cpu() - want.float()).abs().max().item() <= tol
 
 
 @pytest.mark.cuda
@@ -1190,6 +1210,171 @@ def test_tiny_acfnet_on_card_matches_cpu(cuda, dtype):
             assert counts["fused_soft_argmin"] == 3, counts
             assert counts["fused_soft_argmin_backward"] == 3, counts
         losses.append({k: float(v) for k, v in metrics.items()})
+    for k, v in losses[1].items():
+        assert np.isfinite(losses[0][k]), k
+        # float32: cuDNN vs the CPU (the PSMNet step's 1e-3); bfloat16:
+        # the losses within 1 %, the gradients' norm within 10 %
+        tol = (1e-3 if dtype == "f32" else
+               0.1 if k == "grad_norm" else 0.01)
+        assert abs(losses[0][k] - v) <= tol * abs(v), (k, losses[0][k], v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ci,co", [(128, 128), (65, 64)])
+def test_unit_at_any_width_runs_its_kernels_on_card(cuda, ci, co, dtype,
+                                                    train, monkeypatch):
+    """A fusable unit at widths the blocks do not take as they are
+    (GCNet's 128 -> 128, above the bfloat16 block's Ci of 112; an odd
+    width in both dtypes) runs on its kernels, never the library's conv:
+    one launch a slice of Ci (``route_widths``: 128 in bfloat16 as two of
+    64), against the same unit on the CPU (its plain versions at the same
+    widths): float32 within 1e-4 of the largest output (sums in another
+    order), bfloat16 within 2 steps."""
+    from densematchingbenchmark_tpu_torch.models import layers
+    cpu = draw_bn(layers.ConvUnit(ci, co, 3, 1, 1, dims=3, bias=True,
+                                  dtype=dtype), ci).train(train)
+    with torch.no_grad():
+        cpu.Conv_0.bias.normal_(0, 0.3, generator=torch.Generator()
+                                .manual_seed(co))
+    unit = copy.deepcopy(cpu).to(cuda)
+    x = torch.randn((2, 3, 5, 9, ci), generator=torch.Generator()
+                    .manual_seed(1)).to(dtype).float()
+    ref = cpu(x)
+
+    def refuse(*args):
+        raise AssertionError("the library's conv ran")
+    monkeypatch.setattr(layers, "library_conv", refuse)
+    kernels.reset_launch_counts()
+    got = unit(x.to(cuda))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    name = ("fused_conv3d" if dtype == torch.float32 and not train
+            else "conv3d_packed_s1")
+    assert counts.pop(name) == len(unit.widths.slices)
+    assert set(counts.values()) == {0}, counts
+    assert len(unit.widths.slices) == (2 if (ci, dtype) == (
+        128, torch.bfloat16) else 1)
+    assert got.dtype == ref.dtype == dtype
+    tol = (1e-4 if dtype == torch.float32 else 2 * BF16_STEP) * \
+        ref.float().abs().max().item()
+    assert (got.float().cpu() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_soft_argmin_at_24_disparities_on_card(cuda, dtype):
+    """K2 at StereoNet's 24 disparities (not a multiple of its 32-sample
+    block), at a 1/8-resolution cost of a 384x1248 frame, forward and
+    backward, against the plain version and its autograd."""
+    shape = (2, 24, 48, 156)
+    cost = (torch.randn(shape, device=cuda) * 3).to(dtype).requires_grad_()
+    g = torch.randn((2, 48, 156, 1), device=cuda)
+    vals = torch.as_tensor(disp_sample_values(24), device=cuda)
+    kernels.reset_launch_counts()
+    out = kernels.fused_soft_argmin(cost, 24)
+    (got,) = torch.autograd.grad((out * g).sum(), cost)
+    torch.cuda.synchronize()
+    assert kernels.fused_soft_argmin.launches == 1
+    assert kernels.fused_soft_argmin_backward.launches == 1
+    want = kernels.soft_argmin_plain(cost, vals)
+    (want_g,) = torch.autograd.grad((want * g).sum(), cost)
+    assert out.dtype == torch.float32
+    # softmax sums over 24 samples in another order (the plain version
+    # reads the same bfloat16 cost); the gradient as in the test above,
+    # plus a rounding of the bfloat16 gradient
+    assert (out - want).abs().max().item() <= 1e-4
+    tol = (1e-4 if dtype == torch.float32 else BF16_STEP) * \
+        want_g.float().abs().max().item()
+    assert (got.float() - want_g.float()).abs().max().item() <= tol
+
+
+STEREO_TINY = {"model.max_disp": 32,
+               "model.cost_processor.cost_computation.max_disp": 4,
+               "model.disp_predictor.max_disp": 4,
+               "model.losses.l1_loss.max_disp": 32,
+               "model.backbone.residual_num": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tiny_stereonet_on_card_matches_cpu(cuda, dtype):
+    """StereoNet 4-stage at max_disp 32: the eval forward on the card (the
+    4 aggregator units on K1 in float32 or K4's bfloat16 route, K2 once
+    on the 1/8 cost, no K3) against the plain versions on the CPU, same
+    weights; then one train step (K4 4, K2 1 forward and 1 backward)
+    against the CPU's losses."""
+    from densematchingbenchmark_tpu_torch.apis import StereoModel
+    name = f"StereoNet/scene_flow_8x_4stage_{dtype}"
+    cfg = get_config(name, **STEREO_TINY)
+    cpu = draw_bn(build_model(cfg, torch.Generator().manual_seed(0)), 0)
+    card = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.RandomState(0)
+    x = torch.tensor(rng.randn(1, 64, 128, 3), dtype=torch.float32)
+    kernels.reset_launch_counts()
+    got = StereoModel(cfg, card.eval(), cuda).forward(x.to(cuda),
+                                                      x.to(cuda))
+    counts, bf16 = kernels.launch_counts(), kernels.bf16_launch_counts()
+    k1 = 4 if dtype == "f32" else 0
+    assert counts == {"fused_conv3d": k1, "fused_soft_argmin": 1,
+                      "fused_soft_argmin_backward": 0,
+                      "fused_upsample_soft_argmin": 0,
+                      "conv3d_packed_s1": 4 - k1,
+                      "conv3d_packed_s1_v2": 0}, counts
+    assert bf16["conv3d_packed_s1"] == 4 - k1
+    want = StereoModel(cfg, cpu.eval(), torch.device("cpu")).forward(x, x)
+    assert len(got["disps"]) == len(want["disps"]) == 4
+    # float32: cuDNN vs the CPU's convolutions through the soft-argmin and
+    # 39 full-resolution refinement convs (the PSMNet slice's 1e-2 px).
+    # bfloat16: the initial disparity (the trunk's soft-argmin) within the
+    # CPU tests' 0.05 px mean; a refined one carries bfloat16's own error
+    # on each side at the scale of its residual, so its mean gap within
+    # twice the CPU's own bfloat16-vs-float32 gap on the same weights,
+    # plus 0.01 px (chip_smoke.py's STEREO_BF16_NOISE), and the card's
+    # own bfloat16-vs-float32 gap between 0.8x and 1.25x the CPU's (the
+    # rule the CPU tests hold the port to against JAX: the lower side
+    # fails a refinement that ignores bfloat16)
+    f32_cfg = get_config(name.replace("bf16", "f32"), **STEREO_TINY)
+    f32 = build_model(f32_cfg)
+    f32.load_state_dict(cpu.state_dict())
+    ref = StereoModel(cfg, f32.eval(), torch.device("cpu")).forward(x, x)
+    card_ref = StereoModel(f32_cfg, copy.deepcopy(f32).to(cuda), cuda) \
+        .forward(x.to(cuda), x.to(cuda))
+    for i, (g, w) in enumerate(zip(got["disps"], want["disps"])):
+        assert g.dtype == torch.float32
+        diff = (g.cpu() - w).abs()
+        if dtype == "f32":
+            assert diff.max() <= 1e-2
+        elif i == 3:
+            assert diff.mean() <= 0.05
+        else:
+            own = (w - ref["disps"][i]).abs().mean()
+            card_own = (g - card_ref["disps"][i]).abs().mean().cpu()
+            assert diff.mean() <= 2 * own + 0.01, (i, diff.mean(), own)
+            assert 0.8 * own <= card_own <= 1.25 * own + 1e-3, (
+                i, card_own, own)
+    batch = {"leftImage": rng.randn(2, 64, 128, 3),
+             "rightImage": rng.randn(2, 64, 128, 3),
+             "leftDisp": rng.uniform(0, 30, (2, 64, 128, 1))}
+    batch = {k: torch.tensor(v, dtype=torch.float32) for k, v in
+             batch.items()}
+    losses = []
+    for module, device in ((card, cuda), (cpu, torch.device("cpu"))):
+        ev = make_loss_evaluator(cfg["model"]["losses"])
+        opt, _ = build_optimizer(cfg, module, 10)
+        kernels.reset_launch_counts()
+        _, metrics = make_train_step(ev)(
+            TrainState.create(module, opt, 1),
+            {k: v.to(device) for k, v in batch.items()})
+        if device.type == "cuda":
+            counts = kernels.launch_counts()
+            assert counts["conv3d_packed_s1"] == 4, counts
+            assert counts["fused_soft_argmin"] == 1, counts
+            assert counts["fused_soft_argmin_backward"] == 1, counts
+        losses.append({k: float(v) for k, v in metrics.items()})
+    assert sorted(losses[0]) == ["grad_norm", "l1_loss_lvl0", "l1_loss_lvl1",
+                                 "l1_loss_lvl2", "l1_loss_lvl3", "loss"]
     for k, v in losses[1].items():
         assert np.isfinite(losses[0][k]), k
         # float32: cuDNN vs the CPU (the PSMNet step's 1e-3); bfloat16:

@@ -121,6 +121,67 @@ def test_png_decoder_refuses_palette_and_interlace(tmp_path):
         io.decode_png(bytes(png))
 
 
+def adam7_png(img):
+    """An 8-bit RGB image as an Adam7-interlaced PNG (every row of the
+    seven passes unfiltered), which Pillow does not write."""
+    h, w, _ = img.shape
+    rows = b""
+    for x0, y0, dx, dy in ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8),
+                           (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+                           (0, 1, 1, 2)):
+        sub = img[y0::dy, x0::dx]
+        if sub.size:
+            rows += b"".join(b"\0" + r.tobytes() for r in sub)
+
+    def chunk(kind, payload):
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 1))
+            + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("kind", ["jpeg", "palette_png", "adam7_png"])
+def test_load_image_reads_what_the_codec_refuses_as_jax(tmp_path, kind):
+    """A file the port's codec refuses (another format, a palette or an
+    Adam7 PNG) is read through imageio, as JAX's load_image reads it:
+    float32 [H, W, 3], equal to JAX's exactly."""
+    from PIL import Image
+    img = Image.fromarray(photo((8, 9, 3), np.uint8, 1))
+    path = str(tmp_path / ("x.jpg" if kind == "jpeg" else "x.png"))
+    if kind == "jpeg":
+        img.save(path, "jpeg")
+    elif kind == "palette_png":
+        img.convert("P").save(path, "png")
+    else:
+        with open(path, "wb") as fp:
+            fp.write(adam7_png(np.asarray(img)))
+    if kind != "jpeg":
+        with open(path, "rb") as fp, pytest.raises(ValueError):
+            io.decode_png(fp.read())
+    got = io.load_image(path)
+    assert got.dtype == np.float32 and got.shape == (8, 9, 3)
+    np.testing.assert_array_equal(got, jio.load_image(path))
+
+
+def test_load_image_keeps_the_refusal_without_imageio(tmp_path,
+                                                      monkeypatch):
+    """Where imageio does not import (the card's machine), a file the
+    codec refuses raises the codec's ValueError; a PNG it takes is read
+    as before."""
+    from PIL import Image
+    path = str(tmp_path / "x.jpg")
+    Image.fromarray(photo((8, 9, 3), np.uint8, 2)).save(path, "jpeg")
+    png = str(tmp_path / "x.png")
+    io.save_png(png, photo((8, 9, 3), np.uint8, 2))
+    monkeypatch.setitem(sys.modules, "imageio", None)
+    monkeypatch.setitem(sys.modules, "imageio.v2", None)
+    with pytest.raises(ValueError, match="PNG images only"):
+        io.load_image(path)
+    np.testing.assert_array_equal(io.load_image(png),
+                                  photo((8, 9, 3), np.uint8, 2))
+
+
 @pytest.mark.parametrize("shape", [(6, 7), (6, 7, 3)])
 def test_pfm_round_trips_with_jax(tmp_path, shape):
     data = np.random.RandomState(0).randn(*shape).astype(np.float32)

@@ -124,9 +124,9 @@ def test_scale_factor_and_crop_run_on_the_port():
 
 
 def test_port_imports_no_jax():
-    # inference and one training step in float32 and in bfloat16 and the
-    # packed-conv microbench, with every module of the port and its four
-    # command-line tools imported
+    # inference and one training step in float32 and in bfloat16 (PSMNet,
+    # AcfNet, StereoNet) and the packed-conv microbench, with every module
+    # of the port and its four command-line tools imported
     train = dict(TINY, **{"model.losses.l1_loss.max_disp": 64,
                           "data.batch_size_per_device": 1})
     # AcfNet adaptive (with the vis hook, the profiler window and the
@@ -164,6 +164,7 @@ import densematchingbenchmark_tpu_torch.visualization
 import densematchingbenchmark_tpu_torch.evaluation.sparsification
 import densematchingbenchmark_tpu_torch.ops.disp2prob
 import densematchingbenchmark_tpu_torch.trainer.vis_hook
+import densematchingbenchmark_tpu_torch.models.refinement
 from densematchingbenchmark_tpu_torch.tools import bench, demo, test, train
 model = init_model("PSMNet/scene_flow_f32", device="cpu", **{TINY!r})
 rng = np.random.RandomState(0)
@@ -185,6 +186,17 @@ train_matcher(get_config("AcfNet/scene_flow_adaptive_bf16", **acf,
                          **{{"data.batch_size_per_device": 1}}),
               tempfile.mkdtemp(), train_dataset=ds, eval_dataset=ds,
               max_steps=1, device="cpu", profile_steps=(1, 1))
+st = {{"model.max_disp": 32,
+       "model.cost_processor.cost_computation.max_disp": 4,
+       "model.disp_predictor.max_disp": 4, "model.losses.l1_loss.max_disp": 32,
+       "model.backbone.residual_num": 1}}
+model = init_model("StereoNet/scene_flow_8x_4stage_f32", device="cpu", **st)
+out = inference_stereo(model, [{{"leftImage": img, "rightImage": img}}])
+assert len(out[0]["disps"]) == 4
+train_matcher(get_config("StereoNet/scene_flow_8x_2stage_bf16", **st,
+                         **{{"data.batch_size_per_device": 1}}),
+              tempfile.mkdtemp(), train_dataset=ds, max_steps=1,
+              device="cpu")
 microbench_packed.run(cases=(("tiny", (1, 8, 4, 6), 8, 4),), iters=1,
                       device="cpu")
 names = ("jax", "flax", "optax", "orbax", "densematchingbenchmark_tpu")
@@ -205,11 +217,11 @@ def test_init_model_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    {"model.cost_processor.type": "Difference"},
+    {"model.meta_architecture": "DeepPruner"},
     {"model.backbone.type": "GCNet"},
-    {"model.cost_processor.cost_aggregator.type": "StereoNet"},
+    {"model.cost_processor.cost_aggregator.type": "GCNet"},
     {"model.cost_processor.type": "Correlation"},
-    {"model.disp_refinement": {"type": "StereoNet"}},
+    {"model.disp_refinement": {"type": "AnyNet"}},
     {"model.meta_architecture": "AnyNet"},
     {"task": "flow"},
 ])

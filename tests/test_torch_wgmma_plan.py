@@ -167,6 +167,52 @@ def test_width_rule(ci, co, ok):
             pk.wgmma_plan("K5", 1, 2, 2, 4, 8, ci, co, SMS, REGS["K5"])
 
 
+# (Ci, Co, the bfloat16 block takes them, the float32 block takes them):
+# every boundary of both rules, GCNet's 128 -> 128 units, DeepPruner's odd
+# 2C + 1 raw-cost channels, and the trunks' widths
+WIDTHS = [
+    (16, 8, True, True), (32, 32, True, True), (64, 32, True, True),
+    (64, 64, True, True), (96, 32, True, True), (112, 8, True, True),
+    (112, 112, True, True), (128, 128, False, True), (128, 32, False, True),
+    (144, 32, False, True), (32, 12, False, True), (32, 4, False, True),
+    (8, 32, False, True), (24, 32, False, True), (4, 4, False, True),
+    (65, 64, False, False), (64, 65, False, False), (33, 32, False, False),
+    (1, 32, False, False), (32, 1, False, False), (6, 8, False, False),
+    (2, 2, False, False), (113, 64, False, False), (256, 256, False, True),
+]
+
+
+@pytest.mark.parametrize("ci,co,bf16,f32", WIDTHS)
+def test_route_widths(ci, co, bf16, f32):
+    """Both blocks' width rule is one function, ``route_width_fault``,
+    which the bfloat16 check raises on; ``route_widths`` runs any Ci -> Co
+    at widths the block takes: Ci and Co padded to the least multiples
+    of 16 and 8 (bfloat16) or of 4 (float32), unchanged where the block
+    takes them, and the padded Ci in the fewest contiguous slices (the
+    block takes up to 112: one in float32) that each the block takes."""
+    assert (pk.route_width_fault(torch.bfloat16, ci, co) is None) is bf16
+    assert (pk.route_width_fault(torch.float32, ci, co) is None) is f32
+    if bf16:
+        pk.check_wgmma_widths(ci, co)
+    else:
+        with pytest.raises(ValueError, match="bfloat16 route"):
+            pk.check_wgmma_widths(ci, co)
+    for dtype, takes, (mi, mo) in ((torch.bfloat16, bf16, (16, 8)),
+                                   (torch.float32, f32, (4, 4))):
+        widths = pk.route_widths(dtype, ci, co)
+        assert widths.ci == -(-ci // mi) * mi
+        assert widths.co == -(-co // mo) * mo
+        if takes:
+            assert widths == (ci, co, ((0, ci),))
+        slices = widths.slices
+        assert slices[0][0] == 0 and slices[-1][1] == widths.ci
+        assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+        assert len(slices) == (-(-widths.ci // 112)
+                               if dtype == torch.bfloat16 else 1)
+        for lo, hi in slices:
+            assert pk.route_width_fault(dtype, hi - lo, widths.co) is None
+
+
 @pytest.mark.parametrize("ci,co", [(16, 8), (32, 40), (48, 64)])
 def test_weight_image_is_the_kernels_slab_layout(ci, co):
     # element (tap, c, o) of the kernel sits where csrc/conv3d_wgmma.cuh
