@@ -163,6 +163,28 @@ PyTorch version on the card. Phases, each fatal on failure:
      and peak at batch 4 and 1. train_matcher on the 4-stage config for 5
      steps in each dtype at its 4x256x512 (a step K4 4, K2 1 forward and
      1 backward).
+ 11. GCNet (max_disp 192; 96 disparities at half resolution): fault 9,
+     c19 on the raw volume of the 544x960 batch-4 eval ([4, 96, 272, 480,
+     64], past 2^31 elements) on K1 and K4's bf16 route, one launch each,
+     against cuDNN's conv + BN + ReLU; its 10 stride-1 units at 384x1248
+     on K1 and K4's bf16 route (12 launches, c31-c32 in two Cin slices)
+     and on K4's training route at 1x256x512, each against the plain
+     version (the eval units also against the unfused conv, BN, ReLU),
+     with cuDNN and the bound; init_model("GCNet/scene_flow_{f32,bf16}")
+     + inference_stereo over three 375x1242 pairs padded to 384x1248 (a
+     forward K1 10 or K4 bf16 12, K2 1), the layers' times, the
+     bf16-vs-float32 gap (above 0), a small model against the CPU;
+     tools/test.main over the SceneFlow-layout set at 544x960 batch 4
+     against batch 1 (peak memory printed); train_matcher at 1x256x512.
+ 12. DeepPruner 4x and 8x: its 20 stride-1 units at the 4x 384x1280
+     shapes on K1 and K4's bf16 route (23 launches) and on K4's training
+     route at 5x256x512; each config's inference over three pairs padded
+     to 384x1280 (JAX's 8x model, like the port's, takes sides that are
+     multiples of 64 only), launches asserted (K1 20 or K4 bf16 23, no
+     K2), the layers' times, the bf16-vs-float32 gap (every disparity
+     within BF16_GAP_ATOL, the predicted range's above 0); a small 4x and
+     8x model against the CPU; tools/test.main at batch 4 against batch 1 (4x at
+     544x960, 8x at 576x960); train_matcher at 5x256x512.
 
 Prints a JSON line of per-kernel numbers before the last line (K4's and
 K5's bfloat16 routes in the microbench in rows of their own, ``*_bf16``,
@@ -179,7 +201,8 @@ mode, of one evaluate over the eval phase's six pairs in each mode, and
 of one training step at 256x512 batch 3, in float32 and in bfloat16; and
 the same for AcfNet's forward, train step and eval step, with the device
 time of its learned upsample's and ConfHead's convolutions named, and for
-StereoNet's 4-stage forward, eval step and train step.
+StereoNet's 4-stage forward, eval step and train step, and the forward
+and eval step of GCNet and of DeepPruner 4x and 8x in each dtype.
 """
 
 import contextlib
@@ -1389,13 +1412,13 @@ def metrics_f64(est, gt, right_gt, lb=0, ub=192):
     return out
 
 
-def compare_metrics(got, want, label):
-    """EPE within EVAL_EPE_ATOL px, n-px within EVAL_PX_ATOL points.
-    Returns the largest differences (EPE, n-px)."""
+def compare_metrics(got, want, label, atol=(EVAL_EPE_ATOL, EVAL_PX_ATOL)):
+    """EPE within ``atol[0]`` px (EVAL_EPE_ATOL), n-px within ``atol[1]``
+    points (EVAL_PX_ATOL). Returns the largest differences (EPE, n-px)."""
     assert set(got) == set(want), (label, sorted(got), sorted(want))
     epe = max(abs(got[k] - want[k]) for k in want if k.endswith("epe"))
     px = max(abs(got[k] - want[k]) for k in want if not k.endswith("epe"))
-    assert epe <= EVAL_EPE_ATOL and px <= EVAL_PX_ATOL, (label, epe, px)
+    assert epe <= atol[0] and px <= atol[1], (label, epe, px)
     return epe, px
 
 
@@ -2215,12 +2238,12 @@ def check_bias_epilogue(gen):
     return errs
 
 
-def padded_input(model, pair):
+def padded_input(model, pair, pad=PADDED):
     """One pair through inference_stereo's preprocessing, on the card."""
     from densematchingbenchmark_tpu_torch.data import transforms
     data = model.cfg["data"]
     sample = transforms.normalize(transforms.pad_to(
-        {k: pair[k].astype(np.float32) for k in pair}, PADDED),
+        {k: pair[k].astype(np.float32) for k in pair}, pad),
         data["mean"], data["std"])
     return [torch.from_numpy(np.ascontiguousarray(sample[k]))[None].cuda()
             for k in ("leftImage", "rightImage")]
@@ -2629,18 +2652,20 @@ STEREO_OWN_RANGE = (0.8, 1.25)
 FAULT8_WIDTHS = ((128, 128), (65, 64), (32, 32))
 
 
-def biased_unit(cin, cout, dtype, gen):
-    """A biased trunk ConvUnit on the card with random weights, conv bias
-    and BN (scale 0.7-1.1, var 0.9-1.4, bias and mean 0.1 N(0, 1))."""
+def biased_unit(cin, cout, dtype, gen, bias=True):
+    """A trunk ConvUnit on the card with random weights, conv bias (with
+    ``bias``) and BN (scale 0.7-1.1, var 0.9-1.4, bias and mean 0.1 N(0,
+    1))."""
     from densematchingbenchmark_tpu_torch.models.layers import ConvUnit
-    unit = ConvUnit(cin, cout, 3, 1, 1, dims=3, bias=True,
+    unit = ConvUnit(cin, cout, 3, 1, 1, dims=3, bias=bias,
                     dtype=dtype).cuda()
     conv, bn = unit.Conv_0, unit.BatchNorm_0
     with torch.no_grad():
         conv.weight.copy_(torch.randn(conv.weight.shape, device="cuda",
                                       generator=gen) * (27 * cin) ** -0.5)
-        conv.bias.copy_(torch.randn(cout, device="cuda", generator=gen)
-                        * 0.5)
+        if bias:
+            conv.bias.copy_(torch.randn(cout, device="cuda", generator=gen)
+                            * 0.5)
         bn.weight.copy_(torch.rand(cout, device="cuda", generator=gen) * 0.4
                         + 0.7)
         bn.bias.copy_(torch.randn(cout, device="cuda", generator=gen) * 0.1)
@@ -2653,96 +2678,24 @@ def biased_unit(cin, cout, dtype, gen):
 
 def check_stereonet_kernels(gen):
     """The kernels at StereoNet's shapes. K1 (float32) and K4's bfloat16
-    route (the eval unit on its kept operands) as the biased 32->32 unit
-    at 24x48x156, batch 1 and 4: against the plain version on the folded
-    operands (CONV_RTOL; BF16_STEP besides) and the unfused conv + bias,
-    BN, ReLU; one call, chained, the plain version, cuDNN's F.conv3d with
-    the same affine and ReLU in the unit's dtype, the bound. K4's
-    training route at the 256x512 crop's 4x24x32x64 in both dtypes,
-    forward and backward (x and the kernel) against the plain version's
-    autograd (CONV_GRAD_RTOL; BF16_STEP besides). K2 at 24 disparities:
-    forward at the 384x1248 and the 544x960 batch-4 costs, forward and
-    backward at the training cost. Returns {row: extra keys}."""
+    route as the biased 32->32 unit at 24x48x156, batch 1 and 4
+    (check_family_units). K4's training route at the 256x512 crop's
+    4x24x32x64 in both dtypes, forward and backward (x and the kernel)
+    against the plain version's autograd (CONV_GRAD_RTOL; BF16_STEP
+    besides). K2 at 24 disparities: forward at the 384x1248 and the
+    544x960 batch-4 costs, forward and backward at the training cost.
+    Returns {row: extra keys}."""
     from densematchingbenchmark_tpu_torch.ops import cuda as kernels
     from densematchingbenchmark_tpu_torch.ops.cost_volume import (
         disp_sample_values)
     from densematchingbenchmark_tpu_torch.ops.cuda import (
-        conv3d_packed_s1, conv3d_packed_s1_plain, conv3d_plain,
-        fused_soft_argmin, soft_argmin_plain)
-    out = {}
-    d, h, w = STEREO_TRUNK
+        conv3d_packed_s1, conv3d_packed_s1_plain, fused_soft_argmin,
+        soft_argmin_plain)
+    out = check_family_units(
+        "stereonet", ((32, 32, STEREO_TRUNK, STEREO_UNITS),), gen,
+        batches=(1, EVAL_BATCH), bias=True)
     for dtype in (torch.float32, torch.bfloat16):
         f32 = dtype == torch.float32
-        row = "fused_conv3d" if f32 else "conv3d_packed_s1_bf16_pack1"
-        for batch in (1, EVAL_BATCH):
-            unit = biased_unit(32, 32, dtype, gen).eval()
-            x = torch.randn((batch, d, h, w, 32), device="cuda",
-                            generator=gen).to(dtype)
-            kernels.reset_launch_counts()
-            with torch.inference_mode():
-                got = unit(x)
-            torch.cuda.synchronize()
-            counts = kernels.launch_counts()
-            assert counts["fused_conv3d" if f32 else "conv3d_packed_s1"] \
-                == 1 and sum(counts.values()) == 1, counts
-            with torch.no_grad():
-                inv, shift = unit.folded_bn()
-                kernel = unit.Conv_0.weight.permute(2, 3, 4, 1, 0).to(dtype)
-                want = (conv3d_plain(x, kernel, inv, shift, True) if f32
-                        else conv3d_packed_s1_plain(x, kernel, inv, shift,
-                                                    1, True))
-                conv, bn = unit.Conv_0, unit.BatchNorm_0
-                unfused = torch.relu(F.batch_norm(
-                    F.conv3d(x.float().movedim(-1, 1),
-                             conv.weight.to(dtype).float(), conv.bias,
-                             padding=1), bn.running_mean, bn.running_var,
-                    bn.weight, bn.bias, False, 0.0, bn.eps)).movedim(1, -1)
-            top = want.float().abs().max().item()
-            tol = (CONV_RTOL if f32 else CONV_RTOL + BF16_STEP) * top
-            err = (got.float() - want.float()).abs().max().item()
-            err_unfused = (got.float() - unfused).abs().max().item()
-            assert err <= tol and err_unfused <= tol, (dtype, batch, err,
-                                                       err_unfused, tol)
-            with torch.inference_mode():
-                call = lambda: unit(x)
-                ms, chain = time_ms(call), chained_ms(call)
-                x_cf = x.movedim(-1, 1)
-                w_oi = unit.Conv_0.weight.to(dtype)
-                s5, b5 = (t.view(1, -1, 1, 1, 1).to(dtype) for t in (inv,
-                                                                    shift))
-                lib = time_ms(lambda: torch.relu(
-                    F.conv3d(x_cf, w_oi, padding=1) * s5 + b5))
-                plain = time_ms(lambda: (
-                    conv3d_plain(x, kernel, inv, shift, True) if f32 else
-                    conv3d_packed_s1_plain(x, kernel, inv, shift, 1, True)),
-                    3)
-            vox = batch * d * h * w
-            size = 4 if f32 else 2
-            b_ms, b_by = bound_ms(2 * 27 * 32 * 32 * vox,
-                                  size * (2 * vox * 32 + 27 * 32 * 32)
-                                  + 8 * 32,
-                                  PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
-            print(f"stereonet trunk {'K1' if f32 else 'K4 bf16'} biased "
-                  f"32->32 {batch}x{d}x{h}x{w} (x{STEREO_UNITS}/fwd): eval "
-                  f"unit {ms:.3f} ms, chained {chain:.3f}; F.conv3d "
-                  f"{'bf16' if not f32 else 'f32'}+affine+ReLU {lib:.3f}; "
-                  f"plain {plain:.3f}; bound {b_ms:.4f} ({b_by}); "
-                  f"max_abs_err {err:.3g} against the plain version, "
-                  f"{err_unfused:.3g} against the unfused conv + bias, BN, "
-                  f"ReLU (tolerance {tol:.3g})")
-            if batch == 1:
-                out[row] = {"stereonet_unit": "per forward (4 launches, "
-                            "biased 32->32 at 24x48x156, batch 1)",
-                            "stereonet_ms": STEREO_UNITS * ms,
-                            "stereonet_chained_ms": STEREO_UNITS * chain,
-                            "stereonet_plain_ms": STEREO_UNITS * plain,
-                            "stereonet_library_ms": STEREO_UNITS * lib,
-                            "stereonet_bound_ms": STEREO_UNITS * b_ms,
-                            "stereonet_max_abs_err": err}
-            else:
-                out[row]["stereonet_max_abs_err"] = max(
-                    out[row]["stereonet_max_abs_err"], err)
-            del unit, x, got, want, unfused
         # K4's training route, forward and backward
         td, th, tw = STEREO_TRAIN_TRUNK
         x = torch.randn((4, td, th, tw, 32), device="cuda",
@@ -2813,74 +2766,6 @@ def check_stereonet_kernels(gen):
     return out
 
 
-def stereonet_breakdown(model, left, right):
-    """Device ms (CUDA events, median of 3) of the eval forward's layers
-    on one padded pair: the backbone, the cost processor (difference
-    volume and aggregator: the trunk on K1 / K4), the soft-argmin (K2) and
-    the refinement (cuDNN's 2-D convs), beside the whole forward."""
-    module = model.module
-    with torch.inference_mode():
-        feats = module.backbone(left, right)
-        costs = module.cost_processor(*feats)
-        disps = [module.disp_predictor(c) for c in costs]
-        parts = {
-            "backbone": time_ms(lambda: module.backbone(left, right), 3),
-            "volume + aggregator": time_ms(
-                lambda: module.cost_processor(*feats), 3),
-            "soft-argmin": time_ms(lambda: module.disp_predictor(costs[0]),
-                                   3),
-            "refinement": time_ms(lambda: module.disp_refinement(
-                disps, *feats, left, right), 3)}
-        parts["forward"] = time_ms(lambda: model.forward(left, right), 3)
-    return parts
-
-
-def stereonet_forward(name, pairs):
-    """init_model(name, seed 0) + inference_stereo over ``pairs`` padded to
-    PADDED, launches asserted (per forward K1 4 in float32 or K4's bf16
-    route 4, K2 1, K3 none); disparities finite, the refined ones >= 0
-    (a ReLU), the initial one in [0, 184] (24 samples x 8); the forward's
-    ms, its layers' and the peak. Returns (disparities, counts, bf16
-    counts, ms, layers, peak GiB)."""
-    from densematchingbenchmark_tpu_torch.apis import (inference_stereo,
-                                                       init_model)
-    from densematchingbenchmark_tpu_torch.ops import cuda as kernels
-    model = init_model(name, seed=0)
-    f32 = model.cfg["model"]["dtype"] == "float32"
-    stages = 4 if name.startswith(STEREO_CONFIG) else 2
-    n = len(pairs)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    results = inference_stereo(model, pairs, pad_to_shape=PADDED)
-    torch.cuda.synchronize()
-    counts, bf16 = kernels.launch_counts(), kernels.bf16_launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    units = STEREO_UNITS * n
-    assert counts == {"fused_conv3d": units if f32 else 0,
-                      "fused_soft_argmin": n,
-                      "fused_soft_argmin_backward": 0,
-                      "fused_upsample_soft_argmin": 0,
-                      "conv3d_packed_s1": 0 if f32 else units,
-                      "conv3d_packed_s1_v2": 0}, counts
-    assert bf16["conv3d_packed_s1"] == (0 if f32 else units), bf16
-    disps = [r["disps"] for r in results]
-    for ds in disps:
-        assert len(ds) == stages
-        for d in ds:
-            assert d.shape == (1, *IMAGE, 1) and np.isfinite(d).all()
-            assert d.min() >= -1e-3, d.min()
-        # the upsampled soft-argmin: an expectation over 0..23 times 8
-        assert ds[-1].max() <= 23 * 8 + 1e-2, ds[-1].max()
-    left, right = padded_input(model, pairs[0])
-    with torch.inference_mode():
-        ms = time_ms(lambda: model.forward(left, right), FORWARD_REPS)
-    parts = stereonet_breakdown(model, left, right)
-    del model
-    torch.cuda.empty_cache()
-    return disps, counts, bf16, ms, parts, peak
-
-
 def stereonet_slice_phase(smi):
     """StereoNet inference at full width: the 4-stage config in float32
     and bfloat16 over three random 375x1242 pairs, the 2-stage config over
@@ -2899,13 +2784,17 @@ def stereonet_slice_phase(smi):
     for config, run_pairs in ((STEREO_CONFIG, pairs),
                               (STEREO_TWO, pairs[:1])):
         for suffix in ("_f32", "_bf16"):
-            disps, counts, bf16, ms, parts, peak = stereonet_forward(
-                config + suffix, run_pairs)
+            stages = 4 if config == STEREO_CONFIG else 2
+            disps, counts, bf16, ms, parts, peak = family_forward(
+                config + suffix, run_pairs, PADDED, STEREO_UNITS,
+                STEREO_UNITS, 1, stages)
+            # the upsampled soft-argmin: an expectation over 0..23 times 8
+            assert max(ds[-1].max() for ds in disps) <= 23 * 8 + 1e-2
             runs[config, suffix] = disps
             launches[suffix] = (counts if launches[suffix] is None else
                                 {k: launches[suffix][k] + v
                                  for k, v in counts.items()})
-            share = 100 * parts["refinement"] / parts["forward"]
+            share = 100 * parts["disp_refinement"] / parts["forward"]
             print(f"stereonet {config + suffix}: inference_stereo over "
                   f"{len(run_pairs)} pairs {IMAGE} padded to {PADDED}, "
                   f"{len(disps[0])} disparities each, finite; launches "
@@ -3006,16 +2895,22 @@ def write_sceneflow_dataset(root):
     return ann, items
 
 
-def stereonet_eval_phase(smi, root, ann, items):
-    """tools/test.main on StereoNet/scene_flow_8x_4stage in float32 and
-    bfloat16 over the SceneFlow-layout set at ``root``, padded to the
-    config's 544x960, at eval batch 4 (two batches), every disparity of
-    eval_disparity_id (0, 1, 2, 3) scored: launches asserted (a batch K1 4
-    or K4's bf16 route 4, K2 1); each run's metrics against batch-1
-    inference_stereo on the same files with per-sample metrics in float64
-    (EVAL_EPE_ATOL, EVAL_PX_ATOL); the bfloat16 EPEs beside float32's;
-    the eval step's ms a sample and peak at batch 4 and 1. Returns the
-    float32 and bfloat16 launch counts."""
+def family_eval_phase(smi, root, ann, items, config, units, argmins,
+                      n_disps, bf16_units=None, overrides=None,
+                      bf16_atol=(EVAL_EPE_ATOL, EVAL_PX_ATOL)):
+    """tools/test.main on ``config`` in float32 and bfloat16 over the
+    SceneFlow-layout set at ``root``, padded to the config's test shape
+    (after ``overrides``, a dict of dotted keys), at eval batch 4 (two
+    batches), every disparity of eval_disparity_id that the model's
+    ``n_disps`` hold scored (as JAX's loop, the tool skips the others):
+    launches
+    asserted (a batch K1 ``units`` or K4's bf16 route ``bf16_units``, K2
+    ``argmins``); each run's metrics against batch-1 inference_stereo on
+    the same files with per-sample metrics in float64 (EVAL_EPE_ATOL,
+    EVAL_PX_ATOL; ``bf16_atol`` in bfloat16); the bfloat16 EPEs beside
+    float32's; the eval step's ms
+    a sample and peak at batch 4 and 1. Returns the float32 and bfloat16
+    launch counts."""
     from densematchingbenchmark_tpu_torch.apis import (inference_stereo,
                                                        init_model)
     from densematchingbenchmark_tpu_torch.configs import get_config
@@ -3025,14 +2920,16 @@ def stereonet_eval_phase(smi, root, ann, items):
     from densematchingbenchmark_tpu_torch.evaluation import eval_loop
     from densematchingbenchmark_tpu_torch.ops import cuda as kernels
     from densematchingbenchmark_tpu_torch.tools import test as test_tool
+    overrides = dict(overrides or {})
+    bf16_units = units if bf16_units is None else bf16_units
     launches, by_dtype = {}, {}
     batches = -(-STEREO_EVAL_N // EVAL_BATCH)
     for suffix in ("_f32", "_bf16"):
-        name = STEREO_CONFIG + suffix
+        name = config + suffix
         f32 = suffix == "_f32"
-        cfg = get_config(name)
-        assert tuple(cfg["eval_disparity_id"]) == (0, 1, 2, 3)
-        assert tuple(cfg["data"]["test"]["input_shape"]) == STEREO_EVAL_PAD
+        cfg = get_config(name, **overrides)
+        ids = tuple(i for i in cfg["eval_disparity_id"] if i < n_disps)
+        pad = tuple(cfg["data"]["test"]["input_shape"])
         assert cfg["model"]["eval"]["batch_size"] == EVAL_BATCH
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3040,21 +2937,22 @@ def stereonet_eval_phase(smi, root, ann, items):
         results, n = test_tool.main([
             "--config", name, "--work-dir", os.path.join(root, "work"),
             "--data-root", root, "--annfile", ann, "--override",
-            "data.test.use_right_disp=True"])
+            "data.test.use_right_disp=True",
+            *(f"{k}={v!r}" for k, v in overrides.items())])
         torch.cuda.synchronize()
         counts, bf16 = kernels.launch_counts(), kernels.bf16_launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        units = STEREO_UNITS * batches
+        k1, k4 = (units * batches, 0) if f32 else (0, bf16_units * batches)
         assert n == STEREO_EVAL_N and counts == {
-            "fused_conv3d": units if f32 else 0,
-            "fused_soft_argmin": batches,
+            "fused_conv3d": k1,
+            "fused_soft_argmin": argmins * batches,
             "fused_soft_argmin_backward": 0,
             "fused_upsample_soft_argmin": 0,
-            "conv3d_packed_s1": 0 if f32 else units,
+            "conv3d_packed_s1": k4,
             "conv3d_packed_s1_v2": 0}, (n, counts)
-        assert bf16["conv3d_packed_s1"] == (0 if f32 else units), bf16
+        assert bf16["conv3d_packed_s1"] == k4, bf16
         assert {k.split("/")[0] for k in results} == {
-            f"disp_{i}" for i in range(4)}, sorted(results)
+            f"disp_{i}" for i in ids}, sorted(results)
         launches[suffix] = counts
         by_dtype[suffix] = results
 
@@ -3067,22 +2965,24 @@ def stereonet_eval_phase(smi, root, ann, items):
             out = inference_stereo(model, [{
                 "leftImage": dio.load_image(path("left_image_path")),
                 "rightImage": dio.load_image(path("right_image_path"))}],
-                pad_to_shape=STEREO_EVAL_PAD)[0]["disps"]
+                pad_to_shape=pad)[0]["disps"]
             gt = dio.load_pfm(path("left_disp_map_path"))[0]
             rgt = dio.load_pfm(path("right_disp_map_path"))[0]
-            for did, d in enumerate(out):
-                for k, v in metrics_f64(d[0, ..., 0], gt, rgt).items():
+            for did in ids:
+                for k, v in metrics_f64(out[did][0, ..., 0], gt,
+                                        rgt).items():
                     key = f"disp_{did}/{k}"
                     sums[key] = sums.get(key, 0.0) + v
         ref = {k: v / len(items) for k, v in sums.items()}
-        epe, px = compare_metrics(results, ref, f"stereonet {suffix}")
+        epe, px = compare_metrics(results, ref, f"{name} eval",
+                                  *(() if f32 else (bf16_atol,)))
 
         # the eval step (forward + metrics) a sample at batch 4 and 1
         test_cfg = dict(cfg["data"], data_root=root, test=dict(
             cfg["data"]["test"], annfile=ann, use_right_disp=True))
         ds = build_dataset(test_cfg, "test", transforms.make_eval_transform(
-            STEREO_EVAL_PAD, cfg["data"]["mean"], cfg["data"]["std"]))
-        ecfg, ids = cfg["model"]["eval"], cfg["eval_disparity_id"]
+            pad, cfg["data"]["mean"], cfg["data"]["std"]))
+        ecfg = cfg["model"]["eval"]
         step = eval_loop.make_eval_metrics_step(
             model.module, ecfg["lower_bound"], ecfg["upper_bound"], ids,
             ecfg["eval_occlusion"])
@@ -3100,10 +3000,10 @@ def stereonet_eval_phase(smi, root, ann, items):
         ms4 = time_ms(lambda: step(b4), 3) / EVAL_BATCH
         ms1 = time_ms(lambda: step(b1), 3)
         print(f"eval {name}: {n} SceneFlow-layout samples "
-              f"{STEREO_EVAL_IMAGE} padded to {STEREO_EVAL_PAD}, "
-              f"{batches} batches of {EVAL_BATCH}; launches {counts}; EPE "
+              f"{STEREO_EVAL_IMAGE} padded to {pad}, {batches} batches of "
+              f"{EVAL_BATCH}; launches {counts}; EPE "
               + ", ".join(f"disp_{i} {results[f'disp_{i}/epe']:.4f}"
-                          for i in range(4))
+                          for i in ids)
               + f" px; vs the batch-1 reference: EPE {epe:.3g} px, n-px "
               f"{px:.3g} points; eval step {ms4:.2f} ms a sample at batch "
               f"{EVAL_BATCH}, {ms1:.2f} at batch 1 (device, CUDA events); "
@@ -3111,15 +3011,27 @@ def stereonet_eval_phase(smi, root, ann, items):
               f"{peaks[1]:.2f} at batch 1 ({peak:.2f} the tool's run); {smi}")
         if "--profile" in sys.argv[1:]:
             device_profile(f"{name} eval step batch {EVAL_BATCH}",
-                           lambda: step(b4))
+                           lambda: step(b4), convs=8)
         del model, step, b4, b1
         torch.cuda.empty_cache()
     gap = max(abs(by_dtype["_bf16"][k] - by_dtype["_f32"][k])
               for k in by_dtype["_f32"] if k.endswith("epe"))
-    print(f"eval {STEREO_CONFIG}: bf16 EPEs within {gap:.4f} px of "
-          f"float32's (random weights, the same seed)")
+    print(f"eval {config}: bf16 EPEs within {gap:.4f} px of float32's "
+          f"(random weights, the same seed)")
     assert np.isfinite(gap)
     return launches["_f32"], launches["_bf16"]
+
+
+def stereonet_eval_phase(smi, root, ann, items):
+    """``family_eval_phase`` on StereoNet/scene_flow_8x_4stage (its
+    544x960 test shape; a batch K1 4 or K4's bf16 route 4, K2 1; all four
+    disparities scored)."""
+    from densematchingbenchmark_tpu_torch.configs import get_config
+    cfg = get_config(STEREO_CONFIG + "_f32")
+    assert tuple(cfg["eval_disparity_id"]) == (0, 1, 2, 3)
+    assert tuple(cfg["data"]["test"]["input_shape"]) == STEREO_EVAL_PAD
+    return family_eval_phase(smi, root, ann, items, STEREO_CONFIG,
+                             STEREO_UNITS, 1, 4)
 
 
 def fault8_phase(smi):
@@ -3224,6 +3136,506 @@ def stereonet_profile_phase():
                        convs=8)
         del module, state, batch
         torch.cuda.empty_cache()
+
+
+# GCNet at full width: max_disp 192, the concatenation volume at half
+# resolution (96 disparities, 64 channels), 10 stride-1 units on K1 / K4
+# (c31 and c32, 128->128, in two Ci slices on the bf16 block), the strided
+# and transposed units and the 32->1 head on cuDNN, K2 on the
+# full-resolution cost of 192 disparities (PSMNet's K2 shape at 384x1248).
+GC_CONFIG = "GCNet/scene_flow"
+GC_UNITS, GC_BF16_UNITS = 10, 12
+GC_SMALL = {"model.max_disp": 32,
+            "model.cost_processor.cost_computation.max_disp": 16,
+            "model.cost_processor.cost_aggregator.max_disp": 32,
+            "model.disp_predictor.max_disp": 32,
+            "model.losses.l1_loss.max_disp": 32}
+# fault 9: c19 (64->32) on the raw volume of the 544x960 batch-4 eval,
+# [4, 96, 272, 480, 64]: 3,208,642,560 elements, past 2^31
+FAULT9_C19 = (4, 96, 272, 480, 64)
+# DeepPruner (Best 4x, Fast 8x) at full width: max_disp 192, PatchMatch's
+# 14 samples and the 9 uniform ones at 1/4 (or 1/8), 20 stride-1 units a
+# forward (23 launches in bf16: the three hourglasses' 128->128 units in
+# two Ci slices), no K2 (its expectations are plain PyTorch, as JAX's are
+# XLA). Its hourglasses halve H and W three times at the feature scale, so
+# a frame must be a multiple of 32 (4x) or 64 (8x) each way: JAX's 8x
+# model refuses 384x1248 and the configs' 544x960 as the port does, so
+# inference runs at 384x1280 (JAX's own measured size) and the 8x eval at
+# 576x960.
+DP_CONFIGS = ("DeepPruner/scene_flow_4x", "DeepPruner/scene_flow_8x")
+DP_PADDED = (384, 1280)
+DP_UNITS, DP_BF16_UNITS = 20, 23
+DP_EVAL_OVERRIDES = {"DeepPruner/scene_flow_8x":
+                     {"data.test.input_shape": (576, 960)}}
+# DeepPruner's bfloat16 eval at batch 4 against batch 1: (EPE px, n-px
+# points). cuDNN picks its algorithms by batch size, so its bfloat16 convs
+# round at other points in the two runs, and PatchMatch's soft selection
+# (scores times temperature 7) carries that into the samples: measured
+# 0.0034 px and 0.0058 points on the 4x model (float32: 1.5e-5 px)
+DP_BF16_EVAL_ATOL = (0.01, 0.05)
+DP_SMALL = {"model.max_disp": 64, "model.losses.l1_loss.max_disp": 64,
+            "model.losses.quantile_loss.max_disp": 64}
+
+
+def gc_unit_shapes(h, w):
+    """(Cin, Cout, (D, H, W), units) of GCNet's 10 stride-1 units on a
+    half-resolution volume of h x w (96 disparities)."""
+    return ((64, 32, (96, h, w), 1), (32, 32, (96, h, w), 1),
+            *((64, 64, (96 >> k, h >> k, w >> k), 2) for k in (1, 2, 3)),
+            (128, 128, (6, h >> 4, w >> 4), 2))
+
+
+def dp_unit_shapes(h, w):
+    """(Cin, Cout, (D, H, W), units) of DeepPruner's 20 stride-1 units on
+    features of h x w: the predictor's (14 samples, two hourglasses and
+    heads) and the aggregator's (9 samples)."""
+    out = []
+    for d, first, heads in ((14, 65, 2), (9, 93, 1)):
+        out += [(first, 64, (d, h, w), 1), (64, 32, (d, h, w), 1),
+                (32, 32, (d, h, w), 1), (32, 16, (d, h, w), 1),
+                (32, 32, (d, h // 2, w // 2), heads),
+                (64, 64, (d, h // 4, w // 4), heads),
+                (128, 128, (d, h // 8, w // 8), heads),
+                (16, 32, (d, h, w), heads)]
+    return tuple(out)
+
+
+def check_family_units(label, shapes, gen, batches=(1,), bias=False,
+                       train=None):
+    """K1 (float32) and K4's bfloat16 route (the eval unit on its kept
+    operands) as ``label``'s stride-1 units at ``shapes`` ((Cin, Cout,
+    (D, H, W), units a forward) of a 384-row frame; with ``bias`` a conv
+    bias), at each of ``batches``: one launch a slice of Ci and nothing
+    else, against the plain version on the folded operands and the
+    unfused conv (+ bias), BN and ReLU in float32 (CONV_RTOL of the
+    largest output; BF16_STEP besides, against the unfused conv one a
+    slice of Ci). Then, with ``train`` ((shapes,
+    batch)), K4's float32 training route (unit scale) against its plain
+    version. Each unit timed at its row's first batch: one call, chained,
+    the plain version, cuDNN's conv (+ the affine and ReLU in eval) in the
+    unit's dtype and the bound; summed over a forward. Returns {row: extra
+    keys}."""
+    from densematchingbenchmark_tpu_torch.ops import cuda as kernels
+    from densematchingbenchmark_tpu_torch.ops.cuda import (
+        conv3d_packed_s1, conv3d_packed_s1_plain, conv3d_plain)
+    rows = [("fused_conv3d", torch.float32, batches, shapes),
+            ("conv3d_packed_s1_bf16_pack1", torch.bfloat16, batches, shapes)]
+    if train is not None:
+        rows.append(("conv3d_packed_s1", torch.float32, (train[1],),
+                     train[0]))
+    out = {}
+    for row, dtype, row_batches, units in rows:
+        f32, is_train = dtype == torch.float32, row == "conv3d_packed_s1"
+        size = 4 if f32 else 2
+        tot = dict.fromkeys(("ms", "chained_ms", "plain_ms", "library_ms",
+                             "bound_ms", "max_abs_err"), 0.0)
+        launches = 0
+        for ci, co, (d, h, w), n in units:
+            for batch in row_batches:
+                unit = biased_unit(ci, co, dtype, gen, bias=bias).eval()
+                x = torch.randn((batch, d, h, w, ci), device="cuda",
+                                generator=gen).to(dtype)
+                kernel = unit.Conv_0.weight.detach().permute(
+                    2, 3, 4, 1, 0).to(dtype).contiguous()
+                with torch.no_grad():
+                    inv, shift = unit.folded_bn()
+                if is_train:
+                    # the unit's training call: its input and kernel padded
+                    # with zero channels to ``widths``, K4 at unit scale
+                    xp = F.pad(x, (0, unit.widths.ci - ci))
+                    kp = unit._kernel().detach()
+                    call = lambda: conv3d_packed_s1(xp, kp, pack=1)
+                    plain = lambda: conv3d_packed_s1_plain(xp, kp, pack=1)
+                    lib_call = lambda: F.conv3d(x.movedim(-1, 1),
+                                                unit.Conv_0.weight, padding=1)
+                    slices = 1
+                else:
+                    call = lambda: unit(x)
+                    plain = lambda: (
+                        conv3d_plain(x, kernel, inv, shift, True) if f32 else
+                        conv3d_packed_s1_plain(x, kernel, inv, shift, 1,
+                                               True))
+                    w_oi = unit.Conv_0.weight.to(dtype)
+                    s5, b5 = (t.view(1, -1, 1, 1, 1).to(dtype)
+                              for t in (inv, shift))
+                    lib_call = lambda: torch.relu(F.conv3d(
+                        x.movedim(-1, 1), w_oi, padding=1) * s5 + b5)
+                    slices = len(unit.widths.slices)
+                name = "fused_conv3d" if f32 and not is_train else \
+                    "conv3d_packed_s1"
+                kernels.reset_launch_counts()
+                with torch.inference_mode():
+                    got = call()
+                    torch.cuda.synchronize()
+                    counts = kernels.launch_counts()
+                    assert counts[name] == slices and \
+                        sum(counts.values()) == slices, (ci, co, counts)
+                    want = plain()
+                    if is_train:
+                        got, want = got[..., :co], want[..., :co]
+                    top = want.float().abs().max().item()
+                    tol = (CONV_RTOL + (0 if f32 else BF16_STEP)) * top
+                    err = (got.float() - want.float()).abs().max().item()
+                    assert err <= tol, (label, row, ci, co, batch, err, tol)
+                    del want
+                    if not is_train:
+                        conv, bn = unit.Conv_0, unit.BatchNorm_0
+                        unfused = torch.relu_(F.batch_norm(
+                            F.conv3d(x.movedim(-1, 1).float(),
+                                     conv.weight.to(dtype).float(),
+                                     conv.bias, padding=1),
+                            bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps)).movedim(1, -1)
+                        err_unfused = (got.float() - unfused).abs().max() \
+                            .item()
+                        # each slice of Ci rounds its sum to bfloat16 first
+                        tol_unfused = (CONV_RTOL + (0 if f32 else BF16_STEP
+                                                    * slices)) * top
+                        assert err_unfused <= tol_unfused, (
+                            label, row, ci, co, batch, err_unfused,
+                            tol_unfused)
+                        del unfused
+                    del got
+                    tot["max_abs_err"] = max(tot["max_abs_err"], err)
+                    if batch != row_batches[0]:
+                        del unit, x
+                        continue
+                    ms, chain = time_ms(call), chained_ms(call)
+                    lib, plain_ms = time_ms(lib_call), time_ms(plain, 1, 0)
+                vox = batch * d * h * w
+                b_ms, b_by = bound_ms(
+                    2 * 27 * ci * co * vox,
+                    size * (vox * (ci + co) + 27 * ci * co) + 8 * co,
+                    PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
+                for k, v in (("ms", ms), ("chained_ms", chain),
+                             ("plain_ms", plain_ms), ("library_ms", lib),
+                             ("bound_ms", b_ms)):
+                    tot[k] += n * v
+                launches += n * slices
+                print(f"{label} {row} {ci}->{co} {batch}x{d}x{h}x{w} (x{n}/"
+                      f"{'step' if is_train else 'fwd'}, {slices} launch"
+                      f"{'es' if slices > 1 else ''}): {ms:.3f} ms, chained "
+                      f"{chain:.3f}; cuDNN {lib:.3f}; plain {plain_ms:.3f}; "
+                      f"bound {b_ms:.4f} ({b_by}); max_abs_err {err:.3g} "
+                      f"(tolerance {tol:.3g}"
+                      + ("" if is_train else
+                         f"; {err_unfused:.3g} against the unfused conv, "
+                         f"tolerance {tol_unfused:.3g}")
+                      + ")")
+                del unit, x
+        torch.cuda.empty_cache()
+        what = (f"per step's forward ({launches} launches, batch "
+                f"{row_batches[0]} at the train crop)" if is_train else
+                f"per forward ({launches} launches, batch "
+                f"{row_batches[0]}; max_abs_err over batches "
+                f"{list(row_batches)})")
+        out[row] = {f"{label}_unit": what,
+                    **{f"{label}_{k}": v for k, v in tot.items()}}
+        print(f"{label} {row} {what}: " + ", ".join(
+            f"{k} {v:.4g}" for k, v in tot.items()))
+    return out
+
+
+def fault9_phase(smi, gen):
+    """ROADMAP section 3 fault 9: GCNet's c19 (64->32, BN, ReLU) on the
+    raw volume of the 544x960 batch-4 eval, FAULT9_C19 (past 2^31
+    elements), as the eval unit runs it: K1 in float32 and K4's bfloat16
+    route, one launch and no library conv, against cuDNN's conv + BN +
+    ReLU in float32 on the same (rounded) operands (CONV_RTOL of the
+    largest output; BF16_STEP besides); one call each and the bound.
+    Returns {row: extra keys}."""
+    from densematchingbenchmark_tpu_torch.ops import cuda as kernels
+    out = {}
+    b, d, h, w, ci = FAULT9_C19
+    vox = b * d * h * w
+    assert vox * ci >= 2 ** 31
+    for row, dtype in (("fused_conv3d", torch.float32),
+                       ("conv3d_packed_s1_bf16_pack1", torch.bfloat16)):
+        f32 = dtype == torch.float32
+        unit = biased_unit(ci, 32, dtype, gen, bias=False).eval()
+        x = torch.randn(FAULT9_C19, device="cuda", generator=gen).to(dtype)
+        kernels.reset_launch_counts()
+        with torch.inference_mode():
+            got = unit(x)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            assert counts["fused_conv3d" if f32 else "conv3d_packed_s1"] \
+                == 1 and sum(counts.values()) == 1, counts
+            conv, bn = unit.Conv_0, unit.BatchNorm_0
+            want = F.conv3d(x.movedim(-1, 1).float(),
+                            conv.weight.to(dtype).float(), padding=1)
+            want = torch.relu_(F.batch_norm(
+                want, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                False, 0.0, bn.eps)).movedim(1, -1)
+            top = want.abs().max().item()
+            err = max((got[i].float() - want[i]).abs().max().item()
+                      for i in range(b))
+            del want
+            tol = (CONV_RTOL + (0 if f32 else BF16_STEP)) * top
+            assert err <= tol, (row, err, tol)
+            ms = time_ms(lambda: unit(x), 3)
+            inv, shift = unit.folded_bn()
+            s5, b5 = (t.view(1, -1, 1, 1, 1).to(dtype) for t in (inv, shift))
+            w_oi = conv.weight.to(dtype)
+            lib = time_ms(lambda: torch.relu(F.conv3d(
+                x.movedim(-1, 1), w_oi, padding=1) * s5 + b5), 3)
+        b_ms, b_by = bound_ms(2 * 27 * ci * 32 * vox,
+                              (4 if f32 else 2) * vox * (ci + 32),
+                              PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
+        print(f"fault 9: c19 64->32 at {list(FAULT9_C19)} ({vox * ci:,} "
+              f"elements in, {vox * 32:,} out) on "
+              f"{'K1' if f32 else 'K4 bf16'}: {ms:.2f} ms (one launch), "
+              f"cuDNN conv+affine+ReLU {lib:.2f} ms, bound {b_ms:.2f} "
+              f"({b_by}); max_abs_err {err:.3g} against cuDNN's conv + BN "
+              f"+ ReLU in float32 (tolerance {tol:.3g}); {smi}")
+        out[row] = {"fault9_unit": f"c19 64->32 at {list(FAULT9_C19)}",
+                    "fault9_ms": ms, "fault9_library_ms": lib,
+                    "fault9_bound_ms": b_ms, "fault9_max_abs_err": err}
+        del unit, x, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def layer_breakdown(model, left, right, reps=3):
+    """Device ms (CUDA events, median of ``reps`` after one warm-up) of
+    each top-level submodule of the model over one eval forward (summed
+    over its calls), of the forward, and of what runs between them
+    ('between': volumes, PatchMatch, expectations, resizes)."""
+    marks, hooks = [], []
+
+    def record(name, kind):
+        def hook(*_):
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            marks.append((name, kind, event))
+        return hook
+
+    for name, child in model.module.named_children():
+        hooks.append(child.register_forward_pre_hook(record(name, 0)))
+        hooks.append(child.register_forward_hook(record(name, 1)))
+    runs = []
+    try:
+        for _ in range(reps + 1):
+            marks.clear()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            model.forward(left, right)
+            end.record()
+            end.synchronize()
+            parts, opened = {}, {}
+            for name, kind, event in marks:
+                if kind == 0:
+                    opened[name] = event
+                else:
+                    parts[name] = parts.get(name, 0.0) + \
+                        opened.pop(name).elapsed_time(event)
+            parts["forward"] = start.elapsed_time(end)
+            parts["between"] = 2 * parts["forward"] - sum(parts.values())
+            runs.append(parts)
+    finally:
+        for h in hooks:
+            h.remove()
+    return {k: float(np.median([r[k] for r in runs[1:]])) for k in runs[1]}
+
+
+def family_forward(name, pairs, pad, units, bf16_units, argmins, n_disps):
+    """init_model(name, seed 0) + inference_stereo over ``pairs`` padded to
+    ``pad``: launches asserted (a forward K1 ``units`` in float32 or K4's
+    bf16 route ``bf16_units``, K2 ``argmins``, K3 none), ``n_disps``
+    disparities each, finite and >= 0; the forward's ms, its layers' and
+    the peak. Returns (disparities, counts, bf16 counts, ms, layers, peak
+    GiB)."""
+    from densematchingbenchmark_tpu_torch.apis import (inference_stereo,
+                                                       init_model)
+    from densematchingbenchmark_tpu_torch.ops import cuda as kernels
+    model = init_model(name, seed=0)
+    f32 = model.cfg["model"]["dtype"] == "float32"
+    n = len(pairs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    results = inference_stereo(model, pairs, pad_to_shape=pad)
+    torch.cuda.synchronize()
+    counts, bf16 = kernels.launch_counts(), kernels.bf16_launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    k1, k4 = (units * n, 0) if f32 else (0, bf16_units * n)
+    assert counts == {"fused_conv3d": k1, "fused_soft_argmin": argmins * n,
+                      "fused_soft_argmin_backward": 0,
+                      "fused_upsample_soft_argmin": 0,
+                      "conv3d_packed_s1": k4,
+                      "conv3d_packed_s1_v2": 0}, (name, counts)
+    assert bf16["conv3d_packed_s1"] == k4, bf16
+    disps = [r["disps"] for r in results]
+    for ds in disps:
+        assert len(ds) == n_disps, len(ds)
+        for d in ds:
+            assert d.shape == (1, *IMAGE, 1) and np.isfinite(d).all()
+            assert d.min() >= -1e-3, d.min()
+    left, right = padded_input(model, pairs[0], pad)
+    with torch.inference_mode():
+        ms = time_ms(lambda: model.forward(left, right), FORWARD_REPS)
+    parts = layer_breakdown(model, left, right)
+    if "--profile" in sys.argv[1:]:
+        device_profile(f"{name} forward {pad}",
+                       lambda: model.forward(left, right), convs=8)
+    del model
+    torch.cuda.empty_cache()
+    return disps, counts, bf16, ms, parts, peak
+
+
+def small_card_vs_cpu(label, config, small, shape, n_disps):
+    """A small model of ``config`` (``small`` overrides, BN drawn with
+    damp_bn) on the card against the same weights through the plain
+    versions on the CPU, one random pair of ``shape``: float32 within
+    CPU_ATOL max, bfloat16 within BF16_CPU_ATOL mean, every disparity."""
+    from densematchingbenchmark_tpu_torch.apis import (StereoModel,
+                                                       inference_stereo,
+                                                       init_model)
+    rng = np.random.RandomState(6)
+    pair = random_pairs(rng, 1, shape)
+    report = []
+    for suffix in ("_f32", "_bf16"):
+        cpu = init_model(config + suffix, device="cpu", seed=4, **small)
+        damp_bn(cpu.module, 4)
+        card = StereoModel(cpu.cfg, copy.deepcopy(cpu.module).cuda(),
+                           torch.device("cuda"))
+        want = inference_stereo(cpu, pair)[0]["disps"]
+        got = inference_stereo(card, pair)[0]["disps"]
+        assert len(got) == len(want) == n_disps
+        if suffix == "_f32":
+            err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+            assert err <= CPU_ATOL, (label, err)
+            report.append(f"float32 {err:.4g} px max (tolerance "
+                          f"{CPU_ATOL})")
+        else:
+            gaps = [float(np.abs(g - w).mean()) for g, w in zip(got, want)]
+            assert max(gaps) <= BF16_CPU_ATOL, (label, gaps)
+            report.append("bf16 mean " + ", ".join(f"{g:.4f}" for g in gaps)
+                          + f" px (tolerance {BF16_CPU_ATOL})")
+    print(f"{label} {config} small model ({small['model.max_disp']} disps, "
+          f"{shape}), card vs CPU plain versions: " + "; ".join(report))
+
+
+def family_slice_phase(smi, label, configs, pad, units, bf16_units, argmins,
+                       n_disps, seed, held):
+    """Inference at full width for each of ``configs`` in float32 and
+    bfloat16 over three random 375x1242 pairs padded to ``pad``
+    (family_forward), the bfloat16-vs-float32 gap on the same weights:
+    every disparity within BF16_GAP_ATOL, and the gap of the disparities
+    ``held`` (indices of those the trunk's units move at random weights)
+    above 0, so that the bfloat16 trunk ran and made a difference. Returns
+    the float32 and bfloat16 launch counts."""
+    rng = np.random.RandomState(seed)
+    pairs = random_pairs(rng, PAIRS, IMAGE)
+    launches = {"_f32": {}, "_bf16": {}}
+    for config in configs:
+        runs = {}
+        for suffix in ("_f32", "_bf16"):
+            disps, counts, bf16, ms, parts, peak = family_forward(
+                config + suffix, pairs, pad, units, bf16_units, argmins,
+                n_disps[config])
+            runs[suffix] = disps
+            for k, v in counts.items():
+                launches[suffix][k] = launches[suffix].get(k, 0) + v
+            print(f"{label} {config + suffix}: inference_stereo over "
+                  f"{len(pairs)} pairs {IMAGE} padded to {pad}, "
+                  f"{len(disps[0])} disparities each, finite; launches "
+                  f"{counts} (bf16 route {bf16}); forward {ms:.2f} ms "
+                  f"(median of {FORWARD_REPS}, CUDA events), by layer "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+                  + f" ms; peak {peak:.2f} GiB at batch 1; {smi}")
+        gaps = [[float(np.abs(a - b).mean()) for a, b in zip(da, db)]
+                for da, db in zip(runs["_f32"], runs["_bf16"])]
+        print(f"{label} {config}: bf16 vs float32 on the same weights (seed "
+              f"0), mean |gap| by disparity over the pairs: "
+              + "; ".join(", ".join(f"{x:.4f}" for x in g) for g in gaps)
+              + f" px (each within BF16_GAP_ATOL {BF16_GAP_ATOL}; the "
+              f"trunk's {list(held)} above 0)")
+        assert np.isfinite(gaps).all() and np.max(gaps) <= BF16_GAP_ATOL, \
+            gaps
+        assert min(max(g[i] for i in held) for g in gaps) > 0, gaps
+    return launches["_f32"], launches["_bf16"]
+
+
+def gcnet_phase(smi, gen, stats, bf16_trunk, launches, bf16_launches):
+    """Phase 11, GCNet: fault 9 (c19 at the eval's raw volume), its units
+    on the kernels at its shapes, inference at full width, a small model
+    against the CPU, tools/test.main over the SceneFlow-layout set at
+    544x960 batch 4 against batch 1, train_matcher at 1x256x512; its
+    launches join each dtype's counts and its kernel numbers the rows."""
+    for row, extra in fault9_phase(smi, gen).items():
+        (bf16_trunk if row.endswith("pack1") else stats[row]).update(extra)
+    for row, extra in check_family_units(
+            "gcnet", gc_unit_shapes(192, 624), gen,
+            train=(gc_unit_shapes(128, 256), 1)).items():
+        (bf16_trunk if row.endswith("pack1") else stats[row]).update(extra)
+    runs = [family_slice_phase(smi, "gcnet", (GC_CONFIG,), PADDED, GC_UNITS,
+                               GC_BF16_UNITS, 1, {GC_CONFIG: 1}, 11, (0,))]
+    small_card_vs_cpu("gcnet", GC_CONFIG, GC_SMALL, (64, 128), 1)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        ann, items = write_sceneflow_dataset(root)
+        runs.append(family_eval_phase(smi, root, ann, items, GC_CONFIG,
+                                      GC_UNITS, 1, 1, GC_BF16_UNITS))
+    torch.cuda.empty_cache()
+    for suffix, units in (("_f32", GC_UNITS), ("_bf16", GC_BF16_UNITS)):
+        counts = family_train_phase(smi, GC_CONFIG + suffix, TRAIN_STEPS,
+                                    units=units, argmins=1,
+                                    keys=["l1_loss_lvl0"])
+        runs.append((counts, {}) if suffix == "_f32" else ({}, counts))
+        torch.cuda.empty_cache()
+    for f32_counts, bf16_counts in runs:
+        for total, counts in ((launches, f32_counts),
+                              (bf16_launches, bf16_counts)):
+            for name, n in counts.items():
+                total[name] += n
+
+
+def deeppruner_phase(smi, gen, stats, bf16_trunk, launches, bf16_launches):
+    """Phase 12, DeepPruner 4x and 8x: its units on the kernels at the 4x
+    shapes, inference at full width (384x1280), a small 4x and 8x model
+    against the CPU, tools/test.main over the SceneFlow-layout set (4x at its
+    544x960, 8x at 576x960) at batch 4 against batch 1, train_matcher at
+    5x256x512; its launches join each dtype's counts and its kernel
+    numbers the rows."""
+    h, w = DP_PADDED[0] // 4, DP_PADDED[1] // 4
+    for row, extra in check_family_units(
+            "deeppruner", dp_unit_shapes(h, w), gen,
+            train=(dp_unit_shapes(64, 128), 5)).items():
+        (bf16_trunk if row.endswith("pack1") else stats[row]).update(extra)
+    n_disps = {DP_CONFIGS[0]: 4, DP_CONFIGS[1]: 5}
+    # the trunk's disparities: the predicted range (min, max). At seed 0
+    # the refined and 'post' disparities of a model can sit at 0 after
+    # their ReLUs in both dtypes (8x: gap 0.0000)
+    runs = [family_slice_phase(smi, "deeppruner", DP_CONFIGS, DP_PADDED,
+                               DP_UNITS, DP_BF16_UNITS, 0, n_disps, 12,
+                               (-2, -1))]
+    for config in DP_CONFIGS:
+        small_card_vs_cpu("deeppruner", config, DP_SMALL, (64, 128),
+                          n_disps[config])
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        ann, items = write_sceneflow_dataset(root)
+        for config in DP_CONFIGS:
+            runs.append(family_eval_phase(
+                smi, root, ann, items, config, DP_UNITS, 0, n_disps[config],
+                DP_BF16_UNITS, DP_EVAL_OVERRIDES.get(config),
+                DP_BF16_EVAL_ATOL))
+            torch.cuda.empty_cache()
+    for config, steps in zip(DP_CONFIGS, (TRAIN_STEPS, 2)):
+        keys = [f"l1_loss_lvl{i}" for i in range(n_disps[config])] + [
+            "quantile_loss"]
+        for suffix, units in (("_f32", DP_UNITS), ("_bf16", DP_BF16_UNITS)):
+            counts = family_train_phase(smi, config + suffix, steps,
+                                        units=units, argmins=0, keys=keys)
+            runs.append((counts, {}) if suffix == "_f32" else ({}, counts))
+            torch.cuda.empty_cache()
+    for f32_counts, bf16_counts in runs:
+        for total, counts in ((launches, f32_counts),
+                              (bf16_launches, bf16_counts)):
+            for name, n in counts.items():
+                total[name] += n
 
 
 def main():
@@ -3336,6 +3748,14 @@ def main():
     for counts, total in stereo_runs:
         for name, n in counts.items():
             total[name] += n
+    torch.cuda.empty_cache()
+
+    # GCNet and DeepPruner: fault 9, their units on the kernels, inference,
+    # evaluation, training, in float32 and bfloat16
+    gcnet_phase(smi, gen, stats, bf16_trunk, launches, bf16_launches)
+    torch.cuda.empty_cache()
+    deeppruner_phase(smi, gen, stats, bf16_trunk, launches, bf16_launches)
+    torch.cuda.empty_cache()
     # the bfloat16 paths ran K2 and K3 on bfloat16 costs, K1 never
     assert bf16_launches["fused_conv3d"] == 0, bf16_launches
     for name in ("fused_soft_argmin", "fused_soft_argmin_backward",

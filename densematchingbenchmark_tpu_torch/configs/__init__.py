@@ -12,7 +12,7 @@ import os
 
 import torch
 
-from . import acfnet, psmnet, stereonet
+from . import acfnet, deeppruner, gcnet, psmnet, stereonet
 
 _FAMILIES = {
     "PSMNet/scene_flow": psmnet.scene_flow,
@@ -26,6 +26,11 @@ _FAMILIES = {
     "AcfNet/kitti_2012_adaptive": acfnet.kitti_2012_adaptive,
     "StereoNet/scene_flow_8x_2stage": stereonet.scene_flow_8x_2stage,
     "StereoNet/scene_flow_8x_4stage": stereonet.scene_flow_8x_4stage,
+    "GCNet/scene_flow": gcnet.scene_flow,
+    "GCNet/kitti_2015": gcnet.kitti_2015,
+    "GCNet/kitti_2012": gcnet.kitti_2012,
+    "DeepPruner/scene_flow_4x": deeppruner.scene_flow_4x,
+    "DeepPruner/scene_flow_8x": deeppruner.scene_flow_8x,
 }
 _SUFFIXES = {"_bf16": "bfloat16", "_f32": "float32"}
 

@@ -5,19 +5,18 @@ loss section of a model config maps a loss name to its kwargs; each named
 loss contributes a weighted dict of per-level scalars, merged into one
 loss dict, and the training loss is the sum of every entry whose key holds
 'loss'. The port has the ``l1_loss``, ``gerf_loss`` and ``focal_loss``
-branches and the confidence NLL loss of the cmn (``cmn_loss``); the
-quantile loss raises NotImplementedError naming its ROADMAP.md item.
+branches, DeepPruner's ``quantile_loss`` on its predicted range, and the
+confidence NLL loss of the cmn (``cmn_loss``).
 """
 
-from .disp_losses import conf_nll_loss, gerf_loss, smooth_l1_loss
+from .disp_losses import (conf_nll_loss, gerf_loss, quantile_loss,
+                          smooth_l1_loss)
 from .focal import stereo_focal_loss
-
-# loss name -> the ROADMAP.md queue 1 item that ports it
-_NOT_PORTED = {"quantile_loss": "9 (DeepPruner)"}
 
 
 class CombinedLossEvaluator:
-    """Callable: (disps, costs, gt, variance=None) -> {name_lvl<i>: scalar}.
+    """Callable: (disps, costs, gt, variance=None, min_disparity=None,
+    max_disparity=None) -> {name_lvl<i>: scalar, 'quantile_loss': scalar}.
 
     ``cmn_losses_cfg`` (AcfNet adaptive) configures the confidence NLL loss
     on the cmn's pre-sigmoid confidence costs, applied by ``cmn_loss``.
@@ -38,15 +37,19 @@ class CombinedLossEvaluator:
                              weights=cfg.get("weights"), sparse=self.sparse)
         return {k: weight * v for k, v in part.items()}
 
-    def __call__(self, disps, costs, gt_disp, variance=None):
+    def __call__(self, disps, costs, gt_disp, variance=None,
+                 min_disparity=None, max_disparity=None):
         loss_dict = {}
         for name, cfg in self.cfg.items():
             cfg = dict(cfg)
             weight = cfg.pop("weight", 1.0)
-            if name in _NOT_PORTED:
-                raise NotImplementedError(
-                    f"{name} is not ported yet (ROADMAP.md queue 1 item "
-                    f"{_NOT_PORTED[name]})")
+            if name == "quantile_loss":
+                loss_dict["quantile_loss"] = quantile_loss(
+                    min_disparity, max_disparity, gt_disp,
+                    max_disp=cfg["max_disp"],
+                    start_disp=cfg.get("start_disp", 0), weight=weight,
+                    theta=cfg.get("theta", 0.05))
+                continue
             if name == "l1_loss":
                 part = smooth_l1_loss(
                     disps, gt_disp, max_disp=cfg["max_disp"],

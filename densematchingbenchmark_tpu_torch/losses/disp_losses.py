@@ -4,8 +4,8 @@ Counterpart of densematchingbenchmark_tpu/losses/disp_losses.py:19-67,
 the smooth-L1 loss of the PSMNet, AcfNet and StereoNet configs, the GERF
 loss and AcfNet's confidence NLL loss: multi-scale, each takes the list of
 predictions (best first) and the full-resolution GT, rescales the GT per
-level and returns a dict of weighted per-level scalars. The quantile loss
-arrives with DeepPruner (losses/builder.py names its ROADMAP.md item).
+level and returns a dict of weighted per-level scalars. DeepPruner's
+quantile loss (:70-81) is one scalar on its predicted range.
 """
 
 import torch
@@ -59,3 +59,17 @@ def conf_nll_loss(est_conf_costs, gt_disp, max_disp, start_disp=0,
         mask = valid_mask(sgt, max_disp / scale, start_disp)
         return masked_mean(F.softplus(-conf_cost), mask)
     return _per_level(est_conf_costs, weights, "conf_loss", level)
+
+
+def quantile_loss(min_est_disp, max_est_disp, gt_disp, max_disp, start_disp=0,
+                  weight=1.0, theta=0.05):
+    """DeepPruner's pinball loss pushing min <= GT <= max, over the GT in
+    (start_disp, start_disp + max_disp): a scalar."""
+    mask = (gt_disp > start_disp) & (gt_disp < start_disp + max_disp)
+    diff_min = gt_disp - min_est_disp
+    min_term = diff_min * (theta - (diff_min < 0).to(gt_disp.dtype))
+    diff_max = gt_disp - max_est_disp
+    max_term = diff_max * ((1.0 - theta)
+                           - (diff_max < 0).to(gt_disp.dtype))
+    return (masked_mean(min_term, mask) + masked_mean(max_term, mask)) \
+        * weight

@@ -1,26 +1,35 @@
 """Config-driven model builder.
 
-Counterpart of densematchingbenchmark_tpu/models/builder.py:36-182, the
-GeneralizedStereoModel branch: the backbone, aggregator and refinement
-registries of the families ported so far (PSMNet, AcfNet, StereoNet), the
-confidence network (``cmn``, AcfNet adaptive), the fused upsample +
-soft-argmin decision (:119-136), and the compute dtype (``model.dtype``,
-:31, :115) handed to every module. The configs' ``pack`` fields are TPU
-schedules with the same parameters as the unpacked modules (trunk
-D-packing, StereoNet's row-packed refinement): the port has one schedule
-and drops them here. Families not ported yet raise
-NotImplementedError naming their ROADMAP.md item.
+Counterpart of densematchingbenchmark_tpu/models/builder.py:36-226: the
+GeneralizedStereoModel branch (the backbone, aggregator and refinement
+registries of PSMNet, AcfNet, StereoNet and GCNet, the confidence network
+``cmn`` of AcfNet adaptive, the fused upsample + soft-argmin decision
+:119-136), the DeepPruner branch (:204-226), and the compute dtype
+(``model.dtype``, :31, :115) handed to every module. The configs' TPU
+schedules keep the parameters of the plain modules and compute the same
+function, and the port drops them here: ``pack`` (trunk D-packing,
+StereoNet's and DeepPruner's row-packed refinements), GCNet's
+``phase_argmin`` (the head in phase layout, read by a phase soft-argmin:
+the port reads the full-resolution cost with the disparity predictor,
+K2), ``split_concat`` and ``w_pad``, and DeepPruner's PatchMatch
+``scoring='corr'`` (its 'warp' scores by linearity). Families not ported
+yet raise NotImplementedError naming their ROADMAP.md item.
 """
 
 import torch
 
 from .aggregators.acfnet import AcfAggregator
+from .aggregators.gcnet import GCAggregator
 from .aggregators.psmnet import PSMAggregator
 from .aggregators.stereonet import StereoNetAggregator
+from .backbones.deeppruner import (DeepPrunerBestBackbone,
+                                   DeepPrunerFastBackbone)
+from .backbones.gcnet import GCNetBackbone
 from .backbones.psmnet import PSMNetBackbone
 from .backbones.stereonet import StereoNetBackbone
 from .cmn import Cmn
 from .cost_processors import CostProcessor
+from .deeppruner import DeepPruner
 from .generalized import GeneralizedStereoModel
 from .layers import init_parameters
 from .predictors import build_disp_predictor
@@ -28,10 +37,6 @@ from .refinement.stereonet import StereoNetRefinement
 
 _NOT_PORTED = {
     "AnyNet": "queue 1 item 10 (AnyNet)",
-    "DeepPruner": "queue 1 item 9 (DeepPruner)",
-    "BestDeepPruner": "queue 1 item 9 (DeepPruner)",
-    "FastDeepPruner": "queue 1 item 9 (DeepPruner)",
-    "GCNet": "queue 1 item 8 (GCNet)",
     "flow": "queue 1 item 11 (Flow)",
 }
 
@@ -42,9 +47,12 @@ def _not_ported(what):
         f"{_NOT_PORTED.get(what, 'queue 1')})")
 
 
-BACKBONES = {"PSMNet": PSMNetBackbone, "StereoNet": StereoNetBackbone}
+BACKBONES = {"PSMNet": PSMNetBackbone, "GCNet": GCNetBackbone,
+             "StereoNet": StereoNetBackbone,
+             "BestDeepPruner": DeepPrunerBestBackbone,
+             "FastDeepPruner": DeepPrunerFastBackbone}
 AGGREGATORS = {"PSMNet": PSMAggregator, "AcfNet": AcfAggregator,
-               "StereoNet": StereoNetAggregator}
+               "GCNet": GCAggregator, "StereoNet": StereoNetAggregator}
 REFINEMENTS = {"StereoNet": StereoNetRefinement}
 VOLUME_TYPES = {"Concatenation": "concatenation", "Difference": "difference"}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -56,12 +64,44 @@ def _lookup(registry, what):
     return registry[what]
 
 
+# TPU schedules of the config sections (same parameters, same function)
+_SCHEDULES = ("pack", "phase_argmin", "split_concat", "w_pad")
+
+
 def _kwargs(cfg, drop=("in_planes",)):
     """A module's config section as its keyword arguments: without its
-    type, its ``pack`` (a TPU schedule) and ``drop`` (JAX drops in_planes
-    for aggregators and refinements)."""
+    type, its TPU schedules and ``drop`` (JAX drops in_planes for
+    aggregators and refinements)."""
     return {k: v for k, v in cfg.items()
-            if k not in ("type", "pack", *drop)}
+            if k not in ("type", *_SCHEDULES, *drop)}
+
+
+def _backbone(model_cfg, dtype):
+    bcfg = model_cfg["backbone"]
+    return _lookup(BACKBONES, bcfg["type"])(
+        batch_norm=model_cfg.get("batch_norm", True), dtype=dtype,
+        **_kwargs(bcfg, drop=()))
+
+
+def _deeppruner(model_cfg, dtype):
+    """JAX builder.py:204-226."""
+    sampler = model_cfg["disp_sampler"]
+    proc = model_cfg["cost_processor"]
+    return DeepPruner(
+        backbone=_backbone(model_cfg, dtype),
+        max_disp=model_cfg["max_disp"],
+        scale=model_cfg.get("scale", 4),
+        patch_match_sample_number=sampler.get(
+            "patch_match_disparity_sample_number", 14),
+        uniform_sample_number=sampler.get("uniform_disparity_sample_number",
+                                          9),
+        propagation_filter_size=sampler.get("propagation_filter_size", 3),
+        iterations=sampler.get("iterations", 3),
+        temperature=sampler.get("temperature", 7),
+        hourglass_in_planes=proc.get("confidence_range_predictor", {}).get(
+            "hourglass_in_planes", 16),
+        refinement_num=model_cfg.get("disp_refinement", {}).get("num", 1),
+        batch_norm=model_cfg.get("batch_norm", True), dtype=dtype)
 
 
 def build_model(cfg, generator=None):
@@ -75,11 +115,16 @@ def build_model(cfg, generator=None):
     if cfg.get("task") == "flow":
         _not_ported("flow")
     arch = model_cfg.get("meta_architecture", "GeneralizedStereoModel")
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    if arch == "DeepPruner":
+        model = _deeppruner(model_cfg, dtype)
+        init_parameters(model, generator)
+        return model
     if arch != "GeneralizedStereoModel":
         _not_ported(arch)
     bn = model_cfg.get("batch_norm", True)
-    bcfg = model_cfg["backbone"]
-    backbone_cls = _lookup(BACKBONES, bcfg["type"])
+    backbone = _backbone(model_cfg, dtype)
     cp = model_cfg["cost_processor"]
     agg = cp["cost_aggregator"]
     agg_cls = _lookup(AGGREGATORS, agg["type"])
@@ -102,8 +147,6 @@ def build_model(cfg, generator=None):
                  and pred_cfg["type"] in ("FASTER", "DEFAULT"))
 
     comp = cp.get("cost_computation", {})
-    backbone = backbone_cls(batch_norm=bn, dtype=dtype,
-                            **_kwargs(bcfg, drop=()))
     agg_kwargs = _kwargs(agg)
     if agg["type"] == "PSMNet":
         agg_kwargs["return_low_res"] = fused
@@ -126,7 +169,5 @@ def build_model(cfg, generator=None):
         disp_refinement=refinement,
         fused_upsample_argmin=fused,
         max_disp=model_cfg["max_disp"])
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
     init_parameters(model, generator)
     return model

@@ -7,8 +7,11 @@ refinement (``disp_refinement``, StereoNet's: the disparities come back
 at full resolution, best first) and the confidence network (``cmn``,
 AcfNet adaptive). The module maps (left, right) [B, H, W, 3] to
 {'disps': [...], 'costs': [...]} and, with a cmn, 'variances', 'confs'
-and 'conf_costs', best first; losses live outside it. The GCNet
-phase-argmin head arrives with its family (ROADMAP.md queue 1 item 8).
+and 'conf_costs', best first; losses live outside it. JAX's GCNet
+phase-argmin branch (:70-86: the head in phase layout, read by a phase
+soft-argmin) is a TPU schedule of the same function: the port's GCNet
+returns the full-resolution cost, which the disparity predictor reads
+(K2 and its backward kernel).
 """
 
 from torch import nn
@@ -33,7 +36,9 @@ class GeneralizedStereoModel(nn.Module):
         self.fused_upsample_argmin = fused_upsample_argmin
         self.max_disp = max_disp
 
-    def forward(self, left, right):
+    def forward(self, left, right, generator=None):
+        """``generator``: the trainer's, for a model that draws noise
+        (DeepPruner's PatchMatch); this one draws none."""
         ref_fms, tgt_fms = self.backbone(left, right)
         costs = self.cost_processor(ref_fms, tgt_fms)
         p = self.disp_predictor

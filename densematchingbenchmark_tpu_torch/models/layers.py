@@ -1,8 +1,8 @@
 """Shared layers: conv/BN/ReLU unit (2-D and 3-D), residual block, PSMNet
-3-D hourglass.
+3-D hourglass, DeepPruner's H/W hourglass.
 
 Counterpart of densematchingbenchmark_tpu/models/layers.py (:35-40,
-:377-489, :492-553, :556-586, :624-676). Modules take and return the JAX
+:377-489, :492-553, :556-586, :589-620, :624-676). Modules take and return the JAX
 layouts ([B, H, W, C] maps, [B, D, H, W, C] volumes, contiguous), which is
 channels_last storage for PyTorch's logical NCHW / NCDHW: each convolution
 sees its input through ``movedim(-1, 1)`` without a copy.
@@ -401,6 +401,48 @@ class Hourglass3D(nn.Module):
                           + (presqu if presqu is not None else pre))  # 1/2
         out = self.ConvUnit_5(post)                                # 1/1
         return out, pre, post
+
+
+class HWHourglass(nn.Module):
+    """DeepPruner's 3-D hourglass striding only H and W (JAX
+    layers.py:589-620): three down stages, each a stride-(1, 2, 2) unit
+    (library conv) plus a stride-1 unit on its output (fusable: the trunk
+    kernels) added to it, and three transposed stride-(1, 2, 2) units
+    (output padding (0, 1, 1), no ReLU) with additive skips.
+
+    Input [B, D, H, W, C] with C = ``features``; output the same shape.
+    """
+
+    def __init__(self, features, batch_norm=True, dtype=torch.float32):
+        super().__init__()
+        c = features
+
+        def unit(cin, cout, stride, relu=True, transpose=False):
+            return ConvUnit(cin, cout, 3, stride, 1, dims=3,
+                            batch_norm=batch_norm, relu=relu, bias=False,
+                            transpose=transpose,
+                            output_padding=(0, 1, 1) if transpose else 0,
+                            dtype=dtype)
+
+        downs = [(c, 2 * c), (2 * c, 4 * c), (4 * c, 8 * c)]
+        for i, (cin, cout) in enumerate(downs):
+            setattr(self, f"ConvUnit_{2 * i}", unit(cin, cout, (1, 2, 2)))
+            setattr(self, f"ConvUnit_{2 * i + 1}", unit(cout, cout, 1))
+        ups = [(8 * c, 4 * c), (4 * c, 2 * c), (2 * c, c)]
+        for i, (cin, cout) in enumerate(ups, 6):
+            setattr(self, f"ConvUnit_{i}", unit(cin, cout, (1, 2, 2),
+                                                relu=False, transpose=True))
+
+    def forward(self, x):
+        outs = []
+        for i in range(3):
+            a = getattr(self, f"ConvUnit_{2 * i}")(x)
+            x = a + getattr(self, f"ConvUnit_{2 * i + 1}")(a)
+            outs.append(x)
+        out1, out2, out3 = outs
+        u3 = self.ConvUnit_6(out3) + out2
+        u2 = self.ConvUnit_7(u3) + out1
+        return self.ConvUnit_8(u2)
 
 
 def init_parameters(module, generator):

@@ -1,15 +1,19 @@
-"""Cost-volume construction (concatenation and difference), fixed-range
-path.
+"""Cost-volume construction (concatenation and difference): the
+fixed-range path and the per-pixel ``disp_sample`` path (DeepPruner's).
 
 Counterpart of densematchingbenchmark_tpu/ops/cost_volume.py:30-118. The
-per-pixel ``disp_sample`` path (``inverse_warp_3d``) arrives with
-DeepPruner (ROADMAP.md queue 1 item 9).
+per-pixel path warps the target features with ``warp.inverse_warp_3d``
+and zeroes the reference features where the warp left the frame (the
+reference's exact path; with ``compat_grid_sample`` its fast path's
+masking quirk, the reference zeroed where the warped value is <= 0).
 """
 
 import functools
 
 import numpy as np
 import torch
+
+from .warp import inverse_warp_3d
 
 
 def disp_sample_values(max_disp, start_disp=0, dilation=1):
@@ -36,12 +40,26 @@ def disp_sample_tensor(max_disp, start_disp, dilation, device):
             disp_sample_values(max_disp, start_disp, dilation), device=device)
 
 
-def cat_volume(reference_fm, target_fm, max_disp, start_disp=0, dilation=1):
+def _warped(reference_fm, target_fm, disp_sample, compat_grid_sample):
+    """(reference features masked [B, D, H, W, C] or broadcastable, warped
+    target features [B, D, H, W, C]) of the per-pixel path."""
+    warped, valid = inverse_warp_3d(target_fm, disp_sample,
+                                    compat_grid_sample=compat_grid_sample)
+    if compat_grid_sample:
+        valid = (warped > 0).to(warped.dtype)
+    return reference_fm[:, None] * valid, warped
+
+
+def cat_volume(reference_fm, target_fm, max_disp, start_disp=0, dilation=1,
+               disp_sample=None, compat_grid_sample=False):
     """Concatenation cost volume.
 
     For each sample value v (shift d = int(v)):
     ``vol[:, i, :, x] = concat(ref[:, :, x], tgt[:, :, x - d])`` where
-    0 <= x - d < W, and zero (both halves) elsewhere.
+    0 <= x - d < W, and zero (both halves) elsewhere. With ``disp_sample``
+    [B, D, H, W] (per-pixel samples, sub-pixel): the target warped by
+    each sample (linear, zero outside the frame) after the reference
+    features, zeroed where the sample position leaves [0, W - 1].
 
     Args:
       reference_fm, target_fm: [B, H, W, C] left/right features.
@@ -49,6 +67,10 @@ def cat_volume(reference_fm, target_fm, max_disp, start_disp=0, dilation=1):
     Returns:
       [B, D, H, W, 2C] volume, reference channels first, NDHWC contiguous.
     """
+    if disp_sample is not None:
+        ref, warped = _warped(reference_fm, target_fm, disp_sample,
+                              compat_grid_sample)
+        return torch.cat([ref.expand_as(warped), warped], -1)
     b, h, w, c = reference_fm.shape
     vals = disp_sample_values(max_disp, start_disp, dilation)
     vol = reference_fm.new_zeros((b, len(vals), h, w, 2 * c))
@@ -63,7 +85,8 @@ def cat_volume(reference_fm, target_fm, max_disp, start_disp=0, dilation=1):
 
 
 def dif_volume(reference_fm, target_fm, max_disp, start_disp=0, dilation=1,
-               disp_sample=None, normalize=False, p=1.0):
+               disp_sample=None, normalize=False, p=1.0,
+               compat_grid_sample=False):
     """Difference cost volume (StereoNet's).
 
     For each sample value v (shift d = int(v)):
@@ -73,25 +96,26 @@ def dif_volume(reference_fm, target_fm, max_disp, start_disp=0, dilation=1,
 
     Args:
       reference_fm, target_fm: [B, H, W, C] left/right features.
-      disp_sample: per-pixel samples; not ported (DeepPruner's warped path,
-        ROADMAP.md queue 1 item 9), raises NotImplementedError.
+      disp_sample: optional [B, D, H, W] per-pixel samples: the masked
+        reference minus the warped target (``cat_volume``'s halves).
 
     Returns:
       [B, D, H, W, C] volume, or [B, D, H, W] with ``normalize``.
     """
     if disp_sample is not None:
-        raise NotImplementedError(
-            "dif_volume with a per-pixel disp_sample (the warped path) is "
-            "not ported yet (ROADMAP.md queue 1 item 9 (DeepPruner))")
-    b, h, w, c = reference_fm.shape
-    vals = disp_sample_values(max_disp, start_disp, dilation)
-    vol = reference_fm.new_zeros((b, len(vals), h, w, c))
-    for i, val in enumerate(vals):
-        d = int(val)  # each sample is shifted by its value cast to int
-        lo, hi = max(0, d), min(w, w + d)
-        if lo < hi:
-            vol[:, i, :, lo:hi] = (reference_fm[:, :, lo:hi]
-                                   - target_fm[:, :, lo - d:hi - d])
+        ref, warped = _warped(reference_fm, target_fm, disp_sample,
+                              compat_grid_sample)
+        vol = ref - warped
+    else:
+        b, h, w, c = reference_fm.shape
+        vals = disp_sample_values(max_disp, start_disp, dilation)
+        vol = reference_fm.new_zeros((b, len(vals), h, w, c))
+        for i, val in enumerate(vals):
+            d = int(val)  # each sample is shifted by its value cast to int
+            lo, hi = max(0, d), min(w, w + d)
+            if lo < hi:
+                vol[:, i, :, lo:hi] = (reference_fm[:, :, lo:hi]
+                                       - target_fm[:, :, lo - d:hi - d])
     if normalize:
         if p == 1.0:
             return vol.abs().sum(-1)

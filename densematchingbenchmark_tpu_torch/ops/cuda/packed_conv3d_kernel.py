@@ -489,8 +489,10 @@ def conv3d_packed_s1_plain(xp, kernel, scale=1.0, bias=0.0, pack=4,
 
 def _check_volume(name, xp, cin, co, pack):
     """Check the input volume of a launch: on the card, [B, R, H, W,
-    pack*Ci], contiguous, 16-byte aligned, it and the output within the
-    kernels' int indexing."""
+    pack*Ci], contiguous, 16-byte aligned. Its size is free: the blocks
+    address the output in 64-bit offsets and read the input through TMA
+    maps of 64-bit strides, and the plans refuse a grid of 2^31 blocks or
+    more."""
     if xp.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {xp.device}")
     if xp.dim() != 5 or xp.shape[-1] != pack * cin:
@@ -499,9 +501,6 @@ def _check_volume(name, xp, cin, co, pack):
     if not xp.is_contiguous() or xp.data_ptr() % 16:
         raise ValueError(f"{name}: operands must be contiguous and 16-byte "
                          "aligned")
-    if (xp.shape[0] * xp.shape[1] * pack > 65535 or xp.numel() >= 2 ** 31
-            or xp.numel() // cin * co >= 2 ** 31):
-        raise ValueError(f"{name}: volume {tuple(xp.shape)} too large")
 
 
 def _checked(name, xp, kernel, scale, bias, pack):
@@ -741,6 +740,10 @@ def conv3d_packed_s1_v2(xp, kernel, scale=1.0, bias=0.0, pack=4,
         return conv3d_packed_s1_plain(xp, kernel, scale, bias, pack, relu)
     kernel, scale, bias = _checked("conv3d_packed_s1_v2", xp, kernel, scale,
                                    bias, pack)
+    # the grid's y axis holds B x the depth chunks
+    if xp.shape[0] * xp.shape[1] * pack > 65535:
+        raise ValueError(f"conv3d_packed_s1_v2: volume {tuple(xp.shape)} "
+                         "too large for the grid (B x depth > 65535)")
     return _launch(conv3d_packed_s1_v2, xp, kernel, scale, bias, pack, relu)
 
 

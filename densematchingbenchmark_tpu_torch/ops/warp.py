@@ -3,9 +3,10 @@
 Counterpart of densematchingbenchmark_tpu/ops/warp.py:23-92: a stereo warp
 moves a sample only along W, so it is a 1-D linear-interpolated gather with
 zero padding outside the frame, in the exact mode and in the mode that
-reproduces the reference's grid_sample numerics (``compat_grid_sample``).
-``inverse_warp_3d`` and ``flow_warp`` arrive with DeepPruner and the flow
-models (ROADMAP.md queue 1 items 9 and 11).
+reproduces the reference's grid_sample numerics (``compat_grid_sample``),
+and its per-sample form ``inverse_warp_3d`` (JAX :95-155: DeepPruner's
+cost volumes and PatchMatch scores). ``flow_warp`` arrives with the flow
+models (ROADMAP.md queue 1 item 11).
 """
 
 import torch
@@ -63,3 +64,55 @@ def inverse_warp_2d(img, disp, compat_grid_sample=False):
                                axis=2)
         return out * inframe[..., None].to(out.dtype)
     return gather_1d_linear(img, xs[..., None], axis=2)
+
+
+def _axis_pos(n, dtype, device):
+    """Sample positions p * n / (n - 1) - 0.5 of grid_sample with
+    align_corners=False on align_corners=True coordinates."""
+    return torch.arange(n, dtype=dtype, device=device) * (n / (n - 1)) - 0.5
+
+
+def _axis_border_scale(n, dtype, device):
+    """The weight that survives the zero padding at each position of
+    ``_axis_pos`` along an axis of constant values."""
+    pos = _axis_pos(n, dtype, device)
+    p0 = torch.floor(pos)
+    frac = pos - p0
+    w0 = torch.where((p0 >= 0) & (p0 <= n - 1), 1 - frac, 0.0)
+    w1 = torch.where((p0 + 1 >= 0) & (p0 + 1 <= n - 1), frac, 0.0)
+    return w0 + w1
+
+
+def inverse_warp_3d(fm, disp_sample, compat_grid_sample=False):
+    """Per-sample warp of a feature map along width:
+    out[b, d, y, x, c] = fm[b, y, x - disp_sample[b, d, y, x], c], linear,
+    zero outside the frame (the reference's trilinear grid_sample warp
+    with ``-disp_sample``, whose D and H coordinates are the identity).
+
+    Args:
+      fm: [B, H, W, C] feature map (the target / right view).
+      disp_sample: [B, D, H, W] per-pixel disparity samples.
+      compat_grid_sample: the reference's numerics: align_corners=True
+        coordinates sampled with align_corners=False rescale every axis
+        p -> p * n/(n-1) - 0.5 (shifting W, blending adjacent rows of H,
+        attenuating the first and last slices of D).
+
+    Returns:
+      (warped [B, D, H, W, C], valid [B, D, H, W, 1]): ``valid`` is 1
+      where the sample position lies in [0, W - 1], in ``fm``'s dtype.
+    """
+    w = fm.shape[2]
+    dtype, device = disp_sample.dtype, disp_sample.device
+    xs = torch.arange(w, dtype=dtype, device=device) - disp_sample
+    if compat_grid_sample:
+        h, d = fm.shape[1], disp_sample.shape[1]
+        fm = gather_1d_linear(fm, _axis_pos(h, dtype, device)[
+            None, :, None, None], axis=1)
+        xs = xs * (w / (w - 1)) - 0.5
+        warped = gather_1d_linear(fm[:, None], xs[..., None], axis=3)
+        warped = warped * _axis_border_scale(d, warped.dtype, device)[
+            None, :, None, None, None]
+    else:
+        warped = gather_1d_linear(fm[:, None], xs[..., None], axis=3)
+    valid = ((xs >= 0) & (xs <= w - 1)).to(fm.dtype)[..., None]
+    return warped, valid

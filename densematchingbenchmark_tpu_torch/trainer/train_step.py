@@ -2,11 +2,15 @@
 
 Counterpart of densematchingbenchmark_tpu/trainer/train_step.py:23-60:
 forward in train mode (batch-statistics BN, the running statistics
-updated), the loss dict and its total (with a cmn, the focal loss takes
-its variances and the confidence NLL loss its confidence costs), the
+updated; the state's generator handed to the model, which draws
+DeepPruner's PatchMatch noise from it as JAX's step draws it from its
+'patch_match' rng, :38), the loss dict and its total (with a cmn, the
+focal loss takes its variances and the confidence NLL loss its
+confidence costs; DeepPruner's quantile loss its predicted range), the
 gradients, the clip and the optimizer update. Metrics are 'loss', every
 loss entry ('l1_loss_lvl<i>', 'stereo_focal_loss_lvl<i>',
-'conf_loss_lvl<i>') and 'grad_norm', the global norm of the raw
+'conf_loss_lvl<i>', 'quantile_loss') and 'grad_norm', the global norm of
+the raw
 (unclipped) gradients, as 0-d tensors on the device: reading them is the
 caller's choice of sync point.
 The forward does not run under ``StereoModel.forward``'s inference mode.
@@ -28,10 +32,13 @@ def make_train_step(loss_evaluator):
     def step(state, batch):
         module, opt = state.module, state.optimizer
         module.train()
-        out = module(batch["leftImage"], batch["rightImage"])
+        out = module(batch["leftImage"], batch["rightImage"],
+                     generator=state.generator)
         loss_dict = loss_evaluator(out["disps"], out["costs"],
                                    batch["leftDisp"],
-                                   variance=out.get("variances"))
+                                   variance=out.get("variances"),
+                                   min_disparity=out.get("min_disparity"),
+                                   max_disparity=out.get("max_disparity"))
         if "conf_costs" in out:
             loss_dict.update(loss_evaluator.cmn_loss(out["conf_costs"],
                                                      batch["leftDisp"]))

@@ -1382,3 +1382,200 @@ def test_tiny_stereonet_on_card_matches_cpu(cuda, dtype):
         tol = (1e-3 if dtype == "f32" else
                0.1 if k == "grad_norm" else 0.01)
         assert abs(losses[0][k] - v) <= tol * abs(v), (k, losses[0][k], v)
+
+
+# a volume just over 2^31 elements: [4, 64, 128, 2049, 32] holds
+# 2^31 + 2^20 of them, as does the output of a 32 -> 32 unit
+FAULT9_SHAPE = (4, 64, 128, 2049, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["K1", "K4", "K4-bf16"])
+def test_trunk_kernels_past_2_31_elements_on_card(cuda, route):
+    """ROADMAP.md section 3 fault 9: K1 and K4 (its float32 block and its
+    bfloat16 route, pack 1) take a volume of 2^31 elements or more, as
+    JAX's Pallas kernels do, and match their plain version on the card
+    over every element (the last batch item lies past 2^31): 1e-4 of the
+    largest output in float32, a bfloat16 step besides in bfloat16."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    dtype = torch.bfloat16 if route == "K4-bf16" else torch.float32
+    x = torch.randn(FAULT9_SHAPE, device=cuda, generator=gen).to(dtype)
+    assert x.numel() >= 2 ** 31
+    kernel = torch.randn((3, 3, 3, 32, 32), device=cuda,
+                         generator=gen) * (27 * 32) ** -0.5
+    scale = torch.rand(32, device=cuda, generator=gen) + 0.5
+    bias = torch.randn(32, device=cuda, generator=gen) * 0.1
+    kernels.reset_launch_counts()
+    if route == "K1":
+        got = kernels.fused_conv3d(x, kernel, scale, bias, relu=True)
+        assert kernels.launch_counts()["fused_conv3d"] == 1
+    else:
+        got = kernels.conv3d_packed_s1(x, kernel.to(dtype), scale, bias,
+                                       pack=1, relu=True)
+        assert kernels.launch_counts()["conv3d_packed_s1"] == 1
+    want = kernels.conv3d_packed_s1_plain(x, kernel.to(dtype), scale, bias,
+                                          pack=1, relu=True)
+    assert got.shape == want.shape == FAULT9_SHAPE and got.dtype == dtype
+    top = want.float().abs().max().item()
+    tol = 1e-4 * top + (BF16_STEP * top if dtype == torch.bfloat16 else 0)
+    for b in range(FAULT9_SHAPE[0]):
+        err = (got[b].float() - want[b].float()).abs().max().item()
+        assert err <= tol, (b, err, tol)
+
+
+TINY_GCNET = {"model.max_disp": 32,
+              "model.cost_processor.cost_computation.max_disp": 16,
+              "model.cost_processor.cost_aggregator.max_disp": 32,
+              "model.disp_predictor.max_disp": 32,
+              "model.losses.l1_loss.max_disp": 32}
+TINY_DEEPPRUNER = {"model.max_disp": 64,
+                   "model.losses.l1_loss.max_disp": 64,
+                   "model.losses.quantile_loss.max_disp": 64}
+
+
+def card_and_cpu_step(cfg, cpu, card, cuda, batch):
+    """One train step of ``card`` (on the card) and ``cpu`` from the same
+    weights and batch: (their metrics, the card's launch counts)."""
+    out = []
+    for module, device in ((card, cuda), (cpu, torch.device("cpu"))):
+        ev = make_loss_evaluator(cfg["model"]["losses"])
+        opt, _ = build_optimizer(cfg, module, 10)
+        kernels.reset_launch_counts()
+        _, metrics = make_train_step(ev)(
+            TrainState.create(module, opt, 1),
+            {k: v.to(device) for k, v in batch.items()})
+        out.append({k: float(v) for k, v in metrics.items()})
+        if device.type == "cuda":
+            counts = kernels.launch_counts()
+    return out, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tiny_gcnet_on_card_matches_cpu(cuda, dtype):
+    """GCNet at max_disp 32 on a 64x128 pair: the eval forward on the card
+    (the 10 stride-1 units on K1 in float32, K4's bfloat16 route in
+    bfloat16, 12 launches with c31 and c32 in two Ci slices; K2 once on
+    the full-resolution cost) against the plain versions on the CPU, same
+    weights; then one train step (K4 10 or 12, K2 1 forward and 1
+    backward) against the CPU's losses."""
+    from densematchingbenchmark_tpu_torch.apis import StereoModel
+    cfg = get_config(f"GCNet/scene_flow_{dtype}", **TINY_GCNET)
+    cpu = draw_bn(build_model(cfg, torch.Generator().manual_seed(0)), 0)
+    card = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.RandomState(0)
+    x = torch.tensor(rng.randn(1, 64, 128, 3), dtype=torch.float32)
+    units = 10 if dtype == "f32" else 12
+    kernels.reset_launch_counts()
+    got = StereoModel(cfg, card.eval(), cuda).forward(x.to(cuda), x.to(cuda))
+    counts, bf16 = kernels.launch_counts(), kernels.bf16_launch_counts()
+    assert counts == {"fused_conv3d": units if dtype == "f32" else 0,
+                      "fused_soft_argmin": 1,
+                      "fused_soft_argmin_backward": 0,
+                      "fused_upsample_soft_argmin": 0,
+                      "conv3d_packed_s1": 0 if dtype == "f32" else units,
+                      "conv3d_packed_s1_v2": 0}, counts
+    assert bf16["conv3d_packed_s1"] == (0 if dtype == "f32" else units)
+    want = StereoModel(cfg, cpu.eval(), torch.device("cpu")).forward(x, x)
+    g, w = got["disps"][0].cpu(), want["disps"][0]
+    assert g.shape == w.shape == (1, 64, 128, 1)
+    # float32: cuDNN vs the CPU's convolutions through the soft-argmin
+    # (the PSMNet slice's 1e-2 px); bfloat16: the mean gap within the CPU
+    # tests' 0.05 px
+    if dtype == "f32":
+        assert (g - w).abs().max() <= 1e-2
+    else:
+        assert (g - w).abs().mean() <= 0.05
+    batch = {"leftImage": rng.randn(1, 64, 128, 3),
+             "rightImage": rng.randn(1, 64, 128, 3),
+             "leftDisp": rng.uniform(0, 30, (1, 64, 128, 1))}
+    batch = {k: torch.tensor(v, dtype=torch.float32)
+             for k, v in batch.items()}
+    (card_m, cpu_m), counts = card_and_cpu_step(cfg, cpu, card, cuda, batch)
+    assert counts["conv3d_packed_s1"] == units, counts
+    assert counts["fused_soft_argmin"] == 1, counts
+    assert counts["fused_soft_argmin_backward"] == 1, counts
+    assert sorted(card_m) == ["grad_norm", "l1_loss_lvl0", "loss"]
+    for k, v in cpu_m.items():
+        # float32: cuDNN vs the CPU (the PSMNet step's 1e-3); bfloat16:
+        # the losses within 1 %, the gradients' norm within 10 %
+        tol = 1e-3 if dtype == "f32" else 0.1 if k == "grad_norm" else 0.01
+        assert abs(card_m[k] - v) <= tol * abs(v), (k, card_m[k], v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", ["4x", "8x"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tiny_deeppruner_on_card_matches_cpu(cuda, dtype, scale):
+    """DeepPruner 4x and 8x at max_disp 64 on a 64x128 pair (the 8x
+    model's hourglasses need H / 64 whole): the eval forward on the card
+    (its 20 stride-1 units on K1 in float32, K4's bfloat16 route in
+    bfloat16, 23 launches with the three hourglasses' 128 -> 128 units in
+    two Ci slices; the eval noise the same draw on both devices)
+    against the plain versions on the CPU, same weights; then one train
+    step (K4 20 or 23) against the CPU's losses, the noise drawn from each
+    step's generator, seeded alike."""
+    from densematchingbenchmark_tpu_torch.apis import StereoModel
+    cfg = get_config(f"DeepPruner/scene_flow_{scale}_{dtype}",
+                     **TINY_DEEPPRUNER)
+    n_disps = 4 if scale == "4x" else 5     # refined..., post, min, max
+    cpu = draw_bn(build_model(cfg, torch.Generator().manual_seed(0)), 0)
+    card = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.RandomState(0)
+    x = torch.tensor(rng.randn(1, 64, 128, 3), dtype=torch.float32)
+    units = 20 if dtype == "f32" else 23
+    kernels.reset_launch_counts()
+    got = StereoModel(cfg, card.eval(), cuda).forward(x.to(cuda), x.to(cuda))
+    counts, bf16 = kernels.launch_counts(), kernels.bf16_launch_counts()
+    assert counts == {"fused_conv3d": units if dtype == "f32" else 0,
+                      "fused_soft_argmin": 0,
+                      "fused_soft_argmin_backward": 0,
+                      "fused_upsample_soft_argmin": 0,
+                      "conv3d_packed_s1": 0 if dtype == "f32" else units,
+                      "conv3d_packed_s1_v2": 0}, counts
+    assert bf16["conv3d_packed_s1"] == (0 if dtype == "f32" else units)
+    want = StereoModel(cfg, cpu.eval(), torch.device("cpu")).forward(x, x)
+    assert len(got["disps"]) == len(want["disps"]) == n_disps
+    for g, w in zip(got["disps"], want["disps"]):
+        diff = (g.cpu() - w).abs()
+        # float32: cuDNN vs the CPU's convolutions through PatchMatch's
+        # softmax selections (1e-2 px); bfloat16: the mean within 0.05 px
+        assert (diff.max() if dtype == "f32" else diff.mean()) <= (
+            1e-2 if dtype == "f32" else 0.05), diff.max()
+    batch = {"leftImage": rng.randn(2, 64, 128, 3),
+             "rightImage": rng.randn(2, 64, 128, 3),
+             "leftDisp": rng.uniform(0, 60, (2, 64, 128, 1))}
+    batch = {k: torch.tensor(v, dtype=torch.float32)
+             for k, v in batch.items()}
+    (card_m, cpu_m), counts = card_and_cpu_step(cfg, cpu, card, cuda, batch)
+    assert counts["conv3d_packed_s1"] == units, counts
+    assert counts["fused_soft_argmin"] == 0, counts
+    assert sorted(card_m) == sorted(
+        ["grad_norm", "loss", "quantile_loss"]
+        + [f"l1_loss_lvl{i}" for i in range(n_disps)])
+    for k, v in cpu_m.items():
+        tol = 1e-3 if dtype == "f32" else 0.1 if k == "grad_norm" else 0.01
+        assert abs(card_m[k] - v) <= tol * abs(v), (k, card_m[k], v)
+
+
+@pytest.mark.cuda
+def test_tiny_deeppruner_train_step_issues_no_synchronising_call_on_card(
+        cuda):
+    """A DeepPruner train step on the card draws its PatchMatch noise from
+    the state's host generator and copies it from pinned memory: the step
+    (forward, losses, gradients, clip and update) issues no synchronising
+    call."""
+    cfg = get_config("DeepPruner/scene_flow_4x_f32", **TINY_DEEPPRUNER)
+    module = build_model(cfg, torch.Generator().manual_seed(0)).to(cuda)
+    opt, _ = build_optimizer(cfg, module, 10)
+    state = TrainState.create(module, opt, 1)
+    step = make_train_step(make_loss_evaluator(cfg["model"]["losses"]))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    batch = {"leftImage": torch.randn((2, 64, 128, 3), device=cuda,
+                                      generator=gen),
+             "rightImage": torch.randn((2, 64, 128, 3), device=cuda,
+                                       generator=gen),
+             "leftDisp": torch.rand((2, 64, 128, 1), device=cuda,
+                                    generator=gen) * 60}
+    assert state.generator.device.type == "cpu"
+    _sync_free(lambda: step(state, batch))

@@ -282,7 +282,10 @@ def test_psmnet_backbone_matches_jax():
 
 
 @pytest.mark.parametrize("name", ["PSMNet/scene_flow", "PSMNet/kitti_2015",
-                                  "PSMNet/kitti_2012"])
+                                  "PSMNet/kitti_2012", "GCNet/scene_flow",
+                                  "GCNet/kitti_2015", "GCNet/kitti_2012",
+                                  "DeepPruner/scene_flow_4x",
+                                  "DeepPruner/scene_flow_8x"])
 def test_configs_match_jax(name):
     over = {"model.max_disp": 96, "data.test.input_shape": (64, 64)}
     for suffix in ("", "_f32"):
@@ -296,7 +299,7 @@ def test_config_bf16_and_unknown_raise():
     assert tconfigs.get_config("PSMNet/scene_flow_bf16") == \
         jconfigs.get_config("PSMNet/scene_flow_bf16")
     with pytest.raises(KeyError):
-        tconfigs.get_config("GCNet/scene_flow")
+        tconfigs.get_config("AnyNet/scene_flow")
     with pytest.raises(KeyError):
         tconfigs.get_config("PSMNet/scene_flow_f16")
 

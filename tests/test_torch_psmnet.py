@@ -125,8 +125,9 @@ def test_scale_factor_and_crop_run_on_the_port():
 
 def test_port_imports_no_jax():
     # inference and one training step in float32 and in bfloat16 (PSMNet,
-    # AcfNet, StereoNet) and the packed-conv microbench, with every module
-    # of the port and its four command-line tools imported
+    # AcfNet, StereoNet, GCNet, DeepPruner) and the packed-conv microbench,
+    # with every module of the port and its four command-line tools
+    # imported
     train = dict(TINY, **{"model.losses.l1_loss.max_disp": 64,
                           "data.batch_size_per_device": 1})
     # AcfNet adaptive (with the vis hook, the profiler window and the
@@ -165,6 +166,7 @@ import densematchingbenchmark_tpu_torch.evaluation.sparsification
 import densematchingbenchmark_tpu_torch.ops.disp2prob
 import densematchingbenchmark_tpu_torch.trainer.vis_hook
 import densematchingbenchmark_tpu_torch.models.refinement
+import densematchingbenchmark_tpu_torch.ops.patch_match
 from densematchingbenchmark_tpu_torch.tools import bench, demo, test, train
 model = init_model("PSMNet/scene_flow_f32", device="cpu", **{TINY!r})
 rng = np.random.RandomState(0)
@@ -197,6 +199,26 @@ train_matcher(get_config("StereoNet/scene_flow_8x_2stage_bf16", **st,
                          **{{"data.batch_size_per_device": 1}}),
               tempfile.mkdtemp(), train_dataset=ds, max_steps=1,
               device="cpu")
+gc = {{"model.max_disp": 32, "model.cost_processor.cost_computation.max_disp": 16,
+       "model.cost_processor.cost_aggregator.max_disp": 32,
+       "model.disp_predictor.max_disp": 32, "model.losses.l1_loss.max_disp": 32,
+       "data.batch_size_per_device": 1}}
+model = init_model("GCNet/scene_flow_f32", device="cpu", **gc)
+out = inference_stereo(model, [{{"leftImage": img, "rightImage": img}}])
+assert out[0]["disps"][0].shape == (1, 64, 64, 1)
+train_matcher(get_config("GCNet/scene_flow_bf16", **gc), tempfile.mkdtemp(),
+              train_dataset=ds, max_steps=1, device="cpu")
+dp = {{"model.max_disp": 64, "model.disp_sampler.iterations": 1,
+       "model.losses.l1_loss.max_disp": 64,
+       "model.losses.quantile_loss.max_disp": 64,
+       "data.batch_size_per_device": 1}}
+model = init_model("DeepPruner/scene_flow_8x_f32", device="cpu", **dp)
+out = inference_stereo(model, [{{"leftImage": img, "rightImage": img}}])
+assert len(out[0]["disps"]) == 5
+ds64 = SyntheticStereoDataset(length=1, height=64, width=64, max_disp=8)
+ds64.transform = transforms.make_train_transform((64, 64), (128.,) * 3, (64.,) * 3)
+train_matcher(get_config("DeepPruner/scene_flow_4x_bf16", **dp),
+              tempfile.mkdtemp(), train_dataset=ds64, max_steps=1, device="cpu")
 microbench_packed.run(cases=(("tiny", (1, 8, 4, 6), 8, 4),), iters=1,
                       device="cpu")
 names = ("jax", "flax", "optax", "orbax", "densematchingbenchmark_tpu")
@@ -217,9 +239,10 @@ def test_init_model_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    {"model.meta_architecture": "DeepPruner"},
-    {"model.backbone.type": "GCNet"},
-    {"model.cost_processor.cost_aggregator.type": "GCNet"},
+    {"model.backbone.type": "AnyNet"},
+    {"model.cost_processor.cost_aggregator.type": "AnyNet"},
+    {"model.backbone.type": "AnyNet",
+     "model.cost_processor.type": "Correlation"},
     {"model.cost_processor.type": "Correlation"},
     {"model.disp_refinement": {"type": "AnyNet"}},
     {"model.meta_architecture": "AnyNet"},

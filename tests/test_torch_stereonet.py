@@ -221,9 +221,16 @@ def test_dif_volume_matches_jax(jax_pieces, case):
 
 
 def test_dif_volume_warped_path_is_not_ported():
-    x = torch.zeros(1, 2, 4, 3)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        dif_volume(x, x, 4, disp_sample=torch.zeros(1, 4, 2, 4))
+    """The warped path (a per-pixel ``disp_sample``) arrived with DeepPruner
+    (tests/test_torch_deeppruner.py holds it against JAX's): at integer
+    samples it is the fixed-range volume's slice of the same shift."""
+    ref, tgt = (torch.from_numpy(a) for a in dif_inputs())
+    b, h, w, _ = ref.shape
+    vals = torch.arange(6, dtype=torch.float32)
+    samples = vals[None, :, None, None].expand(b, 6, h, w)
+    got = dif_volume(ref, tgt, 6, disp_sample=samples)
+    np.testing.assert_array_equal(got.numpy(),
+                                  dif_volume(ref, tgt, 6).numpy())
 
 
 def test_stereonet_flax_tree_matches_jax():

@@ -324,13 +324,16 @@ def test_smooth_l1_single_level_and_start_disp(jax_results):
 @pytest.mark.parametrize("names", [("gerf_loss", "quantile_loss"),
                                    ("quantile_loss",)])
 def test_unported_losses_raise(names):
-    """The quantile loss (DeepPruner) raises naming its ROADMAP item, also
-    after a ported loss (the GERF loss, StereoNet's) has run."""
-    ev = tloss_builder.make_loss_evaluator({n: dict(max_disp=4)
-                                            for n in names})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 "
-                       "item 9"):
-        ev([torch.zeros(1, 2, 2, 1)], None, torch.zeros(1, 2, 2, 1))
+    """Every loss of the JAX builder is ported (DeepPruner's quantile loss
+    last, tests/test_torch_deeppruner.py holds it against JAX's): a loss
+    name the JAX builder does not know raises as JAX's does (ValueError),
+    also after the quantile loss and a ported loss (the GERF loss,
+    StereoNet's) have run."""
+    ev = tloss_builder.make_loss_evaluator(
+        {**{n: dict(max_disp=4) for n in names}, "relative_loss": {}})
+    zeros = torch.zeros(1, 2, 2, 1)
+    with pytest.raises(ValueError, match="unknown loss 'relative_loss'"):
+        ev([zeros], None, zeros, min_disparity=zeros, max_disparity=zeros)
 
 
 def test_adaptive_pools_match_jax():
