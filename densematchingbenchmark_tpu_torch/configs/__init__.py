@@ -12,7 +12,7 @@ import os
 
 import torch
 
-from . import acfnet, deeppruner, gcnet, psmnet, stereonet
+from . import acfnet, anynet, deeppruner, gcnet, psmnet, stereonet
 
 _FAMILIES = {
     "PSMNet/scene_flow": psmnet.scene_flow,
@@ -31,6 +31,7 @@ _FAMILIES = {
     "GCNet/kitti_2012": gcnet.kitti_2012,
     "DeepPruner/scene_flow_4x": deeppruner.scene_flow_4x,
     "DeepPruner/scene_flow_8x": deeppruner.scene_flow_8x,
+    "AnyNet/scene_flow": anynet.scene_flow,
 }
 _SUFFIXES = {"_bf16": "bfloat16", "_f32": "float32"}
 

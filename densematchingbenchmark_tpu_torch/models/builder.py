@@ -2,18 +2,23 @@
 
 Counterpart of densematchingbenchmark_tpu/models/builder.py:36-226: the
 GeneralizedStereoModel branch (the backbone, aggregator and refinement
-registries of PSMNet, AcfNet, StereoNet and GCNet, the confidence network
-``cmn`` of AcfNet adaptive, the fused upsample + soft-argmin decision
-:119-136), the DeepPruner branch (:204-226), and the compute dtype
+registries of PSMNet, AcfNet, StereoNet, GCNet and AnyNet, the confidence
+network ``cmn`` of AcfNet adaptive, the fused upsample + soft-argmin
+decision :119-136), the AnyNet branch (:183-203), the DeepPruner branch
+(:204-226), and the compute dtype
 (``model.dtype``, :31, :115) handed to every module. The configs' TPU
 schedules keep the parameters of the plain modules and compute the same
 function, and the port drops them here: ``pack`` (trunk D-packing,
-StereoNet's and DeepPruner's row-packed refinements), GCNet's
+StereoNet's, AnyNet's and DeepPruner's row-packed refinements), GCNet's
 ``phase_argmin`` (the head in phase layout, read by a phase soft-argmin:
 the port reads the full-resolution cost with the disparity predictor,
 K2), ``split_concat`` and ``w_pad``, and DeepPruner's PatchMatch
-``scoring='corr'`` (its 'warp' scores by linearity). Families not ported
-yet raise NotImplementedError naming their ROADMAP.md item.
+``scoring='corr'`` (its 'warp' scores by linearity). Of JAX's
+backbones only PSMNet's takes a schedule field (``pack``): the others
+take the config's keys as they are, so one with a schedule raises, as
+in JAX. A name missing from a registry raises KeyError, as in JAX;
+pieces not ported yet raise NotImplementedError naming their ROADMAP.md
+item.
 """
 
 import torch
@@ -22,6 +27,8 @@ from .aggregators.acfnet import AcfAggregator
 from .aggregators.gcnet import GCAggregator
 from .aggregators.psmnet import PSMAggregator
 from .aggregators.stereonet import StereoNetAggregator
+from .anynet import AnyNet
+from .backbones.anynet import AnyNetBackbone
 from .backbones.deeppruner import (DeepPrunerBestBackbone,
                                    DeepPrunerFastBackbone)
 from .backbones.gcnet import GCNetBackbone
@@ -33,10 +40,10 @@ from .deeppruner import DeepPruner
 from .generalized import GeneralizedStereoModel
 from .layers import init_parameters
 from .predictors import build_disp_predictor
+from .refinement.anynet import AnyNetRefinement
 from .refinement.stereonet import StereoNetRefinement
 
 _NOT_PORTED = {
-    "AnyNet": "queue 1 item 10 (AnyNet)",
     "flow": "queue 1 item 11 (Flow)",
 }
 
@@ -48,20 +55,17 @@ def _not_ported(what):
 
 
 BACKBONES = {"PSMNet": PSMNetBackbone, "GCNet": GCNetBackbone,
-             "StereoNet": StereoNetBackbone,
+             "StereoNet": StereoNetBackbone, "AnyNet": AnyNetBackbone,
              "BestDeepPruner": DeepPrunerBestBackbone,
              "FastDeepPruner": DeepPrunerFastBackbone}
 AGGREGATORS = {"PSMNet": PSMAggregator, "AcfNet": AcfAggregator,
                "GCNet": GCAggregator, "StereoNet": StereoNetAggregator}
-REFINEMENTS = {"StereoNet": StereoNetRefinement}
+# the backbones whose JAX counterparts take a schedule field
+SCHEDULED_BACKBONES = {PSMNetBackbone}
+REFINEMENTS = {"StereoNet": StereoNetRefinement,
+               "AnyNet": AnyNetRefinement}
 VOLUME_TYPES = {"Concatenation": "concatenation", "Difference": "difference"}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def _lookup(registry, what):
-    if what not in registry:
-        _not_ported(what)
-    return registry[what]
 
 
 # TPU schedules of the config sections (same parameters, same function)
@@ -78,9 +82,31 @@ def _kwargs(cfg, drop=("in_planes",)):
 
 def _backbone(model_cfg, dtype):
     bcfg = model_cfg["backbone"]
-    return _lookup(BACKBONES, bcfg["type"])(
-        batch_norm=model_cfg.get("batch_norm", True), dtype=dtype,
-        **_kwargs(bcfg, drop=()))
+    cls = BACKBONES[bcfg["type"]]
+    kwargs = (_kwargs(bcfg, drop=()) if cls in SCHEDULED_BACKBONES else
+              {k: v for k, v in bcfg.items() if k != "type"})
+    return cls(
+        batch_norm=model_cfg.get("batch_norm", True), dtype=dtype, **kwargs)
+
+
+def _anynet(model_cfg, dtype):
+    """JAX builder.py:183-203."""
+    comp = model_cfg["cost_processor"]["cost_computation"]
+    agg = model_cfg["cost_processor"]["cost_aggregator"]
+    bn = model_cfg.get("batch_norm", True)
+    refinement = None
+    if "disp_refinement" in model_cfg:
+        refinement = AnyNetRefinement(
+            spn_planes=model_cfg["disp_refinement"].get("spn_planes", 8),
+            batch_norm=bn, dtype=dtype)
+    return AnyNet(
+        backbone=_backbone(model_cfg, dtype),
+        disp_refinement=refinement,
+        stage_max_disp=dict(comp["max_disp"]),
+        stage_start_disp=dict(comp["start_disp"]),
+        stage_dilation=dict(comp["dilation"]),
+        stage_agg_planes=dict(agg["agg_planes"]),
+        agg_num=agg.get("num", 4), batch_norm=bn, dtype=dtype)
 
 
 def _deeppruner(model_cfg, dtype):
@@ -104,6 +130,9 @@ def _deeppruner(model_cfg, dtype):
         batch_norm=model_cfg.get("batch_norm", True), dtype=dtype)
 
 
+_BRANCHES = {"AnyNet": _anynet, "DeepPruner": _deeppruner}
+
+
 def build_model(cfg, generator=None):
     """cfg (nested dict, see configs/) -> nn.Module, parameters initialised
     from ``generator`` (a torch.Generator; a fresh one seeded 0 if None)."""
@@ -117,8 +146,8 @@ def build_model(cfg, generator=None):
     arch = model_cfg.get("meta_architecture", "GeneralizedStereoModel")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    if arch == "DeepPruner":
-        model = _deeppruner(model_cfg, dtype)
+    if arch in _BRANCHES:
+        model = _BRANCHES[arch](model_cfg, dtype)
         init_parameters(model, generator)
         return model
     if arch != "GeneralizedStereoModel":
@@ -127,7 +156,7 @@ def build_model(cfg, generator=None):
     backbone = _backbone(model_cfg, dtype)
     cp = model_cfg["cost_processor"]
     agg = cp["cost_aggregator"]
-    agg_cls = _lookup(AGGREGATORS, agg["type"])
+    agg_cls = AGGREGATORS[agg["type"]]
     if cp["type"] not in VOLUME_TYPES:
         raise NotImplementedError(
             f"{cp['type']} cost processor is not ported yet (ROADMAP.md "
@@ -135,7 +164,7 @@ def build_model(cfg, generator=None):
     refinement = None
     if "disp_refinement" in model_cfg:
         r = model_cfg["disp_refinement"]
-        refinement = _lookup(REFINEMENTS, r.get("type", "disp_refinement"))(
+        refinement = REFINEMENTS[r.get("type", "disp_refinement")](
             batch_norm=bn, dtype=dtype, **_kwargs(r))
     pred_cfg = model_cfg["disp_predictor"]
     # fuse upsample + soft-argmin at eval only when nothing else needs the

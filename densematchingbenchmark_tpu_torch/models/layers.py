@@ -2,10 +2,11 @@
 3-D hourglass, DeepPruner's H/W hourglass.
 
 Counterpart of densematchingbenchmark_tpu/models/layers.py (:35-40,
-:377-489, :492-553, :556-586, :589-620, :624-676). Modules take and return the JAX
-layouts ([B, H, W, C] maps, [B, D, H, W, C] volumes, contiguous), which is
-channels_last storage for PyTorch's logical NCHW / NCDHW: each convolution
-sees its input through ``movedim(-1, 1)`` without a copy.
+:377-489, :492-553, :556-586, :589-620, :624-676; the pre-norm factories
+:506-529). Modules take and return the JAX layouts ([B, H, W, C] maps,
+[B, D, H, W, C] volumes, contiguous), which is channels_last storage for
+PyTorch's logical NCHW / NCDHW: each convolution sees its input through
+``movedim(-1, 1)`` without a copy.
 
 Submodule names follow the Flax tree (``Conv_0``, ``BatchNorm_0``,
 ``ConvTransposeExact_0``, ``ConvUnit_<i>``, ``Hourglass3D_<i>``) so that
@@ -121,9 +122,10 @@ class ConvUnit(nn.Module):
     """conv[Transpose] -> optional BN -> optional ReLU, order switchable.
 
     ``pre_norm=True`` gives the bn_relu_conv ordering. A 3x3x3 stride-1
-    non-transposed unit with BN and Co > 1 (``fusable``: the geometry of
-    JAX's Pallas eligibility, densematchingbenchmark_tpu/ops/conv3d.py:
-    87-100) runs its conv through a kernel: in eval one fused kernel, the
+    non-transposed unit with Co > 1 and BN, or pre-norm with or without BN
+    (``fusable``: the geometry of JAX's Pallas eligibility,
+    densematchingbenchmark_tpu/ops/conv3d.py:87-100), runs its conv
+    through a kernel: in eval one fused kernel, the
     running-stat BN folded into a per-channel (inv, bias - mean * inv)
     epilogue (the JAX layers.py:429-447 fold), ``fused_conv3d`` in float32
     and ``conv3d_packed_s1`` at pack 1 in bfloat16 (its tensor-core route);
@@ -132,6 +134,13 @@ class ConvUnit(nn.Module):
     batch-statistics BN and ReLU (:486-488). In bfloat16 the fused eval
     unit rounds once, after the epilogue, where JAX's unpacked unit rounds
     the conv and then the BN: the two differ by at most one bfloat16 step.
+
+    A pre-norm unit (AnyNet's ``bn_relu_conv3d``) runs its BN (float32,
+    on an upcast copy) and ReLU before the kernel, and its kernel's
+    epilogue is unit scale with the conv bias as the shift and no ReLU,
+    in eval and in training alike: its BN is never folded and its eval
+    operands are keyed on the conv's weight and bias only. The padding to
+    ``widths`` comes after the BN and ReLU, which run at ``in_features``.
 
     Every width runs on the kernels, as JAX's take any: the unit runs its
     conv at ``route_widths`` (``widths``), its input and weights padded
@@ -178,7 +187,7 @@ class ConvUnit(nn.Module):
                                          else features, eps=1e-5,
                                          momentum=0.1)
         conv = None if transpose else self.Conv_0
-        self.fusable = (dims == 3 and batch_norm and not pre_norm
+        self.fusable = (dims == 3 and (batch_norm or pre_norm)
                         and features > 1 and conv is not None
                         and conv.kernel_size == (3,) * 3
                         and conv.stride == (1,) * 3
@@ -202,7 +211,14 @@ class ConvUnit(nn.Module):
 
     def folded_bn(self):
         """Eval-mode BN (and conv bias) as a per-channel affine
-        (scale, bias) with conv(x) -> conv(x) * scale + bias."""
+        (scale, bias) with conv(x) -> conv(x) * scale + bias. A pre-norm
+        unit's BN stays outside the kernel: unit scale, the conv bias (or
+        zero) as the shift."""
+        if self.pre_norm:
+            weight, bias = self.Conv_0.weight, self.Conv_0.bias
+            scale = torch.ones(self.features, device=weight.device)
+            return scale, (torch.zeros_like(scale) if bias is None
+                           else bias.float().clone())
         bn = self.BatchNorm_0
         inv = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
         shift = bn.bias - bn.running_mean * inv
@@ -214,8 +230,12 @@ class ConvUnit(nn.Module):
         """The tensors the fused eval unit's operands are made from, read
         from the modules' dicts (``nn.Module.__getattr__`` costs about a
         microsecond a name, on every eval call)."""
-        conv, bn = self._modules["Conv_0"], self._modules["BatchNorm_0"]
+        conv = self._modules["Conv_0"]
         bias = conv._parameters["bias"]
+        if self.pre_norm:
+            return (conv._parameters["weight"],) + (() if bias is None else
+                                                    (bias,))
+        bn = self._modules["BatchNorm_0"]
         return (conv._parameters["weight"], bn._parameters["weight"],
                 bn._parameters["bias"], bn._buffers["running_mean"],
                 bn._buffers["running_var"]) + (() if bias is None else
@@ -304,7 +324,8 @@ class ConvUnit(nn.Module):
         # differentiable, or sources without a version counter: made per
         # call
         parts, scale, bias = operands or self._eval_tensors()
-        return self._conv(x, parts, scale, bias, self.relu)
+        return self._conv(x, parts, scale, bias,
+                          self.relu and not self.pre_norm)
 
     def forward(self, x):
         x = x.to(self.dtype)
@@ -325,7 +346,7 @@ class ConvUnit(nn.Module):
             x = x[..., :self.features]
         if self.Conv_0.bias is not None:
             x = x + self.Conv_0.bias.to(self.dtype)
-        return self._norm_act(x)
+        return x if self.pre_norm else self._norm_act(x)
 
 
 def conv_bn(batch_norm, in_features, features, kernel_size=3, stride=1,
@@ -340,6 +361,21 @@ def conv_bn_relu(batch_norm, in_features, features, kernel_size=3, stride=1,
     return ConvUnit(in_features, features, kernel_size, stride, padding,
                     dilation, dims=2, batch_norm=batch_norm, relu=True,
                     bias=bias, dtype=dtype)
+
+
+def bn_relu_conv(batch_norm, in_features, features, kernel_size=3, stride=1,
+                 padding=1, dilation=1, bias=True, dtype=torch.float32):
+    return ConvUnit(in_features, features, kernel_size, stride, padding,
+                    dilation, dims=2, batch_norm=batch_norm, relu=True,
+                    pre_norm=True, bias=bias, dtype=dtype)
+
+
+def bn_relu_conv3d(batch_norm, in_features, features, kernel_size=3,
+                   stride=1, padding=1, dilation=1, bias=True,
+                   dtype=torch.float32):
+    return ConvUnit(in_features, features, kernel_size, stride, padding,
+                    dilation, dims=3, batch_norm=batch_norm, relu=True,
+                    pre_norm=True, bias=bias, dtype=dtype)
 
 
 class BasicBlock(nn.Module):

@@ -1,9 +1,14 @@
-"""Pooling: the SPP branches' average pool and the GT rescale of the losses.
+"""Pooling: the SPP branches' average pool, AnyNet's max pool and the GT
+rescale of the losses.
 
-Counterpart of densematchingbenchmark_tpu/ops/pooling.py:13-48. Every
-loss level's scale factor is an exact integer (static shapes), so adaptive
+Counterpart of densematchingbenchmark_tpu/ops/pooling.py:13-48 and of the
+``flax.linen.max_pool`` of JAX's AnyNet backbone
+(densematchingbenchmark_tpu/models/backbones/anynet.py:49). Every loss
+level's scale factor is an exact integer (static shapes), so adaptive
 pooling is a block reduction over a reshape.
 """
+
+import torch.nn.functional as F
 
 
 def _reshape_pool(x, out_h, out_w, reducer):
@@ -42,3 +47,12 @@ def avg_pool2d(x, window, stride=None):
     out_h, out_w = h // stride, w // stride
     x = x[:, :out_h * stride, :out_w * stride, :]
     return x.reshape(b, out_h, stride, out_w, stride, c).mean(dim=(2, 4))
+
+
+def max_pool2d(x, window=2):
+    """[B, H, W, C] max pool with window == stride, VALID (floor-cropped):
+    ``flax.linen.max_pool(x, (k, k), strides=(k, k))``. The library's pool
+    on the channels-last map, whose gradient goes to one maximum of each
+    window as JAX's does."""
+    return F.max_pool2d(x.movedim(-1, 1), window, window).movedim(
+        1, -1).contiguous()

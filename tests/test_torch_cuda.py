@@ -1579,3 +1579,147 @@ def test_tiny_deeppruner_train_step_issues_no_synchronising_call_on_card(
                                     generator=gen) * 60}
     assert state.generator.device.type == "cpu"
     _sync_free(lambda: step(state, batch))
+
+
+# AnyNet's aggregator widths (Cin, Cout): init_guess 8 -> 16 and 16 -> 16,
+# warp_level_8 4 -> 4, warp_level_4 2 -> 4 (float32 pads Ci to 4; bfloat16
+# Ci to 16 and Co to 8)
+ANYNET_WIDTHS = [(8, 16), (16, 16), (4, 4), (2, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ci,co", ANYNET_WIDTHS)
+def test_prenorm_unit_at_anynet_widths_on_card(cuda, ci, co, dtype, train):
+    """AnyNet's pre-norm unit (BN -> ReLU -> conv + bias) runs its conv on
+    the kernels: in eval one launch of K1 (float32) or K4's bfloat16
+    route, with unit scale and the bias as the epilogue's shift; in
+    training one of K4 at unit scale, then the bias. Against the unfused
+    BN -> ReLU -> conv + bias on the same weights, the conv in float32 on
+    the unit's rounded input: within 1e-4 of the largest output in
+    float32 and one bfloat16 step besides in bfloat16."""
+    from densematchingbenchmark_tpu_torch.models.layers import bn_relu_conv3d
+    unit = draw_bn(bn_relu_conv3d(True, ci, co, dtype=dtype), ci + co)
+    with torch.no_grad():
+        unit.Conv_0.bias.copy_(torch.randn(co, generator=torch.Generator()
+                                           .manual_seed(co)) * 0.5)
+    unit = unit.to(cuda).train(train)
+    assert unit.fusable and unit.pre_norm
+    x = torch.randn((2, 5, 12, 20, ci), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(ci))
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = unit(x)
+        torch.cuda.synchronize()
+        counts, bf16 = kernels.launch_counts(), kernels.bf16_launch_counts()
+        name = ("fused_conv3d" if dtype == torch.float32 and not train
+                else "conv3d_packed_s1")
+        assert counts[name] == 1 and sum(counts.values()) == 1, counts
+        assert bf16["conv3d_packed_s1"] == int(dtype == torch.bfloat16)
+        bn = unit.BatchNorm_0
+        xn = torch.relu(torch.nn.functional.batch_norm(
+            x.movedim(-1, 1).to(dtype).float(), bn.running_mean,
+            bn.running_var, bn.weight, bn.bias, train, 0.0, bn.eps)
+            .to(dtype))
+        want = torch.nn.functional.conv3d(
+            xn.float(), unit.Conv_0.weight.to(dtype).float(),
+            unit.Conv_0.bias, padding=1).movedim(1, -1)
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = (1e-4 + (0 if dtype == torch.float32 else BF16_STEP)) * \
+        want.abs().max().item()
+    assert (got.float() - want).abs().max().item() <= tol
+
+
+def peak_anynet_costs(module, seed=1):
+    """Draw an AnyNet's conv biases (0.1 N(0, 1)) and scale its stages'
+    last units (Co = 1) by 30. At its seeded weights the costs are nearly
+    flat, and each stage returns about the middle of its range whatever
+    its units compute; these weights spread the stages over tens of
+    pixels."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d)) and \
+                    m.bias is not None:
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.1)
+        for st in ("init_guess", "warp_level_8", "warp_level_4"):
+            getattr(module, f"agg_{st}").ConvUnit_5.Conv_0.weight.mul_(30.0)
+    return module
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tiny_anynet_on_card_matches_cpu(cuda, dtype):
+    """AnyNet's shipped config (its full width) on a 64x128 pair, with
+    weights that peak its costs: the eval forward on the card (the 15
+    pre-norm aggregator units on K1 in float32 or K4's bfloat16 route, K2
+    on each stage's cost, 3 launches) against the plain versions on the
+    CPU, same weights; then one train step (K4 15, K2 3 forward and 3
+    backward) against the CPU's losses."""
+    from densematchingbenchmark_tpu_torch.apis import StereoModel
+    name = f"AnyNet/scene_flow_{dtype}"
+    cfg = get_config(name)
+    cpu = peak_anynet_costs(draw_bn(build_model(
+        cfg, torch.Generator().manual_seed(0)), 0))
+    card = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.RandomState(0)
+    x = torch.tensor(rng.randn(1, 64, 128, 3), dtype=torch.float32)
+    kernels.reset_launch_counts()
+    got = StereoModel(cfg, card.eval(), cuda).forward(x.to(cuda), x.to(cuda))
+    counts, bf16 = kernels.launch_counts(), kernels.bf16_launch_counts()
+    k1 = 15 if dtype == "f32" else 0
+    assert counts == {"fused_conv3d": k1, "fused_soft_argmin": 3,
+                      "fused_soft_argmin_backward": 0,
+                      "fused_upsample_soft_argmin": 0,
+                      "conv3d_packed_s1": 15 - k1,
+                      "conv3d_packed_s1_v2": 0}, counts
+    assert bf16["conv3d_packed_s1"] == 15 - k1
+    want = StereoModel(cfg, cpu.eval(), torch.device("cpu")).forward(x, x)
+    assert len(got["disps"]) == len(want["disps"]) == 4
+    # the peaked costs spread the stages over the frame (at the seeded
+    # weights: a std of 0.2-0.4 px)
+    for d in want["disps"][1:]:
+        assert d.std() >= 1.0, d.std()
+    # float32: cuDNN vs the CPU's convolutions through three stages and the
+    # refinement (the PSMNet slice's 1e-2 px). bfloat16: the stages'
+    # disparities within the CPU tests' 0.05 px mean; the refined one
+    # carries bfloat16's own error on each side at the scale of its
+    # residual: within twice the CPU's own bfloat16-vs-float32 gap plus
+    # 0.01 px, and the card's own gap between 0.8x and 1.25x the CPU's
+    # (the rule of test_tiny_stereonet_on_card_matches_cpu)
+    f32_cfg = get_config("AnyNet/scene_flow_f32")
+    f32 = build_model(f32_cfg)
+    f32.load_state_dict(cpu.state_dict())
+    ref = StereoModel(cfg, f32.eval(), torch.device("cpu")).forward(x, x)
+    card_ref = StereoModel(f32_cfg, copy.deepcopy(f32).to(cuda), cuda) \
+        .forward(x.to(cuda), x.to(cuda))
+    for i, (g, w) in enumerate(zip(got["disps"], want["disps"])):
+        assert g.dtype == torch.float32
+        diff = (g.cpu() - w).abs()
+        if dtype == "f32":
+            assert diff.max() <= 1e-2, (i, diff.max())
+        elif i > 0:
+            assert diff.mean() <= 0.05, (i, diff.mean())
+        else:
+            own = (w - ref["disps"][i]).abs().mean()
+            card_own = (g - card_ref["disps"][i]).abs().mean().cpu()
+            assert diff.mean() <= 2 * own + 0.01, (i, diff.mean(), own)
+            assert 0.8 * own <= card_own <= 1.25 * own + 1e-3, (
+                i, card_own, own)
+    batch = {"leftImage": rng.randn(2, 64, 128, 3),
+             "rightImage": rng.randn(2, 64, 128, 3),
+             "leftDisp": rng.uniform(0, 120, (2, 64, 128, 1))}
+    batch = {k: torch.tensor(v, dtype=torch.float32)
+             for k, v in batch.items()}
+    (card_m, cpu_m), counts = card_and_cpu_step(cfg, cpu, card, cuda, batch)
+    assert counts["conv3d_packed_s1"] == 15, counts
+    assert counts["fused_soft_argmin"] == 3, counts
+    assert counts["fused_soft_argmin_backward"] == 3, counts
+    assert sorted(card_m) == ["grad_norm"] + [
+        f"l1_loss_lvl{i}" for i in range(4)] + ["loss"]
+    for k, v in cpu_m.items():
+        # float32: cuDNN vs the CPU (the PSMNet step's 1e-3); bfloat16:
+        # the losses within 1 %, the gradients' norm within 10 %
+        tol = 1e-3 if dtype == "f32" else 0.1 if k == "grad_norm" else 0.01
+        assert abs(card_m[k] - v) <= tol * abs(v), (k, card_m[k], v)

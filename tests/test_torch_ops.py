@@ -285,7 +285,8 @@ def test_psmnet_backbone_matches_jax():
                                   "PSMNet/kitti_2012", "GCNet/scene_flow",
                                   "GCNet/kitti_2015", "GCNet/kitti_2012",
                                   "DeepPruner/scene_flow_4x",
-                                  "DeepPruner/scene_flow_8x"])
+                                  "DeepPruner/scene_flow_8x",
+                                  "AnyNet/scene_flow"])
 def test_configs_match_jax(name):
     over = {"model.max_disp": 96, "data.test.input_shape": (64, 64)}
     for suffix in ("", "_f32"):
@@ -294,12 +295,13 @@ def test_configs_match_jax(name):
 
 
 def test_config_bf16_and_unknown_raise():
-    # the _bf16 names build since bf16 compute was ported (as JAX's); an
-    # unknown family or dtype suffix raises
+    # the _bf16 names build since bf16 compute was ported (as JAX's); a
+    # family the port lacks (the flow models, ROADMAP.md queue 1 item 11)
+    # or an unknown dtype suffix raises
     assert tconfigs.get_config("PSMNet/scene_flow_bf16") == \
         jconfigs.get_config("PSMNet/scene_flow_bf16")
     with pytest.raises(KeyError):
-        tconfigs.get_config("AnyNet/scene_flow")
+        tconfigs.get_config("PWCFlow/flying_chairs")
     with pytest.raises(KeyError):
         tconfigs.get_config("PSMNet/scene_flow_f16")
 
