@@ -197,6 +197,23 @@ PyTorch version on the card. Phases, each fatal on failure:
      BF16_GAP_ATOL, the three stages' above 0); a small model against the
      CPU; tools/test.main at 544x960 batch 4 against batch 1;
      train_matcher at 6x256x512 (a step K4 15, K2 3 and its backward 3).
+ 14. Optical flow (PWCFlow/flying_chairs, RAFT/flying_chairs; full
+     width, random weights from seed 0 peaked by peak_flow): a
+     FlyingChairs-layout set written here (16 pairs of 384x512 binary PPM
+     frames, .flo ground truth, annotation JSONs) read through data/io's
+     PPM reader; init_flow_model + inference_flow at 384x512 batch 1 in
+     both dtypes (PWCFlow 5 flows, RAFT 9, finite, the best flow's mean
+     |flow| at least FLOW_MIN_MAG; forward ms, launches, device busy ms,
+     peak; the card's bf16-vs-float32 gap 0.8-1.25 times the CPU's own on
+     the same weights); a small model of each on the card against the
+     CPU (CPU_ATOL max in float32, BF16_CPU_ATOL mean in bfloat16) and a
+     float32 train step's losses and gradients; tools/test.main over 4
+     pairs in both dtypes with --out-dir, its EPE and n-px against
+     float64 host metrics of the written flows; tools/train.main for 5
+     steps at the configs' 8x320x448 crops with the per-epoch eval and
+     vis hook (step ms, peak); tools/demo.main on one pair. The port's
+     kernel counters stay 0 across the phase: the flow paths launch none
+     of K1-K5.
 
 Prints a JSON line of per-kernel numbers before the last line (K4's and
 K5's bfloat16 routes in the microbench in rows of their own, ``*_bf16``,
@@ -217,7 +234,9 @@ StereoNet's 4-stage forward, eval step and train step, and the forward
 and eval step of GCNet and of DeepPruner 4x and 8x in each dtype; and
 AnyNet's forward by layer (the backbone, each stage, the refinement and
 its SPN scan alone), its launches a forward and the scan's share of them,
-and the scan alone forward and with its backward.
+and the scan alone forward and with its backward; and each flow model's
+forward at 384x512 in each dtype, and PWCFlow's correlation volume alone
+at each level.
 """
 
 import contextlib
@@ -3986,7 +4005,485 @@ def anynet_phase(smi, gen, stats, bf16_trunk, launches, bf16_launches):
                 total[name] += n
 
 
+# ------------------------------------------------------------------ flow
+# Phase 14: optical flow. PWCFlow and RAFT at full width (the shipped
+# FlyingChairs configs, random weights from seed 0) on FlyingChairs'
+# 384x512 frames, batch 1; none of K1-K5 on their paths (the counters
+# are read across the phase).
+FLOW_CONFIGS = ("PWCFlow/flying_chairs", "RAFT/flying_chairs")
+FLOW_FRAME = (384, 512)
+FLOW_NFLOWS = {"PWCFlow/flying_chairs": 5, "RAFT/flying_chairs": 9}
+# a FlyingChairs-layout set written here: 16 pairs train (batch 8, two
+# steps an epoch), the first 4 the eval phase's test set, the first 2
+# the training's per-epoch eval and vis set
+FLOW_PAIRS, FLOW_TEST, FLOW_TRAIN_EVAL = 16, 4, 2
+# the small models of the card-vs-CPU checks (tests/flow_parity.py's),
+# on 64x96 pairs
+FLOW_SMALL = {
+    "PWCFlow/flying_chairs": {"model.chans": (8, 16, 16), "model.radius": 2,
+                              "model.hidden": 16,
+                              "model.losses.flow_l1_loss.weights":
+                              (1.0, 1.0, 0.5, 0.25)},
+    "RAFT/flying_chairs": {"model.iters": 2, "model.hidden": 32,
+                           "model.context": 16,
+                           "model.losses.flow_l1_loss.weights":
+                           (1.0, 1.0, 0.8)},
+}
+FLOW_SMALL_FRAME = (64, 96)
+# At seeded weights PWCFlow's score heads are flat: every soft-argmax
+# returns about 0 and its best flow stays near 0.1 px, which bfloat16 or a
+# dropped level would not move. The phases that read the flows draw BN
+# and the conv biases as the CPU tests do (damp_bn; biases 0.1 N(0, 1))
+# and scale each FlowEstimator's score conv (ConvUnit_2) by
+# FLOW_SCORE_GAIN (tests/flow_parity.py's SCORE_GAIN); RAFT gets the same
+# BN and biases.
+FLOW_SCORE_GAIN = 8.0
+FLOW_MIN_MAG = 1.0   # px: the best flow's mean |flow|, at least
+FLOW_GAP_RATIO = (0.8, 1.25)   # the card's bf16 - float32 gap over the
+                               # CPU's own on the same weights
+
+
+def peak_flow(module, seed=13):
+    """Draw ``module``'s (PWCFlow or RAFT) BN and conv biases from
+    ``seed`` and scale PWCFlow's score convs by FLOW_SCORE_GAIN, on any
+    device. Returns the module."""
+    damp_bn(module, seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.Conv2d) and m.bias is not None:
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.1)
+        for est in getattr(module, "FlowEstimator", ()):
+            est.ConvUnit_2.Conv_0.weight.mul_(FLOW_SCORE_GAIN)
+    return module
+
+
+def write_chairs_dataset(root, n=FLOW_PAIRS):
+    """A FlyingChairs-layout set under ``root``: frames as binary PPM
+    (data/<i>_img1.ppm, _img2.ppm, 384x512, uint8), ground truth as .flo
+    (SyntheticFlowDataset's exact flow, |u|, |v| <= 8), annotation JSONs
+    (train: all pairs; test: the first FLOW_TEST; eval: the first
+    FLOW_TRAIN_EVAL), half the items naming their GT 'flow_path' (the
+    reference's spelling). Returns {split: annfile}."""
+    from densematchingbenchmark_tpu_torch.data import io as tio
+    from densematchingbenchmark_tpu_torch.flow import (SyntheticFlowDataset,
+                                                       save_flo)
+    h, w = FLOW_FRAME
+    ds = SyntheticFlowDataset(length=n, height=h, width=w, max_flow=8,
+                              seed=3)
+    os.makedirs(os.path.join(root, "data"), exist_ok=True)
+    items = []
+    for i in range(n):
+        s = ds[i]
+        stem = f"data/{i:05d}"
+        for k, suffix in (("leftImage", "_img1.ppm"),
+                          ("rightImage", "_img2.ppm")):
+            tio.save_pnm(os.path.join(root, stem + suffix),
+                         np.clip(np.rint(s[k]), 0, 255).astype(np.uint8))
+        save_flo(os.path.join(root, stem + "_flow.flo"), s["flow"])
+        items.append({"left_image_path": stem + "_img1.ppm",
+                      "right_image_path": stem + "_img2.ppm",
+                      ("flow_path" if i % 2 else "flow_map_path"):
+                      stem + "_flow.flo"})
+    anns = {}
+    for split, m in (("train", n), ("test", FLOW_TEST),
+                     ("eval", FLOW_TRAIN_EVAL)):
+        anns[split] = os.path.join(root, f"{split}.json")
+        with open(anns[split], "w") as fp:
+            json.dump(items[:m], fp)
+    return anns
+
+
+def count_launches(fn):
+    """(kernel launches, device busy ms) of one call of ``fn`` after one
+    call outside the profile (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.self_device_time_total > 0 and e.device_type.name == "CUDA"]
+    return (sum(e.count for e in rows),
+            sum(e.self_device_time_total for e in rows) / 1e3)
+
+
+def flow_inference_phase(smi, root):
+    """Each flow config at full width in float32 and bfloat16, on
+    peak_flow's weights, through init_flow_model + inference_flow over
+    the first two written pairs (read by data/io's PPM reader): the
+    flows' count and shapes, finite, the best flow's mean |flow| at least
+    FLOW_MIN_MAG; a forward's ms (median of single forwards, CUDA
+    events), launches, device busy ms (torch.profiler) and peak. On the
+    first pair the bfloat16 - float32 mean gap of the best flow on the
+    card within FLOW_GAP_RATIO of the CPU's own (the same weights through
+    the plain versions)."""
+    from densematchingbenchmark_tpu_torch.apis import (inference_flow,
+                                                       init_flow_model)
+    from densematchingbenchmark_tpu_torch.data import io as tio
+    from densematchingbenchmark_tpu_torch.flow import transforms as ftrans
+    pairs = [{"leftImage": tio.load_image(os.path.join(
+                  root, f"data/{i:05d}_img1.ppm")),
+              "rightImage": tio.load_image(os.path.join(
+                  root, f"data/{i:05d}_img2.ppm"))} for i in range(2)]
+    h, w = FLOW_FRAME
+    for name in FLOW_CONFIGS:
+        best = {}
+        for suffix in ("_f32", "_bf16"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model = init_flow_model(name + suffix, seed=0)
+            peak_flow(model.module)
+            out = inference_flow(model, pairs)
+            flows = [r["flows"] for r in out]
+            shapes = [f.shape for f in flows[0]]
+            n = FLOW_NFLOWS[name]
+            assert len(shapes) == n, (name, shapes)
+            if name.startswith("PWC"):
+                assert shapes == [(1, h, w, 2)] + [
+                    (1, h >> k, w >> k, 2) for k in range(1, 5)], shapes
+            else:
+                assert shapes == [(1, h, w, 2)] * n, shapes
+            assert all(np.isfinite(f).all() for fl in flows for f in fl)
+            best[suffix] = [fl[0] for fl in flows]
+            mag = [float(np.abs(f).mean()) for f in best[suffix]]
+            assert min(mag) >= FLOW_MIN_MAG, (name + suffix, mag)
+            s = ftrans.normalize(pairs[0], model.cfg["data"]["mean"],
+                                 model.cfg["data"]["std"])
+            l, r = (torch.from_numpy(s[k])[None].cuda()
+                    for k in ("leftImage", "rightImage"))
+            ms = time_ms(lambda: model.forward(l, r), reps=FORWARD_REPS)
+            launches, busy = count_launches(lambda: model.forward(l, r))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f"flow {name}{suffix}: {n} flows {shapes[0]}..{shapes[-1]}"
+                  f", finite, best flow's mean |flow| "
+                  f"{', '.join(f'{m:.3f}' for m in mag)} px (at least "
+                  f"{FLOW_MIN_MAG:g}); forward {h}x{w} b1 "
+                  f"{ms:.3f} ms (median of {FORWARD_REPS}, CUDA events), "
+                  f"{launches} launches, device busy {busy:.3f} ms, peak "
+                  f"{peak:.3f} GiB; {smi}")
+            del model
+        cpu = {}
+        for suffix in best:
+            model = init_flow_model(name + suffix, device="cpu", seed=0)
+            peak_flow(model.module)
+            cpu[suffix] = inference_flow(model, pairs[:1])[0]["flows"][0]
+            del model
+        err = float(np.abs(best["_f32"][0] - cpu["_f32"]).max())
+        gap = float(np.abs(best["_bf16"][0] - best["_f32"][0]).mean())
+        own = float(np.abs(cpu["_bf16"] - cpu["_f32"]).mean())
+        lo, hi = FLOW_GAP_RATIO
+        print(f"flow {name}: first pair, float32 card vs CPU {err:.3g} px "
+              f"max (tolerance {CPU_ATOL}); bf16 - f32 mean gap of the best "
+              f"flow, card {gap:.4f} px, CPU {own:.4f} px (the card's "
+              f"{lo:g}-{hi:g} times the CPU's)")
+        assert err <= CPU_ATOL, (name, err)
+        assert lo * own <= gap <= hi * own + 1e-3, (name, gap, own)
+
+
+def flow_small_models(name, dtype):
+    """(cfg, CPU module, card module) of the small ``name`` model from
+    seed 0 on peak_flow's weights."""
+    from densematchingbenchmark_tpu_torch.configs import get_config
+    from densematchingbenchmark_tpu_torch.models import build_model
+    cfg = get_config(f"{name}_{dtype}", **FLOW_SMALL[name])
+    cpu = peak_flow(build_model(cfg, torch.Generator().manual_seed(0)), 0)
+    return cfg, cpu, copy.deepcopy(cpu).cuda()
+
+
+def flow_card_vs_cpu_phase():
+    """The small PWCFlow and RAFT on the card against the CPU (the plain
+    PyTorch versions) from the same peaked weights: every flow of an eval
+    forward (float32 within CPU_ATOL px max, bfloat16 within
+    BF16_CPU_ATOL px mean, the CPU's own bf16 - float32 gap beside it;
+    the CPU's best float32 flow at least FLOW_MIN_MAG px mean), and one
+    float32 train step's losses (within TRAIN_LOSS_RTOL) and
+    per-parameter gradients (cosine above TRAIN_GRAD_COS)."""
+    from densematchingbenchmark_tpu_torch.apis import StereoModel
+    from densematchingbenchmark_tpu_torch.flow import flow_l1_loss
+    from densematchingbenchmark_tpu_torch.losses import total_loss
+    h, w = FLOW_SMALL_FRAME
+    rng = np.random.RandomState(0)
+    ref = rng.randn(2, h, w, 3).astype(np.float32)
+    tgt = (np.roll(ref, (1, 2), axis=(1, 2))
+           + 0.1 * rng.randn(2, h, w, 3)).astype(np.float32)
+    gt = (rng.randn(2, h, w, 2) + (2.0, 1.0)).astype(np.float32)
+    batch = {k: torch.from_numpy(v) for k, v in
+             (("leftImage", ref), ("rightImage", tgt), ("flow", gt))}
+    cpu_dev = torch.device("cpu")
+    for name in FLOW_CONFIGS:
+        cpu_f32 = None
+        for dtype in ("f32", "bf16"):
+            cfg, cpu, card = flow_small_models(name, dtype)
+            got = StereoModel(cfg, card.eval(), torch.device("cuda")).forward(
+                batch["leftImage"].cuda(), batch["rightImage"].cuda())
+            want = StereoModel(cfg, cpu.eval(), cpu_dev).forward(
+                batch["leftImage"], batch["rightImage"])
+            diffs = [(g.cpu() - wt).abs() for g, wt in
+                     zip(got["flows"], want["flows"])]
+            if dtype == "f32":
+                cpu_f32 = want["flows"]
+                mag = float(cpu_f32[0].abs().mean())
+                err = max(float(d.max()) for d in diffs)
+                note = f"; the CPU's best flow mean |flow| {mag:.3f} px"
+                assert mag >= FLOW_MIN_MAG, (name, mag)
+                assert err <= CPU_ATOL, (name, err)
+            else:
+                err = max(float(d.mean()) for d in diffs)
+                note = "; the CPU's own bf16 - f32 mean gap " + ", ".join(
+                    f"{float((a - b).abs().mean()):.4f}"
+                    for a, b in zip(want["flows"], cpu_f32)) + " px"
+                assert err <= BF16_CPU_ATOL, (name, err)
+            print(f"flow card vs CPU {name}_{dtype} small, 2x{h}x{w}: "
+                  f"{len(diffs)} flows, {'max' if dtype == 'f32' else 'mean'}"
+                  f" |card - CPU| {err:.3g} px (within "
+                  f"{CPU_ATOL if dtype == 'f32' else BF16_CPU_ATOL}){note}")
+            if dtype != "f32":
+                continue
+            weights = cfg["model"]["losses"]["flow_l1_loss"]["weights"]
+            res = []
+            for module in (card, cpu):
+                device = next(module.parameters()).device
+                module.train()
+                out = module(batch["leftImage"].to(device),
+                             batch["rightImage"].to(device))
+                ld = flow_l1_loss(out["flows"], batch["flow"].to(device),
+                                  weights)
+                loss = total_loss(ld)
+                grads = torch.autograd.grad(loss, list(module.parameters()))
+                res.append(({k: float(v.detach()) for k, v in ld.items()},
+                            [g.cpu() for g in grads]))
+            (m_card, g_card), (m_cpu, g_cpu) = res
+            loss_err = max(abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k])
+                           for k in m_cpu)
+            assert loss_err <= TRAIN_LOSS_RTOL, (name, m_card, m_cpu)
+            # a conv bias before a batch-statistics BN: its gradient is 0
+            # up to rounding, on both sides
+            zero = {f"{mn}.Conv_0.bias" for mn, m in cpu.named_modules()
+                    if getattr(m, "BatchNorm_0", None) is not None
+                    and not m.pre_norm and m.Conv_0.bias is not None}
+            top = max(float(g.abs().max()) for g in g_cpu)
+            worst = 1.0
+            for (pn, _), ga, gc in zip(cpu.named_parameters(), g_card,
+                                       g_cpu):
+                if pn in zero:
+                    assert max(float(ga.abs().max()), float(
+                        gc.abs().max())) <= 1e-5 * top, (name, pn)
+                    continue
+                cos = float((ga * gc).sum() / (ga.norm() * gc.norm()))
+                assert cos > TRAIN_GRAD_COS, (name, pn, cos)
+                worst = min(worst, cos)
+            print(f"flow same weights {name}_f32 small, train step card vs "
+                  f"CPU: losses rel err {loss_err:.3g} (within "
+                  f"{TRAIN_LOSS_RTOL}), worst gradient cosine {worst:.6f} "
+                  f"(the {len(zero)} conv biases before a batch BN within "
+                  f"1e-5 of the largest gradient)")
+
+
+def flow_metrics_f64(est, gt):
+    """EPE and the 1 / 2 / 3 / 5 px shares (%) of one sample, in float64
+    numpy, NaN GT masked (flow/metrics.calc_flow_error's definition);
+    ``est`` cropped to the GT's size (the eval's padding has NaN GT)."""
+    est = est[:gt.shape[0], :gt.shape[1]].astype(np.float64)
+    gt = gt.astype(np.float64)
+    mask = ~np.isnan(gt).any(-1)
+    epe = np.sqrt(((est - np.nan_to_num(gt)) ** 2).sum(-1))[mask]
+    out = {f"{t}px": 100.0 * float((epe > t).mean()) for t in (1, 2, 3, 5)}
+    out["epe"] = float(epe.mean())
+    return out
+
+
+def flow_eval_phase(smi, root, ann):
+    """tools/test.main on each flow config in both dtypes over the written
+    set's FLOW_TEST pairs at 384x512 (frames through the PPM reader, GT
+    .flo) on peak_flow's weights (a checkpoint in --work-dir the tool
+    restores), --out-dir writing each sample's best flow: the tool's EPE and
+    n-px against float64 host metrics of the written flows against the
+    GT (EPE within EVAL_EPE_ATOL px, each share within EVAL_PX_ATOL
+    points); the tool's wall time a sample (host clock: decode, model
+    set-up excluded) and peak memory."""
+    from densematchingbenchmark_tpu_torch.apis import init_flow_model
+    from densematchingbenchmark_tpu_torch.flow import load_flo
+    from densematchingbenchmark_tpu_torch.tools import test as ttest
+    from densematchingbenchmark_tpu_torch.utils.checkpoint import \
+        CheckpointManager
+    with open(ann) as fp:
+        items = json.load(fp)
+    gts = [load_flo(os.path.join(root, it.get("flow_map_path")
+                                 or it["flow_path"])) for it in items]
+    for name in FLOW_CONFIGS:
+        for suffix in ("_f32", "_bf16"):
+            with tempfile.TemporaryDirectory() as work:
+                module = peak_flow(init_flow_model(
+                    name + suffix, device="cpu", seed=0).module)
+                CheckpointManager(work).save(
+                    0, {"module": module.state_dict()})
+                del module
+                out_dir = os.path.join(work, "out")
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    results, n = ttest.main(
+                        ["--config", name + suffix, "--work-dir", work,
+                         "--data-root", root, "--annfile", ann,
+                         "--out-dir", out_dir])
+                wall = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                assert n == len(items) == FLOW_TEST, (n, len(items))
+                per = [flow_metrics_f64(load_flo(os.path.join(
+                    out_dir, "flow_0", f"{i:06d}.flo")), gt)
+                    for i, gt in enumerate(gts)]
+            want = {k: float(np.mean([p[k] for p in per])) for k in per[0]}
+            assert sorted(results) == sorted(want), results
+            assert all(np.isfinite(v) for v in results.values()), results
+            assert abs(results["epe"] - want["epe"]) <= EVAL_EPE_ATOL, (
+                results, want)
+            for k in ("1px", "2px", "3px", "5px"):
+                assert abs(results[k] - want[k]) <= EVAL_PX_ATOL, (
+                    k, results, want)
+            print(f"flow eval {name}{suffix} (tools/test.main, {n} "
+                  f"FlyingChairs-layout PPM pairs, 384x512): "
+                  + ", ".join(f"{k} {results[k]:.4f}" for k in
+                              sorted(results))
+                  + f" (float64 host: epe {want['epe']:.4f}); "
+                  f"{wall / n * 1e3:.1f} ms a sample end to end with the "
+                  f"model's set-up and the --out-dir writes, peak "
+                  f"{peak:.3f} GiB; {smi}")
+
+
+def flow_train_phase(smi, root, anns):
+    """tools/train.main on each flow config in both dtypes: the written
+    set's 16 pairs cropped to the config's 320x448 at batch 8, 5 steps
+    (two an epoch), after each epoch the eval of 2 pairs at 384x512 and
+    the vis hook; the losses finite, the eval's EPE finite, the vis
+    PNGs written; the step's ms (median of steps 2-5, host clock) and
+    peak."""
+    from densematchingbenchmark_tpu_torch.tools import train as ttrain
+    from densematchingbenchmark_tpu_torch.trainer.loop import read_metrics
+    for name in FLOW_CONFIGS:
+        for suffix in ("_f32", "_bf16"):
+            data = ttrain.get_config(name + suffix)["data"]
+            shape = "x".join(str(v) for v in (data["batch_size_per_device"],
+                                              *data["crop_size"]))
+            with tempfile.TemporaryDirectory() as work:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    state = ttrain.main(
+                        ["--config", name + suffix, "--work-dir", work,
+                         "--data-root", root, "--annfile", anns["train"],
+                         "--eval-annfile", anns["eval"], "--max-steps",
+                         str(TRAIN_STEPS), "--log-interval", "1"])
+                records = read_metrics(work)
+                vis = sorted(os.listdir(os.path.join(work, "vis",
+                                                     "sample_001")))
+            assert state.step == TRAIN_STEPS
+            assert all(p.dtype == torch.float32
+                       for p in state.module.parameters())
+            steps = [r for r in records if "train/loss" in r]
+            evals = [r for r in records if "eval/epe" in r]
+            assert [r["step"] for r in steps] == list(
+                range(1, TRAIN_STEPS + 1))
+            assert all(np.isfinite(r["train/loss"]) for r in steps)
+            assert len(evals) == 3 and all(np.isfinite(r["eval/epe"])
+                                           for r in evals), evals
+            assert vis == [f"flow_{k}_{e}.png" for k in ("0", "gt")
+                           for e in (1, 2, 3)], vis
+            step_ms = float(np.median([r["train/step_ms"]
+                                       for r in steps[1:]]))
+            peak = max(r.get("train/peak_mem_gib", 0.0) for r in steps)
+            print(f"flow train {name}{suffix} (tools/train.main, {shape} "
+                  f"crops of the PPM set, {TRAIN_STEPS} steps): losses "
+                  f"{[round(r['train/loss'], 4) for r in steps]}; eval "
+                  f"epe {[round(r['eval/epe'], 3) for r in evals]}; step "
+                  f"{step_ms:.2f} ms (median of steps 2-{TRAIN_STEPS}, host "
+                  f"clock), peak {peak:.2f} GiB; {smi}")
+            del state
+            torch.cuda.empty_cache()
+
+
+def flow_demo_phase(root):
+    """tools/demo.main on one written PPM pair (left/ frame t, right/
+    frame t + 1): a .flo of the frame's size and a colour PNG."""
+    from densematchingbenchmark_tpu_torch.data import io as tio
+    from densematchingbenchmark_tpu_torch.flow import load_flo
+    from densematchingbenchmark_tpu_torch.tools import demo as tdemo
+    with tempfile.TemporaryDirectory() as work:
+        for side, suffix in (("left", "_img1.ppm"), ("right", "_img2.ppm")):
+            os.makedirs(os.path.join(work, side))
+            with open(os.path.join(root, "data", "00000" + suffix),
+                      "rb") as src, open(os.path.join(work, side,
+                                                      "00000.ppm"),
+                                         "wb") as dst:
+                dst.write(src.read())
+        out = os.path.join(work, "out")
+        with contextlib.redirect_stdout(io.StringIO()):
+            tdemo.main(["--config", "RAFT/flying_chairs", "--data-dir",
+                        work, "--out-dir", out])
+        flo = load_flo(os.path.join(out, "flow_0", "00000.flo"))
+        png = tio.load_image(os.path.join(out, "color_flow", "00000.png"))
+    assert flo.shape == FLOW_FRAME + (2,) and np.isfinite(flo).all()
+    assert png.shape == FLOW_FRAME + (3,)
+    print(f"flow demo (tools/demo.main, RAFT/flying_chairs): one PPM pair "
+          f"-> .flo {flo.shape}, colour PNG {png.shape}")
+
+
+def flow_profile_phase():
+    """--profile: each flow config's forward at 384x512 b1 in both dtypes
+    by kernel (device_profile), and PWCFlow's correlation volume alone at
+    each level's shape (launches, device ms)."""
+    from densematchingbenchmark_tpu_torch.apis import init_flow_model
+    from densematchingbenchmark_tpu_torch.ops.cost_volume import (
+        correlation2d_volume)
+    h, w = FLOW_FRAME
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(2, 1, h, w, 3, device="cuda", generator=gen)
+    for name in FLOW_CONFIGS:
+        for suffix in ("_f32", "_bf16"):
+            model = init_flow_model(name + suffix, seed=0)
+            device_profile(f"flow {name}{suffix} forward {h}x{w} b1",
+                           lambda: model.forward(x[0], x[1]), top=12)
+            del model
+    for lvl, c in enumerate((16, 32, 64, 96)):
+        fm = torch.randn(2, 1, h >> (lvl + 1), w >> (lvl + 1), c,
+                         device="cuda", generator=gen)
+        launches, busy = count_launches(
+            lambda: correlation2d_volume(fm[0], fm[1], 4))
+        ms = time_ms(lambda: correlation2d_volume(fm[0], fm[1], 4))
+        print(f"  correlation2d_volume level {lvl} {tuple(fm.shape[2:])} "
+              f"r 4: {launches} launches, device {busy:.3f} ms, one call "
+              f"{ms:.3f} ms")
+
+
+def flow_phase(smi):
+    """Phase 14, optical flow: inference, card vs CPU, evaluation,
+    training and the demo of PWCFlow and RAFT; the port's kernels' launch
+    counters must not move across it."""
+    from densematchingbenchmark_tpu_torch.ops import cuda as kernels
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as root:
+        anns = write_chairs_dataset(root)
+        flow_inference_phase(smi, root)
+        flow_card_vs_cpu_phase()
+        torch.cuda.empty_cache()
+        flow_eval_phase(smi, root, anns["test"])
+        flow_train_phase(smi, root, anns)
+        flow_demo_phase(root)
+    if "--profile" in sys.argv[1:]:
+        flow_profile_phase()
+    torch.cuda.empty_cache()
+    counts = kernels.launch_counts()
+    assert set(counts.values()) == {0}, counts
+    assert set(kernels.bf16_launch_counts().values()) == {0}
+    print(f"flow phases: {time.perf_counter() - t0:.1f} s, none of the "
+          f"port's kernels launched ({counts})")
+
+
 def main():
+    t_start = time.perf_counter()
     smi = device_phase()
     build_phase()
     from densematchingbenchmark_tpu_torch.ops import cuda as kernels
@@ -4108,6 +4605,10 @@ def main():
     # training, in float32 and bfloat16
     anynet_phase(smi, gen, stats, bf16_trunk, launches, bf16_launches)
     torch.cuda.empty_cache()
+    # optical flow: PWCFlow and RAFT, inference, evaluation, training and
+    # the demo in float32 and bfloat16; they launch none of the kernels
+    flow_phase(smi)
+    torch.cuda.empty_cache()
     # the bfloat16 paths ran K2 and K3 on bfloat16 costs, K1 never
     assert bf16_launches["fused_conv3d"] == 0, bf16_launches
     for name in ("fused_soft_argmin", "fused_soft_argmin_backward",
@@ -4141,6 +4642,8 @@ def main():
                          "route": "cuda", "source": block,
                          "replaces": replaces,
                          "launches": bf16_launches[name], **bf16_trunk})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all; "
+          f"{smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,14 +11,15 @@ compared like with like:
                                           storage of a logical NCDHW tensor)
   cost volume (scored)  [B, D, H, W]
   disparity map         [B, H, W, 1]
+  flow field            [B, H, W, 2]      (u, v) in pixels
 
 Every Pallas TPU kernel on a ported path is a kernel written by hand for
 Hopper under ``ops/cuda/`` (sources in ``csrc/``), with a plain PyTorch
 version beside it. A wrapper given a CPU tensor runs the plain version; given
 a CUDA tensor it launches the kernel or raises.
 
-Entry points (``apis.init_model``) run on ``cuda`` unless the caller passes
-``device="cpu"``.
+Entry points (``apis.init_model``, ``apis.init_flow_model``) run on
+``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

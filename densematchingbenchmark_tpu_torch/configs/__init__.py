@@ -12,7 +12,7 @@ import os
 
 import torch
 
-from . import acfnet, anynet, deeppruner, gcnet, psmnet, stereonet
+from . import acfnet, anynet, deeppruner, gcnet, psmnet, pwcflow, stereonet
 
 _FAMILIES = {
     "PSMNet/scene_flow": psmnet.scene_flow,
@@ -32,6 +32,8 @@ _FAMILIES = {
     "DeepPruner/scene_flow_4x": deeppruner.scene_flow_4x,
     "DeepPruner/scene_flow_8x": deeppruner.scene_flow_8x,
     "AnyNet/scene_flow": anynet.scene_flow,
+    "PWCFlow/flying_chairs": pwcflow.flying_chairs,
+    "RAFT/flying_chairs": pwcflow.raft_flying_chairs,
 }
 _SUFFIXES = {"_bf16": "bfloat16", "_f32": "float32"}
 

@@ -143,13 +143,21 @@ DATASETS = {
 
 def build_dataset(data_cfg, split, transform=None):
     """data_cfg: cfg['data']; split: 'train' | 'eval' | 'test'. A file
-    dataset reads data_cfg[split]['annfile'] under data_cfg['data_root']."""
+    dataset reads data_cfg[split]['annfile'] under data_cfg['data_root']
+    (FlyingChairs without one raises KeyError, as JAX's)."""
     kind = data_cfg["type"]
     split_cfg = data_cfg.get(split, {})
     if kind in ("FlyingChairs", "SyntheticFlow"):
-        raise NotImplementedError(
-            f"{kind}: flow datasets are not ported yet (ROADMAP.md queue 1 "
-            "item 11)")
+        # the flow datasets live in the flow package (JAX :158-168)
+        from ..flow.datasets import FlyingChairsDataset, SyntheticFlowDataset
+        if kind == "SyntheticFlow":
+            return SyntheticFlowDataset(
+                transform=transform,
+                **{k: v for k, v in split_cfg.items()
+                   if k in ("length", "height", "width", "max_flow", "seed")})
+        return FlyingChairsDataset(ann_file=split_cfg["annfile"],
+                                   root=data_cfg["data_root"],
+                                   transform=transform)
     cls = DATASETS[kind]
     if cls is SyntheticStereoDataset:
         return cls(transform=transform,

@@ -1,4 +1,5 @@
-"""Image and disparity files: PFM, PNG and the KITTI uint16 disparity PNG.
+"""Image and disparity files: PFM, PNG, PPM / PGM and the KITTI uint16
+disparity PNG.
 
 Counterpart of densematchingbenchmark_tpu/data/io.py:25-92. The JAX package
 reads PNG through imageio or its native decoder; the port needs neither
@@ -9,10 +10,11 @@ PNG codec in numpy and zlib:
   all five row filters; a palette image or an Adam7-interlaced one raises.
 - encode: the same colour types and depths, with one filter for every row.
 
-``load_image`` reads what the codec refuses (another format such as JPEG,
-a palette or an Adam7 PNG) through imageio where that package imports,
-as the JAX package reads every image; without it the codec's refusal
-stands.
+and a reader of binary 8-bit PPM and PGM (P6, P5; FlyingChairs' frames)
+in numpy. ``load_image`` reads what these refuse (another format such as
+JPEG, a palette or an Adam7 PNG, an ASCII or 16-bit PPM) through imageio
+where that package imports, as the JAX package reads every image; without
+it the refusal stands.
 
 Filters None, Sub and Up undo a row at a time with whole-row numpy ops.
 Average and Paeth need each pixel's reconstructed left neighbour, so an
@@ -22,6 +24,7 @@ the previous two diagonals, so every step of the loop undoes the H pixels
 of one diagonal at once (H + W - 1 steps).
 """
 
+import os
 import re
 import struct
 import zlib
@@ -212,6 +215,61 @@ def save_png(path, img, filter_type=0):
         fp.write(encode_png(img, filter_type))
 
 
+_PNM_CHANNELS = {b"P5": 1, b"P6": 3}
+_PNM_FIELD = re.compile(rb"(?:\s|#[^\r\n]*[\r\n])*([^\s#]+)")
+
+
+def decode_pnm(data):
+    """Binary 8-bit PGM (P5) or PPM (P6) bytes -> uint8 [H, W] or
+    [H, W, 3]. The header's fields (magic, width, height, maxval) may be
+    separated by whitespace and '#' comments; one whitespace byte ends
+    it. Any other kind of file, or a maxval other than 255, raises
+    ValueError."""
+    fields, pos = [], 0
+    for _ in range(4):
+        m = _PNM_FIELD.match(data, pos)
+        if m is None:
+            raise ValueError("truncated PNM header")
+        fields.append(m.group(1))
+        pos = m.end()
+        if fields[0] not in _PNM_CHANNELS:
+            raise ValueError(f"not a binary PGM / PPM file "
+                             f"({fields[0][:2]!r})")
+    try:
+        w, h, maxval = (int(f) for f in fields[1:])
+    except ValueError:
+        raise ValueError(f"bad PNM header fields {fields[1:]}") from None
+    if maxval != 255:
+        raise ValueError(f"PNM maxval {maxval}: the reader takes 8-bit "
+                         "files (255) only")
+    if pos >= len(data) or not data[pos:pos + 1].isspace():
+        raise ValueError("PNM header not ended by whitespace")
+    channels = _PNM_CHANNELS[fields[0]]
+    count = h * w * channels
+    if len(data) - pos - 1 < count:
+        raise ValueError(f"PNM raster holds {len(data) - pos - 1} bytes, "
+                         f"{w}x{h}x{channels} needs {count}")
+    img = np.frombuffer(data, np.uint8, count, pos + 1)
+    return img.reshape((h, w) if channels == 1 else (h, w, 3)).copy()
+
+
+def encode_pnm(img):
+    """uint8 [H, W] or [H, W, 3] -> binary PGM / PPM bytes."""
+    img = np.ascontiguousarray(img, np.uint8)
+    magic = b"P5" if img.ndim == 2 else b"P6"
+    h, w = img.shape[:2]
+    return magic + f"\n{w} {h}\n255\n".encode() + img.tobytes()
+
+
+def save_pnm(path, img):
+    with open(path, "wb") as fp:
+        fp.write(encode_pnm(img))
+
+
+_READERS = {".png": decode_png, ".ppm": decode_pnm, ".pgm": decode_pnm,
+            ".pnm": decode_pnm}
+
+
 def _read_refused(path, refusal):
     """An image the codec refused, through imageio where it imports (JAX's
     reader, densematchingbenchmark_tpu/data/io.py:62-68); else the
@@ -224,14 +282,16 @@ def _read_refused(path, refusal):
 
 
 def load_image(path):
-    """Image -> float32 [H, W, 3] (gray repeated, alpha dropped): a PNG
-    through the port's codec, any other file it refuses through imageio
-    where that imports (``_read_refused``)."""
+    """Image -> float32 [H, W, 3] (gray repeated, alpha dropped): a PNG,
+    PPM or PGM through the port's readers, any other file they refuse
+    through imageio where that imports (``_read_refused``)."""
     try:
-        if not path.lower().endswith(".png"):
-            raise ValueError(f"{path}: the port's codec reads PNG images "
-                             "only")
-        img = load_png(path)
+        reader = _READERS.get(os.path.splitext(path)[1].lower())
+        if reader is None:
+            raise ValueError(f"{path}: the port's readers take PPM, PGM "
+                             "and PNG images only")
+        with open(path, "rb") as fp:
+            img = reader(fp.read())
     except ValueError as refusal:
         img = _read_refused(path, refusal)
     img = img.astype(np.float32)

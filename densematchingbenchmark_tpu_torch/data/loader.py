@@ -18,7 +18,7 @@ import numpy as np
 
 from .sampler import EpochSampler, GroupedEpochSampler
 
-_BATCH_KEYS = ("leftImage", "rightImage", "leftDisp", "rightDisp")
+_BATCH_KEYS = ("leftImage", "rightImage", "leftDisp", "rightDisp", "flow")
 
 
 def collate(samples):

@@ -18,7 +18,9 @@ backbones only PSMNet's takes a schedule field (``pack``): the others
 take the config's keys as they are, so one with a schedule raises, as
 in JAX. A name missing from a registry raises KeyError, as in JAX;
 pieces not ported yet raise NotImplementedError naming their ROADMAP.md
-item.
+item. A flow config (``task`` "flow") builds through
+``flow.models.build_flow_model`` (JAX :116-118), which raises ValueError
+for a meta-architecture it does not register.
 """
 
 import torch
@@ -43,15 +45,9 @@ from .predictors import build_disp_predictor
 from .refinement.anynet import AnyNetRefinement
 from .refinement.stereonet import StereoNetRefinement
 
-_NOT_PORTED = {
-    "flow": "queue 1 item 11 (Flow)",
-}
-
-
 def _not_ported(what):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md "
-        f"{_NOT_PORTED.get(what, 'queue 1')})")
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
+                              "queue 1)")
 
 
 BACKBONES = {"PSMNet": PSMNetBackbone, "GCNet": GCNetBackbone,
@@ -136,13 +132,15 @@ _BRANCHES = {"AnyNet": _anynet, "DeepPruner": _deeppruner}
 def build_model(cfg, generator=None):
     """cfg (nested dict, see configs/) -> nn.Module, parameters initialised
     from ``generator`` (a torch.Generator; a fresh one seeded 0 if None)."""
+    if cfg.get("task") == "flow":
+        # lazy: flow.models imports models.layers
+        from ..flow.models import build_flow_model
+        return build_flow_model(cfg, generator)
     model_cfg = cfg["model"]
     name = model_cfg.get("dtype", "float32")
     if name not in DTYPES:
         raise ValueError(f"model.dtype={name!r}: one of {sorted(DTYPES)}")
     dtype = DTYPES[name]
-    if cfg.get("task") == "flow":
-        _not_ported("flow")
     arch = model_cfg.get("meta_architecture", "GeneralizedStereoModel")
     if generator is None:
         generator = torch.Generator().manual_seed(0)

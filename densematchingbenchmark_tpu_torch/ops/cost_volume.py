@@ -1,7 +1,9 @@
 """Cost-volume construction (concatenation and difference): the
-fixed-range path and the per-pixel ``disp_sample`` path (DeepPruner's).
+fixed-range path and the per-pixel ``disp_sample`` path (DeepPruner's);
+and the flow models' local 2-D correlation, ``correlation2d_volume``.
 
-Counterpart of densematchingbenchmark_tpu/ops/cost_volume.py:30-118. The
+Counterpart of densematchingbenchmark_tpu/ops/cost_volume.py:30-118 and
+:150-177. The
 per-pixel path warps the target features with ``warp.inverse_warp_3d``
 and zeroes the reference features where the warp left the frame (the
 reference's exact path; with ``compat_grid_sample`` its fast path's
@@ -121,3 +123,34 @@ def dif_volume(reference_fm, target_fm, max_disp, start_disp=0, dilation=1,
             return vol.abs().sum(-1)
         return vol.abs().pow(p).sum(-1).pow(1.0 / p)
     return vol
+
+
+def correlation2d_volume(reference_fm, target_fm, radius, dilation=1):
+    """Local 2-D correlation volume (PWCFlow's):
+    cost[b, y, x, k] = mean_c ref[b, y, x, c] * tgt[b, y + dy, x + dx, c]
+    for the (2 radius + 1)^2 displacements (dy, dx), row-major, each in
+    -radius * dilation .. radius * dilation by ``dilation``; zero where the
+    displaced sample leaves the frame.
+
+    One batched product per row offset dy: the padded target's rows at dy,
+    unfolded over the 2 radius + 1 column offsets, contracted with the
+    reference over the channels (2 radius + 1 matmuls, where a product
+    per displacement would be (2 radius + 1)^2 launches of each op).
+
+    Args:
+      reference_fm, target_fm: [B, H, W, C].
+
+    Returns:
+      [B, H, W, (2 radius + 1)^2] in the features' dtype.
+    """
+    b, h, w, c = reference_fm.shape
+    n, r = 2 * radius + 1, radius * dilation
+    padded = torch.nn.functional.pad(target_fm, (0, 0, r, r, r, r))
+    ref = reference_fm.reshape(b * h * w, 1, c)
+    rows = []
+    for dy in range(0, 2 * r + 1, dilation):
+        # [B, H, W, C, n]: the n column offsets of each pixel's window
+        win = padded[:, dy:dy + h].unfold(2, 2 * r + 1, 1)[..., ::dilation]
+        rows.append(torch.bmm(ref, win.reshape(b * h * w, c, n)))
+    cost = torch.cat(rows, dim=1) / c
+    return cost.reshape(b, h, w, n * n)

@@ -1,7 +1,8 @@
-"""Soft-argmin disparity regression.
+"""Soft-argmin disparity regression, and its 2-D form for flow.
 
-Counterpart of densematchingbenchmark_tpu/ops/soft_argmin.py:21-47 and
-:100-130 (``local_soft_argmin``, AcfNet's windowed predictor). With the
+Counterpart of densematchingbenchmark_tpu/ops/soft_argmin.py:21-47,
+:100-130 (``local_soft_argmin``, AcfNet's windowed predictor) and
+:133-164 (``soft_argmax_2d``, the flow models'). With the
 uniform sample range (``disp_sample=None``) and ``normalize=True`` this is
 the fused softmax-expectation, which runs through the Hopper kernel wrapper
 ``ops/cuda/soft_argmin_kernel.fused_soft_argmin`` (its plain version on the
@@ -80,3 +81,25 @@ def local_soft_argmin(cost_volume, max_disp, radius, start_disp=0,
     prob = torch.softmax(masked, dim=1)
     values = start_disp + clipped.float() * dilation
     return (prob * values).sum(dim=1)[..., None]
+
+
+def soft_argmax_2d(score_volume, radius, dilation=1, normalizer=1.0):
+    """Expected (u, v) displacement under a float32 softmax of
+    ``score_volume / normalizer`` over a local 2-D window.
+
+    Args:
+      score_volume: [B, H, W, (2 radius + 1)^2] scores, the window
+        row-major in (dy, dx), each offset a multiple of ``dilation``.
+
+    Returns:
+      [B, H, W, 2] float32 flow in pixels.
+    """
+    n = 2 * radius + 1
+    if score_volume.shape[-1] != n * n:
+        raise ValueError(f"score volume has {score_volume.shape[-1]} "
+                         f"entries, radius {radius} needs {n * n}")
+    prob = torch.softmax(score_volume.float() / normalizer, dim=-1)
+    offs = torch.arange(-radius * dilation, radius * dilation + 1, dilation,
+                        device=prob.device, dtype=torch.float32)
+    # (dx, dy) of each window entry, row-major (dx varies fastest)
+    return prob @ torch.stack([offs.repeat(n), offs.repeat_interleave(n)], -1)

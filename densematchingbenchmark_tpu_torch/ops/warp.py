@@ -4,9 +4,9 @@ Counterpart of densematchingbenchmark_tpu/ops/warp.py:23-92: a stereo warp
 moves a sample only along W, so it is a 1-D linear-interpolated gather with
 zero padding outside the frame, in the exact mode and in the mode that
 reproduces the reference's grid_sample numerics (``compat_grid_sample``),
-and its per-sample form ``inverse_warp_3d`` (JAX :95-155: DeepPruner's
-cost volumes and PatchMatch scores). ``flow_warp`` arrives with the flow
-models (ROADMAP.md queue 1 item 11).
+its per-sample form ``inverse_warp_3d`` (JAX :95-155: DeepPruner's cost
+volumes and PatchMatch scores), and the 2-D backward warp of the flow
+models, ``flow_warp`` (JAX :156-183).
 """
 
 import torch
@@ -116,3 +116,24 @@ def inverse_warp_3d(fm, disp_sample, compat_grid_sample=False):
         warped = gather_1d_linear(fm[:, None], xs[..., None], axis=3)
     valid = ((xs >= 0) & (xs <= w - 1)).to(fm.dtype)[..., None]
     return warped, valid
+
+
+def flow_warp(img, flow):
+    """Warp ``img`` backward by a 2-D flow field:
+    out[b, y, x, c] = img[b, y + flow[b, y, x, 1], x + flow[b, y, x, 0], c],
+    bilinear, zero outside the frame: two chained 1-D linear gathers, W
+    then H, as JAX's (the H gather reads the rows the W gather warped, so
+    a row y' = y + v takes its own u: the 2-D warp where the flow is
+    smooth). The sample positions are computed in the flow's dtype
+    (PWCFlow hands a bfloat16 flow to bfloat16 features, as JAX's).
+
+    Args:
+      img: [B, H, W, C] source features (frame t + 1).
+      flow: [B, H, W, 2] (u, v) displacement in pixels.
+    """
+    h, w = img.shape[1:3]
+    dtype, device = flow.dtype, flow.device
+    xs = torch.arange(w, device=device).to(dtype) + flow[..., 0]
+    ys = torch.arange(h, device=device).to(dtype)[:, None] + flow[..., 1]
+    out = gather_1d_linear(img, xs[..., None], axis=2)
+    return gather_1d_linear(out, ys[..., None], axis=1)

@@ -13,6 +13,12 @@ map) out, through ``apis.inference_stereo``, each pair padded to
 (or a ``_bf16`` config name) runs the network in bfloat16 compute; the
 disparities are float32. Runs on the GPU unless ``--cpu``; with neither it
 raises.
+
+A flow config (PWCFlow, RAFT) takes <data-dir>/left/ as frame t and
+<data-dir>/right/ as frame t + 1 and writes, per pair, through
+``apis.inference_flow`` and ``flow.vis.SaveFlowResultTool``,
+<out-dir>/flow_0/<name>.flo and <out-dir>/color_flow/<name>.png (the JAX
+tools/demo.py:60-80).
 """
 
 import argparse
@@ -53,12 +59,11 @@ def main(argv=None):
     args = parse_args(argv)
     cfg = get_config(args.config, **({"model.dtype": args.dtype}
                                      if args.dtype else {}))
-    if cfg.get("task") == "flow":
-        raise NotImplementedError("the flow demo is not ported yet "
-                                  "(ROADMAP.md queue 1 item 11)")
     lefts = sorted(glob.glob(osp.join(args.data_dir, "left", "*")))
     if not lefts:
         raise FileNotFoundError(f"no images under {args.data_dir}/left")
+    if cfg.get("task") == "flow":
+        return flow_main(args, cfg, lefts)
     model = init_model(cfg, device="cpu" if args.cpu else None,
                        checkpoint_dir=args.work_dir)
     os.makedirs(args.out_dir, exist_ok=True)
@@ -77,6 +82,28 @@ def main(argv=None):
                             0, 255).astype(np.uint8))
         print(f"{name}: disp range [{disp.min():.2f}, {disp.max():.2f}] "
               f"-> {args.out_dir}")
+
+
+def flow_main(args, cfg, lefts):
+    from ..apis import inference_flow, init_flow_model
+    from ..flow.vis import SaveFlowResultTool
+
+    model = init_flow_model(cfg, device="cpu" if args.cpu else None,
+                            checkpoint_dir=args.work_dir)
+    save = SaveFlowResultTool(args.out_dir)
+    os.makedirs(args.out_dir, exist_ok=True)
+    for lpath in lefts:
+        rpath = osp.join(args.data_dir, "right", osp.basename(lpath))
+        left, right = io.load_image(lpath), io.load_image(rpath)
+        h, w = left.shape[:2]
+        pad = args.pad_to or (-(-h // 64) * 64, -(-w // 64) * 64)
+        flow = inference_flow(model, [{"leftImage": left,
+                                       "rightImage": right}],
+                              pad_to_shape=pad)[0]["flows"][0]
+        name = osp.splitext(osp.basename(lpath))[0]
+        save(name, flow)
+        print(f"{name}: flow saved")
+    print(f"results in {args.out_dir}")
 
 
 if __name__ == "__main__":

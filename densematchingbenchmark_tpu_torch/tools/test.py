@@ -19,8 +19,11 @@ est / oracle / random rows; with ``--out-dir`` it also writes each
 sample's confidence map and histogram to confidence/. ``--dtype bfloat16``
 (or a ``_bf16`` config name) evaluates in bfloat16 compute; the metrics
 stay float32. Runs on the GPU unless ``--cpu``; with neither it raises.
-Flow configs (ROADMAP.md queue 1 item 11) and multi-process launchers
-(item 5) are not ported and raise.
+A flow config (PWCFlow, RAFT) scores the best flow of each sample of a
+FlyingChairs annotation (padded to data.pad_to_size) or of four synthetic
+pairs at data.crop_size (``--synthetic``) by EPE and n-px, and with
+``--out-dir`` writes each sample's .flo and colour wheel. Multi-process
+launchers (ROADMAP.md queue 1 item 5) are not ported and raise.
 """
 
 import argparse
@@ -121,15 +124,59 @@ def sparsification_rows(curves, count):
     return "\n".join(lines)
 
 
+def flow_main(args, cfg):
+    """The flow branch (the JAX tools/test.py:33-91): returns ({'epe',
+    '1px', '2px', '3px', '5px': mean}, samples)."""
+    from ..apis import init_flow_model
+    from ..flow import transforms as ftrans
+    from ..flow.datasets import FlyingChairsDataset, SyntheticFlowDataset
+    from ..flow.trainer import evaluate_flow
+    from ..flow.vis import SaveFlowResultTool
+
+    mean, std = cfg["data"]["mean"], cfg["data"]["std"]
+    crop = tuple(cfg["data"].get("crop_size", (320, 448)))
+    pad = tuple(cfg["data"].get("pad_to_size", (384, 512)))
+    if args.synthetic:
+        ds = SyntheticFlowDataset(
+            length=4, height=crop[0], width=crop[1],
+            transform=ftrans.make_eval_transform(crop, mean, std))
+    else:
+        cfg["data"]["data_root"] = args.data_root
+        ds = FlyingChairsDataset(
+            args.annfile, args.data_root,
+            transform=ftrans.make_eval_transform(pad, mean, std))
+    if CheckpointManager(args.work_dir).latest_step() is None:
+        print("WARNING: no checkpoint found, evaluating random init")
+    model = init_flow_model(cfg, device="cpu" if args.cpu else None,
+                            checkpoint_dir=args.work_dir)
+    results, n = evaluate_flow(
+        model.module, ds,
+        sparse=cfg["model"].get("eval", {}).get("sparse", False))
+    print(f"evaluated {n} samples:")
+    for k in sorted(results):
+        print(f"  {k:12s} {results[k]:.4f}")
+    if args.out_dir:
+        save = SaveFlowResultTool(args.out_dir)
+        for i in range(len(ds)):
+            batch = collate([ds[i]])
+            x = to_device({k: batch[k] for k in ("leftImage",
+                                                 "rightImage")},
+                          model.device)
+            out = model.forward(x["leftImage"], x["rightImage"])
+            save(f"{i:06d}", out["flows"][0].float().cpu().numpy())
+        print(f"results saved to {args.out_dir}")
+    return results, n
+
+
 def main(argv=None):
     """Returns ({f'disp_{id}/{metric}': mean, plus with a cmn
-    f'sparsification/{series}_{P}'}, samples)."""
+    f'sparsification/{series}_{P}'}, samples); for a flow config
+    ``flow_main``'s."""
     args = parse_args(argv)
     check_launcher(args)
     cfg = get_config(args.config, **config_overrides(args))
     if cfg.get("task") == "flow":
-        raise NotImplementedError("flow evaluation is not ported yet "
-                                  "(ROADMAP.md queue 1 item 11)")
+        return flow_main(args, cfg)
     mean, std = cfg["data"]["mean"], cfg["data"]["std"]
     if args.synthetic:
         maxd = cfg["model"]["max_disp"]

@@ -16,9 +16,17 @@ its flags: a thin CLI over ``trainer.loop.train_matcher``. ``--dtype
 bfloat16`` (or a ``_bf16`` config name) trains with float32 parameters, BN
 statistics and gradients and bfloat16 activations, as JAX's
 ``model.dtype``; no loss scaling. ``--profile START:STOP`` writes a
-torch.profiler trace of those steps to <work-dir>/profile. Runs on the GPU
-unless ``--cpu``; with neither it raises. Flow configs (ROADMAP.md queue 1
-item 11) and multi-process launchers (item 5) are not ported and raise.
+torch.profiler trace of those steps to <work-dir>/profile. Runs on the
+GPU unless ``--cpu``; with neither it raises.
+
+A flow config (PWCFlow, RAFT) trains through the same ``train_matcher``
+(the JAX tools/train.py:91-122, its ``train_flow``): on a FlyingChairs
+annotation at data.crop_size, scored and visualised after each epoch on
+``--eval-annfile``'s pairs padded to data.pad_to_size; or, with
+``--synthetic``, on ``--synthetic-length`` synthetic pairs at
+data.crop_size, with ``--synthetic-eval`` (2 by default, as JAX's) for
+the eval and the vis hook. Multi-process launchers (ROADMAP.md queue 1
+item 5) are not ported and raise.
 """
 
 import argparse
@@ -69,14 +77,13 @@ def main(argv=None):
     check_launcher(args)
     cfg = get_config(args.config, **config_overrides(args))
     cfg["seed"] = args.seed
-    if cfg.get("task") == "flow":
-        raise NotImplementedError("flow training is not ported yet "
-                                  "(ROADMAP.md queue 1 item 11)")
     run = dict(resume=args.resume, max_steps=args.max_steps,
                log_interval=args.log_interval,
                device="cpu" if args.cpu else None,
                profile_steps=(tuple(int(x) for x in args.profile.split(":"))
                               if args.profile else None))
+    if cfg.get("task") == "flow":
+        return flow_main(args, cfg, run)
 
     if args.synthetic:
         maxd = cfg["model"]["max_disp"]
@@ -110,6 +117,38 @@ def main(argv=None):
     if args.eval_annfile:
         cfg["data"]["eval"]["annfile"] = args.eval_annfile
     return train_matcher(cfg, args.work_dir, **run)
+
+
+def flow_main(args, cfg, run):
+    """The flow branch, with train_matcher's keyword arguments ``run``:
+    returns the final TrainState."""
+    from ..flow import transforms as ftrans
+    from ..flow.datasets import FlyingChairsDataset, SyntheticFlowDataset
+
+    mean, std = cfg["data"]["mean"], cfg["data"]["std"]
+    crop = tuple(cfg["data"].get("crop_size", (320, 448)))
+    pad = tuple(cfg["data"].get("pad_to_size", (384, 512)))
+    if args.synthetic:
+        train_ds = SyntheticFlowDataset(
+            length=args.synthetic_length, height=crop[0], width=crop[1],
+            transform=ftrans.make_train_transform(crop, mean, std))
+        eval_ds = SyntheticFlowDataset(
+            length=args.synthetic_eval or 2, height=crop[0], width=crop[1],
+            transform=ftrans.make_eval_transform(crop, mean, std))
+    else:
+        if not (args.data_root and args.annfile):
+            raise ValueError("--data-root and --annfile required (or use "
+                             "--synthetic)")
+        train_ds = FlyingChairsDataset(
+            args.annfile, args.data_root,
+            transform=ftrans.make_train_transform(crop, mean, std))
+        eval_ds = None
+        if args.eval_annfile:
+            eval_ds = FlyingChairsDataset(
+                args.eval_annfile, args.data_root,
+                transform=ftrans.make_eval_transform(pad, mean, std))
+    return train_matcher(cfg, args.work_dir, train_dataset=train_ds,
+                         eval_dataset=eval_ds, vis_dataset=eval_ds, **run)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,9 @@ exact (epoch, batch_in_epoch) position, so ``resume=True`` replays the same
 remaining batches. After each epoch's checkpoint the eval set, if any, is
 evaluated and its metrics logged under 'eval/', and the visualization hook
 (trainer/vis_hook.py, unless ``vis.enabled`` is False) writes its panels.
-``profile_steps`` traces a window of steps with torch.profiler. Data
+``profile_steps`` traces a window of steps with torch.profiler. A flow
+config (``task`` "flow") runs the same loop with the flow task's batch
+keys, train step, evaluation and vis hook (flow/trainer.flow_task). Data
 parallelism arrives with ROADMAP.md queue 1 item 5.
 """
 
@@ -33,9 +35,38 @@ from .train_step import make_train_step
 from .vis_hook import VisHook, build_vis_dataset
 
 
+def stereo_task(cfg, work_dir, metrics_log, eval_dataset, vis_dataset):
+    """The stereo pieces of ``train_matcher``: (batch keys, train step,
+    eval callable module -> (metric dict, its log text) or None, vis hook
+    or None). The vis set is ``vis_dataset``, else build_vis_dataset's."""
+    data_cfg = cfg["data"]
+    evaluator = make_loss_evaluator(
+        cfg["model"]["losses"], sparse=data_cfg.get("sparse", False),
+        cmn_losses_cfg=cfg["model"].get("cmn", {}).get("losses"))
+    run_eval = None
+    if eval_dataset is not None:
+        eval_cfg = cfg["model"].get("eval", {})
+        eval_ids = tuple(cfg.get("eval_disparity_id", (0,)))
+
+        def run_eval(module):
+            results, n = combine_shard_metrics(*evaluate(
+                module, eval_dataset, eval_cfg, eval_ids))
+            return results, f"eval ({n} samples):\n" + metrics_table(results)
+    vis_hook = None
+    if cfg.get("vis", {}).get("enabled", True):
+        vis_dataset = vis_dataset or build_vis_dataset(cfg, eval_dataset)
+        if vis_dataset is not None:
+            vis_hook = VisHook(
+                vis_dataset, work_dir, metrics_log, data_cfg["mean"],
+                data_cfg["std"], max_disp=cfg["model"].get("max_disp", 192),
+                max_samples=cfg.get("vis", {}).get("max_samples", 4))
+    return (("leftImage", "rightImage", "leftDisp"),
+            make_train_step(evaluator), run_eval, vis_hook)
+
+
 def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
-                  resume=False, log_interval=10, max_steps=None, device=None,
-                  profile_steps=None):
+                  vis_dataset=None, resume=False, log_interval=10,
+                  max_steps=None, device=None, profile_steps=None):
     """Train a model per config on one device; returns the TrainState.
 
     Runs on ``cuda`` unless ``device`` says otherwise; with no GPU and no
@@ -46,7 +77,9 @@ def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
     ended by reading its metrics) and, on a GPU, 'peak_mem_gib'
     (torch.cuda.max_memory_allocated). ``eval_dataset`` defaults to the
     file dataset of data.eval.annfile, when that is set; its metrics are
-    logged after every epoch as 'eval/disp_<id>/<metric>'.
+    logged after every epoch as 'eval/disp_<id>/<metric>'. A flow config
+    logs 'flow_loss_lvl<i>' and 'eval/<metric>' (epe, 1px, 2px, 3px, 5px),
+    needs ``train_dataset`` and builds no default eval set.
 
     profile_steps: optional (start, stop) global step numbers; a
     torch.profiler trace of those steps (the host's and, on a GPU, the
@@ -62,12 +95,17 @@ def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
 
     data_cfg = cfg["data"]
     mean, std = data_cfg["mean"], data_cfg["std"]
+    flow = cfg.get("task") == "flow"
+    if flow and train_dataset is None:
+        raise ValueError("a flow config needs a train_dataset (FlyingChairs "
+                         "or synthetic)")
     if train_dataset is None:
         train_dataset = build_dataset(
             data_cfg, "train",
             transform=transforms.make_train_transform(
                 data_cfg["train"]["input_shape"], mean, std))
-    if eval_dataset is None and data_cfg.get("type") != "Synthetic" and \
+    if eval_dataset is None and not flow and \
+            data_cfg.get("type") != "Synthetic" and \
             data_cfg.get("eval", {}).get("annfile"):
         eval_dataset = build_dataset(
             data_cfg, "eval",
@@ -84,9 +122,12 @@ def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
     module = build_model(cfg, torch.Generator().manual_seed(seed))
     module.to(device)
     optimizer, schedule = build_optimizer(cfg, module, steps_per_epoch)
-    evaluator = make_loss_evaluator(
-        cfg["model"]["losses"], sparse=data_cfg.get("sparse", False),
-        cmn_losses_cfg=cfg["model"].get("cmn", {}).get("losses"))
+    if flow:
+        from ..flow.trainer import flow_task as make_task
+    else:
+        make_task = stereo_task
+    keys, step_fn, run_eval, vis_hook = make_task(
+        cfg, work_dir, metrics_log, eval_dataset, vis_dataset)
     state = TrainState.create(module, optimizer, seed + 1)
     n_params = sum(p.numel() for p in module.parameters())
     logger.info(f"model params: {n_params / 1e6:.3f}M, device: {device}, "
@@ -103,17 +144,6 @@ def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
             start_batch = (meta or {}).get("batch_in_epoch", 0)
             logger.info(f"resumed from step {state.step} (epoch "
                         f"{start_epoch}, batch {start_batch})")
-    step_fn = make_train_step(evaluator)
-    eval_cfg = cfg["model"].get("eval", {})
-    eval_ids = tuple(cfg.get("eval_disparity_id", (0,)))
-    vis_hook = None
-    if cfg.get("vis", {}).get("enabled", True):
-        vis_dataset = build_vis_dataset(cfg, eval_dataset)
-        if vis_dataset is not None:
-            vis_hook = VisHook(
-                vis_dataset, work_dir, metrics_log, mean, std,
-                max_disp=cfg["model"].get("max_disp", 192),
-                max_samples=cfg.get("vis", {}).get("max_samples", 4))
     prof_start, prof_stop = profile_steps or (None, None)
     prof_dir = os.path.join(work_dir, "profile")
     profiler = None
@@ -132,7 +162,7 @@ def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
     def device_batches(epoch, start):
         for batch in loader.epoch(epoch, start=start):
             yield {k: torch.from_numpy(batch[k]).to(device, non_blocking=True)
-                   for k in ("leftImage", "rightImage", "leftDisp")}
+                   for k in keys}
 
     total_epochs = cfg.get("total_epochs", 10)
     done = False
@@ -187,11 +217,9 @@ def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
                                 if completed else
                                 {"epoch": epoch,
                                  "batch_in_epoch": batch_in_epoch}))
-        if eval_dataset is not None:
-            results, n = combine_shard_metrics(*evaluate(
-                module, eval_dataset, eval_cfg, eval_ids))
-            logger.info(f"epoch {epoch + 1} eval ({n} samples):\n"
-                        + metrics_table(results))
+        if run_eval is not None:
+            results, text = run_eval(module)
+            logger.info(f"epoch {epoch + 1} {text}")
             metrics_log.log(state.step, results, prefix="eval/")
         if vis_hook is not None:
             vis_hook(module, epoch + 1)

@@ -1723,3 +1723,97 @@ def test_tiny_anynet_on_card_matches_cpu(cuda, dtype):
         # the losses within 1 %, the gradients' norm within 10 %
         tol = 1e-3 if dtype == "f32" else 0.1 if k == "grad_norm" else 0.01
         assert abs(card_m[k] - v) <= tol * abs(v), (k, card_m[k], v)
+
+
+# the tiny flow models of tests/flow_parity.py, and their frame sizes
+TINY_FLOW = {
+    "PWCFlow/flying_chairs": ({"model.chans": (8, 16, 16),
+                               "model.radius": 2, "model.hidden": 16,
+                               "model.losses.flow_l1_loss.weights":
+                               (1.0, 1.0, 0.5, 0.25)}, (64, 96)),
+    "RAFT/flying_chairs": ({"model.iters": 2, "model.hidden": 32,
+                            "model.context": 16,
+                            "model.losses.flow_l1_loss.weights":
+                            (1.0, 1.0, 0.8)}, (64, 96)),
+}
+
+
+def peak_flow_scores(module, seed=1):
+    """Draw a flow model's conv biases (0.1 N(0, 1)) and scale PWCFlow's
+    score convs (each FlowEstimator's ConvUnit_2) by 8, as
+    tests/flow_parity.py does. At its seeded weights PWCFlow's flows stay
+    near 0, which a wrong level or dtype would not move; these weights
+    move them by pixels."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.Conv2d) and m.bias is not None:
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.1)
+        for est in getattr(module, "FlowEstimator", ()):
+            est.ConvUnit_2.Conv_0.weight.mul_(8.0)
+    return module
+
+
+def flow_pair(rng, b, h, w):
+    ref = rng.randn(b, h, w, 3)
+    tgt = np.roll(ref, (1, 2), axis=(1, 2)) + 0.1 * rng.randn(b, h, w, 3)
+    return (torch.tensor(ref, dtype=torch.float32),
+            torch.tensor(tgt, dtype=torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("family", sorted(TINY_FLOW))
+def test_tiny_flow_model_on_card_matches_cpu(cuda, family, dtype):
+    """A tiny PWCFlow and a tiny RAFT on a 64x96 pair, on weights that
+    move the flows by pixels (the best flow's mean |flow| on the CPU at
+    least 1 px): the eval forward on the card (cuDNN's 2-D convs, the
+    plain correlation, warp, soft-argmax and lookup; none of the port's
+    kernels) against the CPU, same weights: float32 every flow within
+    1e-2 px max (cuDNN against the CPU's convolutions, TF32 off),
+    bfloat16 within 0.05 px mean; then
+    one train step against the CPU's losses (float32 1e-3, bfloat16 1 %)
+    and gradient norm (float32 1e-3, bfloat16 10 %)."""
+    from densematchingbenchmark_tpu_torch.apis import StereoModel
+    from densematchingbenchmark_tpu_torch.trainer import make_flow_train_step
+    over, (h, w) = TINY_FLOW[family]
+    cfg = get_config(f"{family}_{dtype}", **over)
+    cpu = peak_flow_scores(draw_bn(build_model(
+        cfg, torch.Generator().manual_seed(0)), 0))
+    card = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.RandomState(0)
+    ref, tgt = flow_pair(rng, 1, h, w)
+    kernels.reset_launch_counts()
+    got = StereoModel(cfg, card.eval(), cuda).forward(ref.to(cuda),
+                                                    tgt.to(cuda))
+    assert set(kernels.launch_counts().values()) == {0}
+    want = StereoModel(cfg, cpu.eval(), torch.device("cpu")).forward(ref, tgt)
+    n = 4 if family.startswith("PWC") else 3
+    assert len(got["flows"]) == len(want["flows"]) == n
+    assert want["flows"][0].abs().mean() >= 1.0
+    for i, (g, wnt) in enumerate(zip(got["flows"], want["flows"])):
+        assert g.dtype == torch.float32 and g.shape == wnt.shape
+        diff = (g.cpu() - wnt).abs()
+        if dtype == "f32":
+            assert diff.max() <= 1e-2, (i, diff.max())
+        else:
+            assert diff.mean() <= 0.05, (i, diff.mean())
+    batch = dict(zip(("leftImage", "rightImage"), flow_pair(rng, 2, h, w)))
+    batch["flow"] = torch.tensor(rng.randn(2, h, w, 2) + (2.0, 1.0),
+                                 dtype=torch.float32)
+    weights = cfg["model"]["losses"]["flow_l1_loss"]["weights"]
+    out = []
+    for module, device in ((card, cuda), (cpu, torch.device("cpu"))):
+        opt, _ = build_optimizer(cfg, module, 10)
+        kernels.reset_launch_counts()
+        _, metrics = make_flow_train_step(weights)(
+            TrainState.create(module, opt, 1),
+            {k: v.to(device) for k, v in batch.items()})
+        out.append({k: float(v) for k, v in metrics.items()})
+        assert set(kernels.launch_counts().values()) == {0}
+    card_m, cpu_m = out
+    assert sorted(card_m) == ["flow_loss_lvl%d" % i for i in range(n)] + [
+        "grad_norm", "loss"]
+    for k, v in cpu_m.items():
+        tol = 1e-3 if dtype == "f32" else 0.1 if k == "grad_norm" else 0.01
+        assert abs(card_m[k] - v) <= tol * abs(v), (k, card_m[k], v)

@@ -295,13 +295,16 @@ def test_configs_match_jax(name):
 
 
 def test_config_bf16_and_unknown_raise():
-    # the _bf16 names build since bf16 compute was ported (as JAX's); a
-    # family the port lacks (the flow models, ROADMAP.md queue 1 item 11)
-    # or an unknown dtype suffix raises
+    # the _bf16 names build since bf16 compute was ported (as JAX's), the
+    # flow names since the flow models were (ROADMAP.md queue 1 item 11);
+    # a family neither package has, or an unknown dtype suffix, raises
     assert tconfigs.get_config("PSMNet/scene_flow_bf16") == \
         jconfigs.get_config("PSMNet/scene_flow_bf16")
-    with pytest.raises(KeyError):
-        tconfigs.get_config("PWCFlow/flying_chairs")
+    assert tconfigs.get_config("PWCFlow/flying_chairs_bf16") == \
+        jconfigs.get_config("PWCFlow/flying_chairs_bf16")
+    for get_config in (tconfigs.get_config, jconfigs.get_config):
+        with pytest.raises(KeyError):
+            get_config("FlowNet/flying_chairs")
     with pytest.raises(KeyError):
         tconfigs.get_config("PSMNet/scene_flow_f16")
 

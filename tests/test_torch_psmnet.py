@@ -126,7 +126,8 @@ def test_scale_factor_and_crop_run_on_the_port():
 
 def test_port_imports_no_jax():
     # inference and one training step in float32 and in bfloat16 (PSMNet,
-    # AcfNet, StereoNet, GCNet, DeepPruner, AnyNet) and the packed-conv
+    # AcfNet, StereoNet, GCNet, DeepPruner, AnyNet; PWCFlow and RAFT
+    # through the flow API and trainer) and the packed-conv
     # microbench, with every module of the port and its four command-line
     # tools imported
     train = dict(TINY, **{"model.losses.l1_loss.max_disp": 64,
@@ -141,6 +142,12 @@ def test_port_imports_no_jax():
            "model.losses.focal_loss.max_disp": 16,
            "model.cmn.in_planes": 16,
            "model.cmn.losses.nll_loss.max_disp": 16}
+    flow = {"pwc": {"model.chans": (8, 16, 16), "model.radius": 2,
+                    "model.hidden": 16, "model.losses.flow_l1_loss.weights":
+                    (1.0, 1.0, 0.5, 0.25)},
+            "raft": {"model.iters": 2, "model.hidden": 32,
+                     "model.context": 16,
+                     "model.losses.flow_l1_loss.weights": (1.0, 1.0, 0.8)}}
     code = f"""
 import sys, tempfile
 import numpy as np
@@ -169,6 +176,8 @@ import densematchingbenchmark_tpu_torch.trainer.vis_hook
 import densematchingbenchmark_tpu_torch.models.refinement
 import densematchingbenchmark_tpu_torch.ops.patch_match
 import densematchingbenchmark_tpu_torch.ops.spn
+import densematchingbenchmark_tpu_torch.flow
+import densematchingbenchmark_tpu_torch.flow.trainer
 from densematchingbenchmark_tpu_torch.tools import bench, demo, test, train
 model = init_model("PSMNet/scene_flow_f32", device="cpu", **{TINY!r})
 rng = np.random.RandomState(0)
@@ -227,6 +236,23 @@ assert len(out[0]["disps"]) == 4
 train_matcher(get_config("AnyNet/scene_flow_bf16",
                          **{{"data.batch_size_per_device": 1}}),
               tempfile.mkdtemp(), train_dataset=ds, max_steps=1, device="cpu")
+from densematchingbenchmark_tpu_torch.apis import init_flow_model, inference_flow
+from densematchingbenchmark_tpu_torch.flow import SyntheticFlowDataset, transforms as ftrans
+from densematchingbenchmark_tpu_torch.flow.trainer import evaluate_flow
+flow = {flow!r}
+for name, over, size in (("PWCFlow/flying_chairs", flow["pwc"], 32),
+                         ("RAFT/flying_chairs", flow["raft"], 64)):
+    model = init_flow_model(name + "_f32", device="cpu", **over)
+    out = inference_flow(model, [{{"leftImage": img, "rightImage": img}}],
+                         pad_to_shape=(64, 64))
+    assert np.isfinite(out[0]["flows"][0]).all()
+    fds = SyntheticFlowDataset(length=2, height=size, width=size,
+                               transform=ftrans.make_train_transform(
+                                   (size, size), (128.,) * 3, (64.,) * 3))
+    train_matcher(get_config(name + "_bf16", **over,
+                             **{{"data.batch_size_per_device": 1}}),
+                  tempfile.mkdtemp(), train_dataset=fds, max_steps=1,
+                  device="cpu")
 microbench_packed.run(cases=(("tiny", (1, 8, 4, 6), 8, 4),), iters=1,
                       device="cpu")
 names = ("jax", "flax", "optax", "orbax", "densematchingbenchmark_tpu")
@@ -247,8 +273,9 @@ def test_init_model_without_cuda_raises(monkeypatch):
 
 
 # (override, what JAX's builder does with it: the exception it raises,
-# or None where it builds); the flow and Correlation pieces are not ported
-# yet and raise NotImplementedError in the port
+# or None where it builds); the Correlation pieces are not ported yet and
+# raise NotImplementedError in the port; a flow task on a stereo config
+# has no flow meta-architecture (ValueError on both sides)
 @pytest.mark.parametrize("override,jax_does", [
     ({"model.backbone.type": "AnyNet"}, TypeError),
     ({"model.cost_processor.cost_aggregator.type": "AnyNet"}, KeyError),
@@ -257,7 +284,7 @@ def test_init_model_without_cuda_raises(monkeypatch):
     ({"model.cost_processor.type": "Correlation"}, NotImplementedError),
     ({"model.disp_refinement": {"type": "AnyNet"}}, None),
     ({"model.meta_architecture": "AnyNet"}, TypeError),
-    ({"task": "flow"}, NotImplementedError),
+    ({"task": "flow"}, ValueError),
 ], ids=[f"override{i}" for i in range(7)])
 def test_unported_pieces_raise(override, jax_does):
     """AnyNet's pieces on a PSMNet config, as JAX's builder takes them

@@ -566,5 +566,6 @@ def test_file_datasets_raise(tmp_path):
                         "train": {"length": 3, "height": 8, "width": 12,
                                   "max_disp": 4}}, "train")
     assert len(ds) == 3 and ds[0]["leftImage"].shape == (8, 12, 3)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # FlyingChairs without an annotation file: JAX's KeyError
+    with pytest.raises(KeyError, match="annfile"):
         build_dataset({"type": "FlyingChairs", "train": {}}, "train")
