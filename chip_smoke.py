@@ -214,6 +214,27 @@ PyTorch version on the card. Phases, each fatal on failure:
      vis hook (step ms, peak); tools/demo.main on one pair. The port's
      kernel counters stay 0 across the phase: the flow paths launch none
      of K1-K5.
+ 15. Data parallelism: PSMNet/scene_flow at full width, its 256x512 crop,
+     3 steps at a global batch of 6 (train_matcher): two ranks spawned on
+     the one card (cuda:0 named for both; gloo, since NCCL refuses two
+     ranks on one GPU) at its batch_size_per_device of 3, against one
+     rank at 6 in this process on the same seeded weights and data. In
+     float32 (TF32 off) the first step's loss within PAR_LOSS_RTOL, its
+     BN statistics within PAR_STATE_TOL of their largest value and each
+     parameter's gradient's cosine above PAR_GRAD_COS; the later
+     steps' losses and the parameters and BN statistics after the last
+     are printed beside the same numbers of one rank whose weights were
+     perturbed by 1e-7 (the floor after RMSprop's first update, in each
+     dtype); in bfloat16 the first step's loss within PAR_BF16_LOSS_RTOL;
+     in both
+     the ranks' gradients and parameters bitwise equal and on each rank
+     K4 13 and K2 3 + 3 launches a step. Then one rank of an
+     NCCL group (tools/train.main --launcher env, WORLD_SIZE 1), 2 steps
+     and its per-epoch eval, with its collective calls counted (the
+     gradient all-reduce, the losses' counts, combine_shard_metrics, the
+     broadcast, the checkpoint's barrier). The step times of 1 x 6 and 2
+     x 3 are printed: times of the check, not a speed claim (the pair's
+     all-reduces go through the host).
 
 Prints a JSON line of per-kernel numbers before the last line (K4's and
 K5's bfloat16 routes in the microbench in rows of their own, ``*_bf16``,
@@ -4482,6 +4503,309 @@ def flow_phase(smi):
           f"port's kernels launched ({counts})")
 
 
+# Data parallelism (phase 15): PSMNet/scene_flow at full width, its 256x512
+# crop, a global batch of 6 (its batch_size_per_device 3 times 2 ranks) for
+# PAR_STEPS steps; two gloo ranks on the one card against one rank at 6.
+PAR_CONFIG = "PSMNet/scene_flow"
+PAR_STEPS, PAR_GLOBAL = 3, 6
+PAR_LOSS_RTOL = 1e-4      # float32: the first step's loss, 2 ranks vs 1
+PAR_STATE_TOL = 1e-4      # float32: the BN statistics after the first step,
+                          # of their largest value
+PAR_GRAD_COS = 0.999      # float32: the first step's gradient of each
+                          # parameter, cosine of 2 ranks' vs 1's
+PAR_BF16_LOSS_RTOL = 0.01 # bfloat16: the first step's loss, 2 ranks vs 1
+PAR_PERTURB = 1e-7        # the floor run's relative weight perturbation
+# the NCCL rank: tools/train.main --launcher env, WORLD_SIZE 1
+PAR_NCCL_STEPS, PAR_NCCL_EVAL = 2, 2
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def first_step_capture(perturb=0.0):
+    """Within it, train_matcher's first step records the gradients the
+    optimizer gets (summed over the ranks) and the BN statistics after
+    the step; with ``perturb`` the model is built with every weight
+    scaled by (1 + perturb * N(0, 1)) (seeded)."""
+    from densematchingbenchmark_tpu_torch.trainer import loop, optim
+    from densematchingbenchmark_tpu_torch.trainer import train_step
+    first = {}
+    real = (optim._Optimizer.step, train_step.apply_losses, loop.build_model)
+
+    def step(self, grads, grad_norm=None):
+        if "grads" not in first:
+            first["grads"] = [g.detach().float().cpu() for g in grads]
+        return real[0](self, grads, grad_norm)
+
+    def apply_losses(state, loss_dict):
+        out = real[1](state, loss_dict)
+        if "buffers" not in first:
+            first["buffers"] = {n: b.detach().cpu().clone()
+                                for n, b in state.module.named_buffers()}
+            first["names"] = [n for n, _ in state.module.named_parameters()]
+        return out
+
+    def build_model(cfg, generator=None):
+        module = real[2](cfg, generator)
+        g = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for p in module.parameters():
+                p.mul_(1 + perturb * torch.randn(p.shape, generator=g))
+        return module
+
+    optim._Optimizer.step, train_step.apply_losses = step, apply_losses
+    if perturb:
+        loop.build_model = build_model
+    try:
+        yield first
+    finally:
+        optim._Optimizer.step, train_step.apply_losses, loop.build_model = \
+            real
+
+
+def parallel_rank(rank, world, port, suffix, out_dir, perturb=0.0):
+    """One rank of the data-parallel check: train_matcher on PAR_CONFIG +
+    ``suffix`` at batch_size_per_device PAR_GLOBAL // world for PAR_STEPS
+    steps on cuda:0, in a gloo group of ``world`` (none for 1). Writes its
+    parameters, BN statistics, the first step's gradients and BN
+    statistics, launch and collective counts and (rank 0) its losses and
+    step times to <out_dir>/<world>_<rank>.pt (``perturb``: the floor
+    run's weights, to <out_dir>/floor.pt)."""
+    from densematchingbenchmark_tpu_torch.configs import get_config
+    from densematchingbenchmark_tpu_torch.data import (SyntheticStereoDataset,
+                                                       transforms)
+    from densematchingbenchmark_tpu_torch.ops import cuda as kernels
+    from densematchingbenchmark_tpu_torch.parallel import (
+        collective_counts, init_distributed, reset_collective_counts,
+        shutdown_distributed)
+    from densematchingbenchmark_tpu_torch.trainer import train_matcher
+    from densematchingbenchmark_tpu_torch.trainer.loop import read_metrics
+    if world > 1:
+        init_distributed(coordinator=f"localhost:{port}",
+                         num_processes=world, process_id=rank,
+                         device="cuda:0", backend="gloo")
+    cfg = get_config(PAR_CONFIG + suffix)
+    data = cfg["data"]
+    data["batch_size_per_device"] = PAR_GLOBAL // world
+    cfg["vis"] = {"enabled": False}
+    crop = data["train"]["input_shape"]
+    ds = SyntheticStereoDataset(
+        length=PAR_GLOBAL * PAR_STEPS, height=crop[0] + 32,
+        width=crop[1] + 64, max_disp=cfg["model"]["max_disp"],
+        transform=transforms.make_train_transform(crop, data["mean"],
+                                                  data["std"]))
+    with tempfile.TemporaryDirectory() as work, \
+            first_step_capture(perturb) as first:
+        kernels.reset_launch_counts()
+        reset_collective_counts()
+        torch.cuda.reset_peak_memory_stats()
+        state = train_matcher(cfg, work, train_dataset=ds,
+                              max_steps=PAR_STEPS, log_interval=1,
+                              device="cuda:0")
+        torch.cuda.synchronize()
+        records = read_metrics(work) if rank == 0 else []
+    result = {"params": {n: p.detach().cpu()
+                         for n, p in state.module.named_parameters()},
+              "buffers": {n: b.cpu() for n, b in state.module.named_buffers()},
+              "first": first,
+              "launches": kernels.launch_counts(),
+              "bf16_launches": kernels.bf16_launch_counts(),
+              "collectives": collective_counts(),
+              "losses": [r["train/loss"] for r in records],
+              "grad_norms": [r["train/grad_norm"] for r in records],
+              "step_ms": [r["train/step_ms"] for r in records],
+              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    name = "floor" if perturb else f"{world}_{rank}"
+    torch.save(result, os.path.join(out_dir, f"{name}.pt"))
+    shutdown_distributed()
+
+
+def nccl_rank(rank, out_dir, port):
+    """tools/train.main under --launcher env as the one rank of an NCCL
+    group (WORLD_SIZE 1): PSMNet/scene_flow_f32 at full width on 256x512
+    synthetic pairs, PAR_NCCL_STEPS steps and the per-epoch eval of
+    PAR_NCCL_EVAL samples; writes its collective and launch counts."""
+    from densematchingbenchmark_tpu_torch.ops import cuda as kernels
+    from densematchingbenchmark_tpu_torch.parallel import (
+        collective_counts, reset_collective_counts)
+    from densematchingbenchmark_tpu_torch.tools import train as ttrain
+    from densematchingbenchmark_tpu_torch.trainer.loop import read_metrics
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    with tempfile.TemporaryDirectory() as work:
+        kernels.reset_launch_counts()
+        reset_collective_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            state = ttrain.main(
+                ["--config", "PSMNet/scene_flow_f32", "--work-dir", work,
+                 "--synthetic", "--synthetic-shape", "256", "512",
+                 "--synthetic-length", str(PAR_NCCL_STEPS),
+                 "--synthetic-eval", str(PAR_NCCL_EVAL), "--max-steps",
+                 str(PAR_NCCL_STEPS), "--log-interval", "1",
+                 "--launcher", "env"])
+        records = read_metrics(work)
+    assert not torch.distributed.is_initialized()    # the tool left it
+    torch.save({"collectives": collective_counts(),
+                "launches": kernels.launch_counts(),
+                "device": str(next(state.module.parameters()).device),
+                "records": records},
+               os.path.join(out_dir, "nccl.pt"))
+
+
+def parallel_phase(smi):
+    """Phase 15, data parallelism: the gloo pair against one rank in each
+    dtype, beside one rank from perturbed weights (the floor), then the
+    NCCL rank; returns the launch counts of its runs (each rank's),
+    float32's and bfloat16's."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    counts = {}
+    with tempfile.TemporaryDirectory() as out:
+        for suffix in ("_f32", "_bf16"):
+            torch.cuda.empty_cache()
+            # one rank at the global batch, in this process, no group
+            parallel_rank(0, 1, None, suffix, out)
+            torch.cuda.empty_cache()
+            one = torch.load(os.path.join(out, "1_0.pt"), weights_only=False)
+            parallel_rank(0, 1, None, suffix, out, perturb=PAR_PERTURB)
+            torch.cuda.empty_cache()
+            floor = torch.load(os.path.join(out, "floor.pt"),
+                               weights_only=False)
+            # two ranks on the one card, each its half of every batch
+            mp.start_processes(parallel_rank,
+                               args=(2, free_port(), suffix, out),
+                               nprocs=2, join=True, start_method="spawn")
+            two = [torch.load(os.path.join(out, f"2_{r}.pt"),
+                              weights_only=False) for r in range(2)]
+            counts[suffix] = check_parallel(suffix, one, two, floor, smi)
+        port = free_port()
+        mp.start_processes(nccl_rank, args=(out, port), nprocs=1,
+                           join=True, start_method="spawn")
+        nccl = torch.load(os.path.join(out, "nccl.pt"), weights_only=False)
+    # per step 3 loss counts, the gradient all-reduce and the metrics'; the
+    # eval's combination: a key all_gather and a sum all_reduce; the
+    # module's broadcast (float32, int64); the checkpoint's barrier
+    want = {"all_reduce": 5 * PAR_NCCL_STEPS + 1, "all_gather": 1,
+            "broadcast": 2, "barrier": 1}
+    assert nccl["collectives"] == want, nccl["collectives"]
+    assert nccl["device"] == "cuda:0", nccl["device"]
+    steps = [r for r in nccl["records"] if "train/loss" in r]
+    evals = [r for r in nccl["records"] if "eval/disp_0/epe" in r]
+    assert len(steps) == PAR_NCCL_STEPS and len(evals) == 1
+    assert all(np.isfinite(r["train/loss"]) for r in steps)
+    assert np.isfinite(evals[0]["eval/disp_0/epe"])
+    k = nccl["launches"]
+    assert k["conv3d_packed_s1"] == 13 * PAR_NCCL_STEPS and \
+        k["fused_soft_argmin_backward"] == 3 * PAR_NCCL_STEPS, k
+    counts["_f32"] = {n: counts["_f32"][n] + k[n] for n in k}
+    print(f"parallel NCCL rank (tools/train.main --launcher env, "
+          f"WORLD_SIZE 1, PSMNet/scene_flow_f32 1x256x512, "
+          f"{PAR_NCCL_STEPS} steps, eval of {PAR_NCCL_EVAL}): collectives "
+          f"{nccl['collectives']} as expected; losses "
+          f"{[round(r['train/loss'], 4) for r in steps]}; eval EPE "
+          f"{evals[0]['eval/disp_0/epe']:.4f} px; launches {k}")
+    print(f"parallel phase: {time.perf_counter() - t0:.1f} s; {smi}")
+    return counts["_f32"], counts["_bf16"]
+
+
+def state_errors(got, want):
+    """Of ``want`` (one rank's run): the first step's loss and gradient
+    norm's relative errors, its BN statistics' largest error over their
+    largest value and its gradients' worst cosine; each later step's
+    loss's relative error; and after the last step the parameters' and BN
+    statistics' largest error over their largest value."""
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    def worst(a, b):
+        names = [n for n, t in b.items() if t.is_floating_point()]
+        return max(float((a[n].float() - b[n].float()).abs().max())
+                   for n in names) / max(float(b[n].float().abs().max())
+                                         for n in names)
+    cos = min(float((g * w).sum() / (g.norm() * w.norm()))
+              for g, w in zip(got["first"]["grads"], want["first"]["grads"])
+              if float(w.abs().max()) > 1e-6 * max(
+                  float(x.abs().max()) for x in want["first"]["grads"]))
+    return {"loss_1": rel(got["losses"][0], want["losses"][0]),
+            "grad_norm_1": rel(got["grad_norms"][0], want["grad_norms"][0]),
+            "bn_1": worst(got["first"]["buffers"], want["first"]["buffers"]),
+            "grad_cos_1": cos,
+            "later_losses": [rel(a, b) for a, b in zip(got["losses"][1:],
+                                                       want["losses"][1:])],
+            "params": worst(got["params"], want["params"]),
+            "bn": worst(got["buffers"], want["buffers"])}
+
+
+def check_parallel(suffix, one, two, floor, smi):
+    """The gloo pair (``two``) against one rank (``one``) at the same
+    global batch, beside one rank from perturbed weights (``floor``);
+    returns the launches of the pair's, the one rank's and the floor's
+    runs.
+
+    Held: the first step (its loss, gradients and BN statistics: the
+    global batch's semantics, before any update). After RMSprop's first
+    update (about 10 lr times the sign of every gradient element, however
+    small) float32 noise in the gradients moves the parameters by whole
+    updates, so later steps are printed beside the floor run's, which
+    differs from the one rank's run by a 1e-7 relative perturbation of
+    its weights alone."""
+    bf16 = suffix == "_bf16"
+    for r, res in enumerate(two):
+        k = res["launches"]
+        # K4 13 and K2 3 + 3 a step on every rank; in bfloat16 K4 is its
+        # tensor-core route
+        assert k["conv3d_packed_s1"] == 13 * PAR_STEPS and \
+            k["fused_soft_argmin"] == 3 * PAR_STEPS and \
+            k["fused_soft_argmin_backward"] == 3 * PAR_STEPS, (r, k)
+        assert res["bf16_launches"]["conv3d_packed_s1"] == \
+            (13 * PAR_STEPS if bf16 else 0), (r, res["bf16_launches"])
+        assert res["collectives"]["all_reduce"] > 0, res["collectives"]
+    assert set(one["collectives"].values()) == {0}, one["collectives"]
+    assert two[0]["collectives"] == two[1]["collectives"]
+    for n, p in two[0]["params"].items():
+        assert torch.equal(p, two[1]["params"][n]), n
+    for g, h in zip(two[0]["first"]["grads"], two[1]["first"]["grads"]):
+        assert torch.equal(g, h)
+    assert len(two[0]["losses"]) == len(one["losses"]) == PAR_STEPS
+    assert np.isfinite(two[0]["losses"]).all()
+    err = state_errors(two[0], one)
+    if bf16:
+        assert err["loss_1"] <= PAR_BF16_LOSS_RTOL, err
+    else:
+        assert err["loss_1"] <= PAR_LOSS_RTOL and \
+            err["bn_1"] <= PAR_STATE_TOL and \
+            err["grad_cos_1"] > PAR_GRAD_COS, err
+    fmt = {k: ([float(f"{x:.3g}") for x in v] if isinstance(v, list)
+               else float(f"{v:.4g}")) for k, v in err.items()}
+    fe = state_errors(floor, one)
+    floor_text = (f"; the floor (one rank, weights x (1 + 1e-7 N)): " +
+                  str({k: ([float(f"{x:.3g}") for x in v]
+                           if isinstance(v, list) else float(f"{v:.4g}"))
+                       for k, v in fe.items()}))
+    ms_one = float(np.median(one["step_ms"][1:]))
+    ms_two = float(np.median(two[0]["step_ms"][1:]))
+    print(f"parallel {PAR_CONFIG}{suffix}, 2 gloo ranks x "
+          f"{PAR_GLOBAL // 2} on cuda:0 vs 1 rank x {PAR_GLOBAL} "
+          f"(256x512, {PAR_STEPS} steps): losses "
+          f"{[round(x, 4) for x in two[0]['losses']]} vs "
+          f"{[round(x, 4) for x in one['losses']]}; errors {fmt}"
+          f"{floor_text}; the ranks' params bitwise equal; launches per "
+          f"rank {two[0]['launches']}; collectives per rank "
+          f"{two[0]['collectives']}; step {ms_one:.2f} ms (1 x "
+          f"{PAR_GLOBAL}) and {ms_two:.2f} ms (2 x {PAR_GLOBAL // 2} on "
+          f"one card, gloo through the host; times of the check, not a "
+          f"speed claim), median of steps 2-{PAR_STEPS}, host clock; peak "
+          f"{one['peak_gib']:.2f} / {two[0]['peak_gib']:.2f} GiB; {smi}")
+    return {n: one["launches"][n] + floor["launches"][n]
+            + two[0]["launches"][n] + two[1]["launches"][n]
+            for n in one["launches"]}
+
+
 def main():
     t_start = time.perf_counter()
     smi = device_phase()
@@ -4608,6 +4932,14 @@ def main():
     # optical flow: PWCFlow and RAFT, inference, evaluation, training and
     # the demo in float32 and bfloat16; they launch none of the kernels
     flow_phase(smi)
+    torch.cuda.empty_cache()
+    # data parallelism: the gloo pair against one rank in each dtype, the
+    # NCCL rank; each rank's launches join its dtype's counts
+    par_f32, par_bf16 = parallel_phase(smi)
+    for name, n in par_f32.items():
+        launches[name] += n
+    for name, n in par_bf16.items():
+        bf16_launches[name] += n
     torch.cuda.empty_cache()
     # the bfloat16 paths ran K2 and K3 on bfloat16 costs, K1 never
     assert bf16_launches["fused_conv3d"] == 0, bf16_launches

@@ -19,7 +19,12 @@ version beside it. A wrapper given a CPU tensor runs the plain version; given
 a CUDA tensor it launches the kernel or raises.
 
 Entry points (``apis.init_model``, ``apis.init_flow_model``) run on
-``cuda`` unless the caller passes ``device="cpu"``.
+``cuda`` unless the caller passes ``device="cpu"``. Training and
+evaluation run over N processes, one device each, after
+``apis.init_distributed`` (or ``--launcher env`` / ``slurm`` on the
+tools): N processes at ``batch_size_per_device`` b compute what one
+computes at a global batch of N b (BN statistics, masked means and the
+gradient of the global batch, as JAX's data mesh).
 """
 
 __version__ = "0.1.0"

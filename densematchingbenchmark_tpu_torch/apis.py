@@ -12,7 +12,9 @@ one schedule.
 
 Models run on ``cuda`` unless the caller passes ``device="cpu"``; with no
 GPU and no device given, ``init_model`` and ``init_flow_model`` raise
-rather than carry on on the CPU.
+rather than carry on on the CPU. ``init_distributed``
+(parallel/distributed.py) joins a process to a data-parallel group; after
+it, the default device is the rank's.
 """
 
 import numpy as np
@@ -23,6 +25,8 @@ from .data import transforms
 from .evaluation.metrics import remove_padding
 from .models import build_model
 from .ops.interpolate import resize_linear
+from .parallel.distributed import init_distributed  # noqa: F401 (exported)
+from .parallel.distributed import rank_device
 from .utils.checkpoint import CheckpointManager
 
 
@@ -44,7 +48,11 @@ class StereoModel:
 
 
 def resolve_device(device=None):
+    """``device``; by default the rank's device in a process group
+    (parallel.init_distributed), else ``cuda``, which needs a GPU."""
     if device is None:
+        if rank_device() is not None:
+            return rank_device()
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device: the port runs on the GPU; pass "

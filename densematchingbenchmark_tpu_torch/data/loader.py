@@ -6,7 +6,9 @@ float32 numpy arrays (each from one aspect group, given ``group_flags``),
 and a small queue keeps the next batches ready while the device trains.
 Each sample's transform generator is ``default_rng((seed, epoch, index))``,
 so any batch is reproducible on its own and a resumed epoch replays the
-same batches. A sample that fails to load raises in the consumer instead
+same batches; a shard (``num_shards``, ``shard_id``: one per process)
+loads its slice of every global batch, each sample as the one-process run
+loads it. A sample that fails to load raises in the consumer instead
 of leaving it waiting.
 """
 
@@ -32,13 +34,14 @@ def collate(samples):
 
 class DataLoader:
     def __init__(self, dataset, global_batch, seed=0, num_workers=4,
-                 prefetch=2, group_flags=None):
+                 prefetch=2, group_flags=None, num_shards=1, shard_id=0):
         self.dataset = dataset
+        shards = dict(num_shards=num_shards, shard_id=shard_id)
         self.sampler = (
-            EpochSampler(len(dataset), global_batch, seed)
+            EpochSampler(len(dataset), global_batch, seed, **shards)
             if group_flags is None else
             GroupedEpochSampler(len(dataset), global_batch, group_flags,
-                                seed))
+                                seed, **shards))
         self.seed = seed
         self.num_workers = num_workers
         self.prefetch = prefetch

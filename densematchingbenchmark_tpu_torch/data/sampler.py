@@ -1,9 +1,12 @@
-"""Deterministic epoch-seeded sampling, plain and aspect-grouped.
+"""Deterministic epoch-seeded sampling, plain and aspect-grouped, sharded
+over processes.
 
-Counterpart of densematchingbenchmark_tpu/data/sampler.py:15-112 on one
-host, shuffled: permute with a generator seeded from (seed, epoch), then
-pad the index list by wrapping to a multiple of the global batch. Sharding
-across hosts waits for data parallelism (ROADMAP.md queue 1 item 5).
+Counterpart of densematchingbenchmark_tpu/data/sampler.py:15-112,
+shuffled: permute with a generator seeded from (seed, epoch), pad the
+index list by wrapping to a multiple of the global batch, and give shard
+``shard_id`` of ``num_shards`` its contiguous slice of every global batch.
+Every shard of a step is equally large, and the shards of a step together
+are the one-process run's batch of that step.
 """
 
 import logging
@@ -12,19 +15,29 @@ import numpy as np
 
 
 class EpochSampler:
-    def __init__(self, dataset_len, global_batch, seed=0):
+    def __init__(self, dataset_len, global_batch, seed=0, num_shards=1,
+                 shard_id=0):
+        if global_batch % num_shards or not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard {shard_id} of {num_shards} of a "
+                             f"global batch of {global_batch}")
         self.n = dataset_len
         self.global_batch = global_batch
         self.seed = seed
+        self.per_shard = global_batch // num_shards
+        self.shard_id = shard_id
+
+    def _shard(self, batches):
+        lo = self.shard_id * self.per_shard
+        return batches[:, lo:lo + self.per_shard]
 
     def epoch_indices(self, epoch):
-        """[steps, global_batch] index array."""
+        """[steps, global_batch / num_shards] index array of this shard."""
         rng = np.random.default_rng(self.seed * 1000003 + epoch)
         idx = rng.permutation(self.n)
         total = self.steps_per_epoch() * self.global_batch
         if total > self.n:  # wrap-around padding (reference behavior)
             idx = np.concatenate([idx, idx[:total - self.n]])
-        return idx.reshape(-1, self.global_batch)
+        return self._shard(idx.reshape(-1, self.global_batch))
 
     def steps_per_epoch(self):
         return int(np.ceil(self.n / self.global_batch))
@@ -37,8 +50,10 @@ class GroupedEpochSampler(EpochSampler):
     to a multiple of the global batch, chunk it into batches, then shuffle
     the order of the batches."""
 
-    def __init__(self, dataset_len, global_batch, flags, seed=0):
-        super().__init__(dataset_len, global_batch, seed)
+    def __init__(self, dataset_len, global_batch, flags, seed=0,
+                 num_shards=1, shard_id=0):
+        super().__init__(dataset_len, global_batch, seed, num_shards,
+                         shard_id)
         flags = np.asarray(flags, np.int64)
         if flags.shape != (dataset_len,):
             raise ValueError(f"flags of shape {flags.shape} for "
@@ -58,7 +73,7 @@ class GroupedEpochSampler(EpochSampler):
                 idx = np.concatenate([idx, idx[:total - len(idx)]])
             batches.append(idx.reshape(-1, self.global_batch))
         batches = np.concatenate(batches, axis=0)
-        return batches[rng.permutation(len(batches))]
+        return self._shard(batches[rng.permutation(len(batches))])
 
     def steps_per_epoch(self):
         return self._steps

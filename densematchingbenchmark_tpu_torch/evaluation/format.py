@@ -9,7 +9,9 @@ otherwise.
 
 import re
 
-import torch.distributed as dist
+import torch
+
+from ..parallel import collectives
 
 
 def metrics_table(results):
@@ -35,11 +37,21 @@ def metrics_table(results):
 
 
 def combine_shard_metrics(avg_metrics, count):
-    """Combine per-process (averaged metrics, sample count). One process
-    (no process group, or a group of one): the input unchanged."""
-    if not dist.is_available() or not dist.is_initialized() \
-            or dist.get_world_size() == 1:
+    """Combine the ranks' (averaged metrics, sample count) into the whole
+    set's, on every rank; without a process group the input unchanged.
+
+    The ranks first agree on the union of their keys (a stride shard past
+    the dataset's end has no samples and ``{}`` metrics), then each turns
+    its averages into sums, one all-reduce (float64, on the host under
+    gloo and on the rank's GPU under NCCL) sums the sums and the counts,
+    and the sums are averaged again."""
+    if not collectives.in_group():
         return avg_metrics, count
-    raise NotImplementedError(
-        "combining eval shards across processes is not ported yet "
-        "(ROADMAP.md queue 1 item 5)")
+    keys = sorted(set().union(*collectives.all_gather_object(
+        sorted(avg_metrics))))
+    vec = torch.tensor([avg_metrics.get(k, 0.0) * count for k in keys]
+                       + [count], dtype=torch.float64,
+                       device=collectives.collective_device())
+    total = collectives.all_reduce_(vec).tolist()
+    n = max(total[-1], 1.0)
+    return {k: v / n for k, v in zip(keys, total[:-1])}, int(total[-1])

@@ -9,6 +9,8 @@ NaN below it too).
 
 import torch
 
+from ..parallel.collectives import global_count
+
 
 def _rescale_gt_flow(gt_flow, out_h, out_w):
     """Average-pool [B, H, W, 2] ground truth to (out_h, out_w), the flow
@@ -51,6 +53,6 @@ def flow_l1_loss(flows, gt_flow, weights, eps=1e-8):
                 valid.shape[2] // w
             valid = valid.reshape(b, h, sh, w, sw, 1).amin(dim=(2, 4))
         err = torch.sqrt(((flow - gt) ** 2).sum(-1, keepdim=True) + eps)
-        denom = valid.sum().clamp_min(1.0)
+        denom = global_count(valid.sum()).clamp_min(1.0)
         losses[f"flow_loss_lvl{i}"] = wt * (err * valid).sum() / denom
     return losses

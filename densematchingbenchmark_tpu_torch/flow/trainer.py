@@ -1,14 +1,16 @@
 """Training and evaluation of the flow models.
 
-Counterpart of densematchingbenchmark_tpu/flow/trainer.py on one device.
-JAX's ``train_flow`` is the stereo trainer's loop here
+Counterpart of densematchingbenchmark_tpu/flow/trainer.py. JAX's
+``train_flow`` is the stereo trainer's loop here
 (trainer/loop.train_matcher on a flow config: the
 loader, optimizer and schedule, the exact (epoch, batch_in_epoch) resume,
 the logs, the profiler window) with the flow task's pieces from
 ``flow_task``: ``make_flow_train_step``; after each epoch the eval set, if
 any, scored (EPE and n-px of the best flow, logged under 'eval/'), and the
 vis hook writing the colour wheels of the estimated and ground-truth
-flows.
+flows. In a process group each rank scores its stride shard of the eval
+set and the shards are combined (JAX :48-55, 111-117); only rank 0 has a
+vis hook.
 """
 
 import os
@@ -21,6 +23,7 @@ from ..data.io import save_png
 from ..data.loader import collate
 from ..evaluation.eval_loop import _prefetch_samples, to_device
 from ..evaluation.format import combine_shard_metrics
+from ..parallel import collectives
 from ..trainer.train_step import make_flow_train_step
 from .metrics import calc_flow_error
 from .vis import flow_to_color
@@ -125,10 +128,12 @@ def flow_task(cfg, work_dir, metrics_log, eval_dataset, vis_dataset):
 
         def run_eval(module):
             results, n = combine_shard_metrics(*evaluate_flow(
-                module, eval_dataset, sparse))
+                module, eval_dataset, sparse,
+                num_shards=collectives.world_size(),
+                shard_id=collectives.rank()))
             return results, f"flow eval ({n} samples): " + ", ".join(
                 f"{k}={v:.3f}" for k, v in sorted(results.items()))
     vis_hook = (FlowVisHook(vis_dataset, work_dir, metrics_log)
-                if vis_dataset is not None and
+                if vis_dataset is not None and collectives.rank() == 0 and
                 cfg.get("vis", {}).get("enabled", True) else None)
     return _KEYS, step, run_eval, vis_hook

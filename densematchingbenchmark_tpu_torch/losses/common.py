@@ -10,6 +10,7 @@ max_disp / scale) is masked (KITTI encodes invalid pixels as 0).
 import torch
 
 from ..ops.pooling import adaptive_avg_pool2d, adaptive_max_pool2d
+from ..parallel.collectives import global_count
 
 
 def rescale_gt(gt_disp, out_h, out_w, sparse=False):
@@ -27,6 +28,10 @@ def valid_mask(scaled_gt, max_disp_at_scale, start_disp=0):
 
 
 def masked_mean(x, mask):
-    """sum(x * mask) / max(count, 1): the reference's safe masked mean."""
+    """sum(x * mask) / max(count, 1): the reference's safe masked mean. In
+    a process group the count is the global batch's (``global_count``), so
+    the ranks' means sum to the global batch's, as JAX's over a sharded
+    batch."""
     maskf = mask.to(x.dtype)
-    return (x * maskf).sum() / torch.clamp_min(maskf.sum(), 1.0)
+    return (x * maskf).sum() / torch.clamp_min(global_count(maskf.sum()),
+                                               1.0)

@@ -11,6 +11,7 @@ quantile loss (:70-81) is one scalar on its predicted range.
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import global_count
 from .common import masked_mean, rescale_gt, valid_mask
 
 
@@ -44,7 +45,8 @@ def gerf_loss(est_disps, gt_disp, max_disp, start_disp=0, weights=None,
         sgt, scale = rescale_gt(gt_disp, est.shape[1], est.shape[2], sparse)
         maskf = valid_mask(sgt, max_disp / scale, start_disp).to(est.dtype)
         per_px = torch.sqrt((sgt - est).square() * maskf + 4.0) / 2.0 - 1.0
-        return per_px.sum() / torch.clamp_min(maskf.sum(), 1.0)
+        return per_px.sum() / torch.clamp_min(global_count(maskf.sum()),
+                                              1.0)
     return _per_level(est_disps, weights, "gerf_loss", level)
 
 

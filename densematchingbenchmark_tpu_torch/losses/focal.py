@@ -12,6 +12,7 @@ bfloat16 cost too.
 import torch
 
 from ..ops.disp2prob import laplace_prob
+from ..parallel.collectives import global_count
 from .common import rescale_gt, valid_mask
 
 
@@ -43,6 +44,6 @@ def stereo_focal_loss(est_costs, gt_disp, max_disp, variance, start_disp=0,
         log_prob = torch.log_softmax(cost.float(), dim=1)
         focal_w = (1.0 - gt_prob).pow(-focal_coefficient)
         per_px = -(gt_prob * log_prob) * focal_w * maskf[:, None, :, :, 0]
-        denom = torch.clamp_min(maskf.sum(), 1.0)
+        denom = torch.clamp_min(global_count(maskf.sum()), 1.0)
         out[f"stereo_focal_loss_lvl{i}"] = weights[i] * per_px.sum() / denom
     return out

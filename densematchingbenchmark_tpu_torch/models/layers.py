@@ -38,6 +38,7 @@ from ..ops.cuda.packed_conv3d_kernel import (WgmmaOperands,
                                              conv3d_packed_s1,
                                              conv3d_packed_s1_prepared,
                                              route_widths, wgmma_operands)
+from ..parallel import collectives
 
 
 def _tuple(x, n):
@@ -93,7 +94,10 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     (momentum 0.1 here is Flax's 0.9); in eval it uses the running
     statistics. A bfloat16 input is normalised in float32 (``nn.BatchNorm``
     with ``dtype=float32``, JAX layers.py:414-423) and the result rounded
-    once to bfloat16."""
+    once to bfloat16. In training inside a group of more than one process
+    the statistics are the global batch's (``_global_batch_norm``); never
+    ``torch.nn.SyncBatchNorm``, which moves ``running_var`` toward the
+    unbiased variance."""
 
     def _check_input_dim(self, x):
         if x.dim() < 2:
@@ -107,6 +111,8 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.eps).to(dtype)
+        if collectives.world_size() > 1:
+            return self._global_batch_norm(x).to(dtype)
         # one pass: no running buffers given, so it normalises with the
         # batch statistics and returns the mean and 1 / sqrt(var + eps)
         y, mean, invstd = torch.native_batch_norm(
@@ -116,6 +122,36 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
             self.running_var.lerp_(invstd.pow(-2) - self.eps, self.momentum)
             self.num_batches_tracked += 1
         return y.to(dtype)
+
+    def _global_batch_norm(self, x):
+        """Training inside a group of processes: the statistics of the
+        global batch, as JAX takes them over a sharded batch. Every rank
+        all-reduces its per-channel sum and count, then its sum of squares
+        about the global mean, each in a differentiable ``global_sum``
+        (its shard may be smaller: the collectives run all the same); the
+        variance is the biased one, as Flax's. Flax computes it as
+        mean(x^2) - mean(x)^2; the centred sum is the one-process path's
+        (``native_batch_norm``) arithmetic, whose float32 results it keeps
+        (the one-pass form differs from them by cancellation that the
+        tiny test models amplify to 3.7e-3 of their largest gradient:
+        tests/parallel_noise_study.py).
+        Normalises and moves the running statistics."""
+        c = x.shape[1]
+        dims = [0, *range(2, x.dim())]
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        stats = collectives.global_sum(torch.cat([
+            x.sum(dims), x.new_full((1,), x.numel() // c)]))
+        count = stats[c:].detach()
+        mean = stats[:c] / count
+        centred = x - mean.view(shape)
+        var = collectives.global_sum(centred.square().sum(dims)) / count
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        y = centred * inv.view(shape) + self.bias.view(shape)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.detach(), self.momentum)
+            self.running_var.lerp_(var.detach(), self.momentum)
+            self.num_batches_tracked += 1
+        return y
 
 
 class ConvUnit(nn.Module):

@@ -18,9 +18,13 @@ The noise is an explicit tensor or comes from an explicit
 ``torch.Generator``, as JAX's comes from a PRNG key: ``eval_noise`` is the
 eval draw (seeded 0, one batch-1 draw broadcast over the batch, so that a
 sample's result does not depend on its batch), made once per shape and
-device; in training the caller's generator draws [B, n, H, W] anew. The
-JAX PRNG and torch's cannot match bit for bit: the parity tests inject
-JAX's draw through ``noise``.
+device; in training the caller's generator draws [B, n, H, W] anew. In a
+group of N processes each rank draws the global batch's [N B, n, H, W]
+from its copy of the step's generator and keeps its own rows, as JAX draws
+one global array from one key and shards it: a rank's noise is the rows a
+one-process run at the global batch draws for the same samples. The JAX
+PRNG and torch's cannot match bit for bit: the parity tests inject JAX's
+draw through ``noise``.
 """
 
 import functools
@@ -28,6 +32,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ..parallel import collectives
 from .warp import inverse_warp_3d
 
 
@@ -78,6 +83,15 @@ def eval_noise(n, h, w, device):
         return draw.to(device)
 
 
+def train_noise(b, n, h, w, generator):
+    """This rank's [b, n, h, w] rows of the global batch's training draw
+    [world_size * b, n, h, w] from ``generator`` (on its device)."""
+    world, rank = collectives.world_size(), collectives.rank()
+    noise = torch.rand((world * b, n, h, w), generator=generator,
+                       device=generator.device)
+    return noise if world == 1 else noise[rank * b:(rank + 1) * b]
+
+
 def patch_match(left, right, min_disparity, max_disparity,
                 disparity_sample_number=14, propagation_filter_size=3,
                 iterations=3, temperature=7.0, noise=None, generator=None):
@@ -92,7 +106,8 @@ def patch_match(left, right, min_disparity, max_disparity,
         when its batch is 1.
       generator: without ``noise``, the torch.Generator that draws it
         ([B, n, H, W], on the generator's device, then copied to the
-        features' without a host sync); without either, ``eval_noise``.
+        features' without a host sync; in a process group this rank's
+        rows of the global batch's draw); without either, ``eval_noise``.
 
     Returns:
       [B, disparity_sample_number, H, W] float32 samples (min, the n
@@ -106,8 +121,7 @@ def patch_match(left, right, min_disparity, max_disparity,
         if generator is None:
             noise = eval_noise(n, h, w, left.device)
         else:
-            noise = torch.rand((b, n, h, w), generator=generator,
-                               device=generator.device)
+            noise = train_noise(b, n, h, w, generator)
             if noise.device != left.device:
                 # a host generator's draw: staged in pinned memory, so the
                 # copy to the card does not block the host

@@ -1,6 +1,6 @@
-"""Pieces the port's command-line tools share: dotted config overrides, the
-compute dtype flag and the JAX tools' ``--launcher`` flag, of which only the
-one-process value is ported."""
+"""Pieces the port's command-line tools share: dotted config overrides and
+the compute dtype flag (the multi-process flags are
+parallel.distributed.add_distributed_args)."""
 
 import ast
 
@@ -35,18 +35,3 @@ def config_overrides(args):
     if args.dtype:
         overrides["model.dtype"] = args.dtype
     return overrides
-
-
-def add_distributed_args(parser):
-    parser.add_argument("--launcher", default="none",
-                        choices=["none", "env", "slurm"],
-                        help="multi-process init source; only 'none' (one "
-                             "process) is ported")
-    return parser
-
-
-def check_launcher(args):
-    if args.launcher != "none":
-        raise NotImplementedError(
-            f"--launcher {args.launcher}: multi-process runs are not ported "
-            "yet (ROADMAP.md queue 1 item 5)")

@@ -22,8 +22,14 @@ stay float32. Runs on the GPU unless ``--cpu``; with neither it raises.
 A flow config (PWCFlow, RAFT) scores the best flow of each sample of a
 FlyingChairs annotation (padded to data.pad_to_size) or of four synthetic
 pairs at data.crop_size (``--synthetic``) by EPE and n-px, and with
-``--out-dir`` writes each sample's .flo and colour wheel. Multi-process
-launchers (ROADMAP.md queue 1 item 5) are not ported and raise.
+``--out-dir`` writes each sample's .flo and colour wheel.
+
+Under a launcher (``--launcher env`` / ``slurm``, or ``--coordinator``,
+``--num-processes`` and ``--process-id``; ``--cpu`` means gloo on the
+CPU) every rank evaluates its stride shard of the set, the shards are
+combined into the whole set's metrics on every rank (JAX tools/test.py:
+160-172), and only rank 0 prints them and runs ``--out-dir``'s writes and
+the sparsification pass.
 """
 
 import argparse
@@ -36,13 +42,15 @@ from ..configs import get_config
 from ..data import SyntheticStereoDataset, build_dataset, collate, transforms
 from ..data.io import save_png
 from ..evaluation.eval_loop import evaluate, to_device
-from ..evaluation.format import metrics_table
+from ..evaluation.format import combine_shard_metrics, metrics_table
 from ..evaluation.metrics import remove_padding
 from ..evaluation.sparsification import sparsification_plot
+from ..parallel import collectives
+from ..parallel.distributed import (add_distributed_args, init_from_args,
+                                    shutdown_distributed)
 from ..utils.checkpoint import CheckpointManager
 from ..visualization import SaveResultTool, conf_to_hist, hist_to_vis
-from .common import (add_distributed_args, add_dtype_arg, check_launcher,
-                     config_overrides)
+from .common import add_dtype_arg, config_overrides
 
 
 def parse_args(argv=None):
@@ -149,9 +157,12 @@ def flow_main(args, cfg):
         print("WARNING: no checkpoint found, evaluating random init")
     model = init_flow_model(cfg, device="cpu" if args.cpu else None,
                             checkpoint_dir=args.work_dir)
-    results, n = evaluate_flow(
+    results, n = combine_shard_metrics(*evaluate_flow(
         model.module, ds,
-        sparse=cfg["model"].get("eval", {}).get("sparse", False))
+        sparse=cfg["model"].get("eval", {}).get("sparse", False),
+        num_shards=collectives.world_size(), shard_id=collectives.rank()))
+    if collectives.rank() != 0:
+        return results, n
     print(f"evaluated {n} samples:")
     for k in sorted(results):
         print(f"  {k:12s} {results[k]:.4f}")
@@ -170,10 +181,18 @@ def flow_main(args, cfg):
 
 def main(argv=None):
     """Returns ({f'disp_{id}/{metric}': mean, plus with a cmn
-    f'sparsification/{series}_{P}'}, samples); for a flow config
+    f'sparsification/{series}_{P}'}, samples) over the whole set, on every
+    rank (the sparsification rows on rank 0); for a flow config
     ``flow_main``'s."""
     args = parse_args(argv)
-    check_launcher(args)
+    init_from_args(args)
+    try:
+        return _run(args)
+    finally:
+        shutdown_distributed()
+
+
+def _run(args):
     cfg = get_config(args.config, **config_overrides(args))
     if cfg.get("task") == "flow":
         return flow_main(args, cfg)
@@ -195,8 +214,12 @@ def main(argv=None):
         print("WARNING: no checkpoint found, evaluating random init")
     model = init_model(cfg, device="cpu" if args.cpu else None,
                        checkpoint_dir=args.work_dir)
-    results, n = evaluate(model.module, ds, cfg["model"].get("eval", {}),
-                          cfg.get("eval_disparity_id", (0,)))
+    results, n = combine_shard_metrics(*evaluate(
+        model.module, ds, cfg["model"].get("eval", {}),
+        cfg.get("eval_disparity_id", (0,)),
+        num_shards=collectives.world_size(), shard_id=collectives.rank()))
+    if collectives.rank() != 0:
+        return results, n
     print(f"evaluated {n} samples:")
     print(metrics_table(results))
     has_conf = cfg["model"].get("cmn") is not None

@@ -16,7 +16,9 @@ its flags: a thin CLI over ``trainer.loop.train_matcher``. ``--dtype
 bfloat16`` (or a ``_bf16`` config name) trains with float32 parameters, BN
 statistics and gradients and bfloat16 activations, as JAX's
 ``model.dtype``; no loss scaling. ``--profile START:STOP`` writes a
-torch.profiler trace of those steps to <work-dir>/profile. Runs on the
+torch.profiler trace of those steps to <work-dir>/profile. ``--synthetic``
+trains a stereo model at one sample a device, or at
+``--override data.batch_size_per_device=B``. Runs on the
 GPU unless ``--cpu``; with neither it raises.
 
 A flow config (PWCFlow, RAFT) trains through the same ``train_matcher``
@@ -25,17 +27,27 @@ annotation at data.crop_size, scored and visualised after each epoch on
 ``--eval-annfile``'s pairs padded to data.pad_to_size; or, with
 ``--synthetic``, on ``--synthetic-length`` synthetic pairs at
 data.crop_size, with ``--synthetic-eval`` (2 by default, as JAX's) for
-the eval and the vis hook. Multi-process launchers (ROADMAP.md queue 1
-item 5) are not ported and raise.
+the eval and the vis hook.
+
+Over N processes, one device each (``--launcher env`` under ``torchrun``,
+``--launcher slurm`` under ``srun``, or ``--coordinator HOST:PORT
+--num-processes N --process-id I``), the global batch is
+data.batch_size_per_device times N, with JAX's semantics: the global
+batch's BN statistics and masked means and the gradient of its loss.
+``--cpu`` with a launcher runs the ranks on the CPU over gloo::
+
+    torchrun --nproc_per_node 8 -m densematchingbenchmark_tpu_torch.tools.train \
+        --config PSMNet/scene_flow --work-dir work/psmnet --launcher env ...
 """
 
 import argparse
 
 from ..configs import get_config
 from ..data import SyntheticStereoDataset, transforms
+from ..parallel.distributed import (add_distributed_args, init_from_args,
+                                    shutdown_distributed)
 from ..trainer.loop import train_matcher
-from .common import (add_distributed_args, add_dtype_arg, check_launcher,
-                     config_overrides)
+from .common import add_dtype_arg, config_overrides
 
 
 def parse_args(argv=None):
@@ -72,10 +84,18 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    """Returns the final TrainState."""
+    """Returns the final TrainState (this rank's, in a process group)."""
     args = parse_args(argv)
-    check_launcher(args)
-    cfg = get_config(args.config, **config_overrides(args))
+    init_from_args(args)
+    try:
+        return _run(args)
+    finally:
+        shutdown_distributed()
+
+
+def _run(args):
+    overrides = config_overrides(args)
+    cfg = get_config(args.config, **overrides)
     cfg["seed"] = args.seed
     run = dict(resume=args.resume, max_steps=args.max_steps,
                log_interval=args.log_interval,
@@ -90,7 +110,9 @@ def main(argv=None):
         sh, sw = args.synthetic_shape
         mean, std = cfg["data"]["mean"], cfg["data"]["std"]
         cfg["data"] = dict(
-            type="Synthetic", sparse=False, batch_size_per_device=1,
+            type="Synthetic", sparse=False,
+            batch_size_per_device=overrides.get(
+                "data.batch_size_per_device", 1),
             mean=mean, std=std,
             train=dict(length=args.synthetic_length, height=sh, width=sw,
                        max_disp=min(maxd, 64), input_shape=(sh, sw)))

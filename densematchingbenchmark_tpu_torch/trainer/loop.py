@@ -11,8 +11,16 @@ evaluated and its metrics logged under 'eval/', and the visualization hook
 (trainer/vis_hook.py, unless ``vis.enabled`` is False) writes its panels.
 ``profile_steps`` traces a window of steps with torch.profiler. A flow
 config (``task`` "flow") runs the same loop with the flow task's batch
-keys, train step, evaluation and vis hook (flow/trainer.flow_task). Data
-parallelism arrives with ROADMAP.md queue 1 item 5.
+keys, train step, evaluation and vis hook (flow/trainer.flow_task).
+
+In a process group (parallel.init_distributed) each rank trains on its
+device: the global batch is ``batch_size_per_device`` times the group's
+size, the loader gives each rank its slice of every global batch, the
+model starts from rank 0's weights (``broadcast_module``), and the step
+computes the global batch's BN statistics, losses and gradient (JAX
+loop.py:37-39, 61-72, 113, 145, 218-219). Rank 0 alone writes the logs,
+the checkpoints and the vis panels; every rank evaluates its stride shard
+of the eval set and the shards are combined.
 """
 
 import json
@@ -27,6 +35,7 @@ from ..evaluation.eval_loop import evaluate
 from ..evaluation.format import combine_shard_metrics, metrics_table
 from ..losses import make_loss_evaluator
 from ..models import build_model
+from ..parallel import collectives
 from ..utils.checkpoint import CheckpointManager
 from ..utils.logging import MetricsLogger, get_logger
 from .optim import build_optimizer
@@ -38,7 +47,9 @@ from .vis_hook import VisHook, build_vis_dataset
 def stereo_task(cfg, work_dir, metrics_log, eval_dataset, vis_dataset):
     """The stereo pieces of ``train_matcher``: (batch keys, train step,
     eval callable module -> (metric dict, its log text) or None, vis hook
-    or None). The vis set is ``vis_dataset``, else build_vis_dataset's."""
+    or None). The vis set is ``vis_dataset``, else build_vis_dataset's.
+    In a process group the eval runs this rank's stride shard and combines
+    the shards; only rank 0 has a vis hook."""
     data_cfg = cfg["data"]
     evaluator = make_loss_evaluator(
         cfg["model"]["losses"], sparse=data_cfg.get("sparse", False),
@@ -50,10 +61,12 @@ def stereo_task(cfg, work_dir, metrics_log, eval_dataset, vis_dataset):
 
         def run_eval(module):
             results, n = combine_shard_metrics(*evaluate(
-                module, eval_dataset, eval_cfg, eval_ids))
+                module, eval_dataset, eval_cfg, eval_ids,
+                num_shards=collectives.world_size(),
+                shard_id=collectives.rank()))
             return results, f"eval ({n} samples):\n" + metrics_table(results)
     vis_hook = None
-    if cfg.get("vis", {}).get("enabled", True):
+    if cfg.get("vis", {}).get("enabled", True) and collectives.rank() == 0:
         vis_dataset = vis_dataset or build_vis_dataset(cfg, eval_dataset)
         if vis_dataset is not None:
             vis_hook = VisHook(
@@ -67,12 +80,14 @@ def stereo_task(cfg, work_dir, metrics_log, eval_dataset, vis_dataset):
 def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
                   vis_dataset=None, resume=False, log_interval=10,
                   max_steps=None, device=None, profile_steps=None):
-    """Train a model per config on one device; returns the TrainState.
+    """Train a model per config on one device, or on each rank's in a
+    process group; returns the TrainState.
 
-    Runs on ``cuda`` unless ``device`` says otherwise; with no GPU and no
-    device given it raises. The logged metrics of a step are 'loss', each
-    loss entry ('l1_loss_lvl<i>', and for AcfNet
-    'stereo_focal_loss_lvl<i>' and 'conf_loss_lvl<i>'), 'grad_norm',
+    Runs on ``cuda`` (in a group the rank's device) unless ``device`` says
+    otherwise; with no GPU and no device given it raises. The logged
+    metrics of a step are 'loss', each loss entry ('l1_loss_lvl<i>', and
+    for AcfNet 'stereo_focal_loss_lvl<i>' and 'conf_loss_lvl<i>'),
+    'grad_norm',
     'throughput' (samples/s), 'lr', 'step_ms' (host clock around the step,
     ended by reading its metrics) and, on a GPU, 'peak_mem_gib'
     (torch.cuda.max_memory_allocated). ``eval_dataset`` defaults to the
@@ -90,8 +105,9 @@ def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
         # float32 configs compute in float32, as init_model sets
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    logger = get_logger(work_dir)
-    metrics_log = MetricsLogger(work_dir)
+    rank, world = collectives.rank(), collectives.world_size()
+    logger = get_logger(work_dir, rank=rank)
+    metrics_log = MetricsLogger(work_dir, rank=rank)
 
     data_cfg = cfg["data"]
     mean, std = data_cfg["mean"], data_cfg["std"]
@@ -111,12 +127,13 @@ def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
             data_cfg, "eval",
             transform=transforms.make_eval_transform(
                 data_cfg["eval"]["input_shape"], mean, std))
-    global_batch = data_cfg.get("batch_size_per_device", 1)
+    global_batch = data_cfg.get("batch_size_per_device", 1) * world
     seed = cfg.get("seed", 0)
     loader = DataLoader(train_dataset, global_batch, seed=seed,
                         group_flags=(aspect_group_flags(train_dataset)
                                      if data_cfg.get("group_sampling")
-                                     else None))
+                                     else None),
+                        num_shards=world, shard_id=rank)
     steps_per_epoch = loader.steps_per_epoch()
 
     module = build_model(cfg, torch.Generator().manual_seed(seed))
@@ -131,8 +148,8 @@ def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
     state = TrainState.create(module, optimizer, seed + 1)
     n_params = sum(p.numel() for p in module.parameters())
     logger.info(f"model params: {n_params / 1e6:.3f}M, device: {device}, "
-                f"global batch: {global_batch}, steps/epoch: "
-                f"{steps_per_epoch}")
+                f"processes: {world}, global batch: {global_batch}, "
+                f"steps/epoch: {steps_per_epoch}")
 
     ckpt = CheckpointManager(work_dir)
     start_epoch = start_batch = 0
@@ -144,6 +161,8 @@ def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
             start_batch = (meta or {}).get("batch_in_epoch", 0)
             logger.info(f"resumed from step {state.step} (epoch "
                         f"{start_epoch}, batch {start_batch})")
+    # every rank starts from rank 0's parameters and BN statistics
+    collectives.broadcast_module(module)
     prof_start, prof_stop = profile_steps or (None, None)
     prof_dir = os.path.join(work_dir, "profile")
     profiler = None

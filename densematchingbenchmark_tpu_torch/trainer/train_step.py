@@ -17,11 +17,21 @@ The forward does not run under ``StereoModel.forward``'s inference mode.
 ``make_flow_train_step`` is the flow task's (JAX :74-102): the multi-scale
 flow loss (flow/losses.flow_l1_loss) over the model's 'flows'. Both end in
 ``apply_losses``: the gradient, clip, update and metrics.
+
+In a group of processes each rank's losses are its share of the global
+batch's (losses/common.py: the rank's sum over the global count), so
+``apply_losses`` sums the ranks' gradients (one all-reduce) before the
+clip, which then sees the global norm on every rank, and the optimizer
+steps identically everywhere; the logged loss and loss entries are summed
+over the ranks too (one more all-reduce): the global batch's values, as
+JAX's on a sharded batch. No ``DistributedDataParallel``: its hooks fire
+on ``.grad``, and the step takes its gradients from ``autograd.grad``.
 """
 
 import torch
 
 from ..losses.builder import total_loss
+from ..parallel import collectives
 from .optim import global_norm
 
 
@@ -32,12 +42,17 @@ def apply_losses(state, loss_dict):
     loss = total_loss(loss_dict)
     grads = torch.autograd.grad(loss, opt.params, allow_unused=True,
                                 materialize_grads=True)
+    grads = collectives.all_reduce_grads(grads)
     grad_norm = global_norm(grads)
     opt.step(grads, grad_norm)
     state.step += 1
     metrics = {"loss": loss.detach(),
-               **{k: v.detach() for k, v in loss_dict.items()},
-               "grad_norm": grad_norm}
+               **{k: v.detach() for k, v in loss_dict.items()}}
+    if collectives.in_group():
+        summed = collectives.all_reduce_(
+            torch.stack([v.float() for v in metrics.values()]))
+        metrics = dict(zip(metrics, summed.unbind()))
+    metrics["grad_norm"] = grad_norm
     return state, metrics
 
 

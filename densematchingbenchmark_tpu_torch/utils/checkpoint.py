@@ -6,12 +6,16 @@ optimizer state, step, generator state) plus JSON-able metadata, one file
 per step under <work_dir>/checkpoints/. The metadata's (epoch,
 batch_in_epoch) pair gives exact mid-epoch resume: the trainer skips ahead
 through the deterministic sampler and replays the same remaining batches.
+In a process group every rank calls ``save`` and ``restore``: rank 0
+writes, and a barrier stands between its write and any rank's read.
 """
 
 import os
 import re
 
 import torch
+
+from ..parallel import collectives
 
 _NAME = re.compile(r"^(\d+)\.pt$")
 
@@ -37,16 +41,19 @@ class CheckpointManager:
     def save(self, step, state_dict, metadata=None):
         """Write ``state_dict`` (tensors are saved from any device) and
         ``metadata`` at ``step``, replacing a checkpoint of that step;
-        keep the newest ``max_to_keep``."""
-        tmp = self._file(step) + ".tmp"
-        torch.save({"state": state_dict, "metadata": metadata}, tmp)
-        os.replace(tmp, self._file(step))
-        for old in self.all_steps()[:-self.max_to_keep]:
-            os.remove(self._file(old))
+        keep the newest ``max_to_keep``. Only rank 0 writes."""
+        if collectives.rank() == 0:
+            tmp = self._file(step) + ".tmp"
+            torch.save({"state": state_dict, "metadata": metadata}, tmp)
+            os.replace(tmp, self._file(step))
+            for old in self.all_steps()[:-self.max_to_keep]:
+                os.remove(self._file(old))
+        collectives.barrier()
 
     def restore(self, step=None, map_location="cpu"):
         """(state_dict, metadata) at ``step`` (default the latest), or
         (None, None) when there is none."""
+        collectives.barrier()
         step = self.latest_step() if step is None else step
         if step is None:
             return None, None

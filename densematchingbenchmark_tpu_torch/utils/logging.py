@@ -1,10 +1,10 @@
 """Logging: a text logger, the JSON-lines metrics log and TensorBoard.
 
-Counterpart of densematchingbenchmark_tpu/utils/logging.py:19-104 on one
-process (the JAX package's rank argument arrives with data-parallel
-training, ROADMAP.md queue 1 item 5). As there, the TensorBoard writer
-(tensorboardX's, under <work_dir>/tb) is made only when that package
-imports; without it the JSON metrics log is the whole record.
+Counterpart of densematchingbenchmark_tpu/utils/logging.py:19-104. As
+there, only rank 0 of a process group writes files: the text log, the
+metrics log and TensorBoard (tensorboardX's writer, under <work_dir>/tb,
+made only when that package imports; without it the JSON metrics log is
+the whole record); another rank's text logger prints errors only.
 """
 
 import json
@@ -16,17 +16,18 @@ import time
 import numpy as np
 
 
-def get_logger(work_dir=None, name="dmb_torch"):
+def get_logger(work_dir=None, name="dmb_torch", rank=0):
     """The text logger: stdout, and <work_dir>/<time>_log.txt of the latest
-    ``work_dir`` given (a later run in the same process logs to its own)."""
+    ``work_dir`` given (a later run in the same process logs to its own).
+    On a rank other than 0: stdout, errors only, and no file."""
     logger = logging.getLogger(name)
     fmt = logging.Formatter("%(asctime)s - %(levelname)s - %(message)s")
     if not logger.handlers:
-        logger.setLevel(logging.INFO)
         sh = logging.StreamHandler(sys.stdout)
         sh.setFormatter(fmt)
         logger.addHandler(sh)
-    if work_dir:
+    logger.setLevel(logging.INFO if rank == 0 else logging.ERROR)
+    if work_dir and rank == 0:
         path = os.path.abspath(work_dir)
         files = [h for h in logger.handlers
                  if isinstance(h, logging.FileHandler)]
@@ -44,12 +45,16 @@ def get_logger(work_dir=None, name="dmb_torch"):
 
 class MetricsLogger:
     """Appends one JSON object per call to <work_dir>/metrics.log.json,
-    and the same scalars to TensorBoard when tensorboardX imports."""
+    and the same scalars to TensorBoard when tensorboardX imports. On a
+    rank other than 0 it writes nothing."""
 
-    def __init__(self, work_dir, tensorboard=True):
+    def __init__(self, work_dir, tensorboard=True, rank=0):
+        self.rank = rank
+        self.json_path = self.tb = None
+        if rank != 0:
+            return
         os.makedirs(work_dir, exist_ok=True)
         self.json_path = os.path.join(work_dir, "metrics.log.json")
-        self.tb = None
         if tensorboard:
             try:
                 from tensorboardX import SummaryWriter
@@ -59,6 +64,8 @@ class MetricsLogger:
                 self.tb = SummaryWriter(os.path.join(work_dir, "tb"))
 
     def log(self, step, metrics, prefix=""):
+        if self.rank != 0:
+            return
         record = {"step": int(step),
                   **{prefix + k: float(v) for k, v in metrics.items()}}
         with open(self.json_path, "a") as fp:

@@ -1817,3 +1817,93 @@ def test_tiny_flow_model_on_card_matches_cpu(cuda, family, dtype):
     for k, v in cpu_m.items():
         tol = 1e-3 if dtype == "f32" else 0.1 if k == "grad_norm" else 0.01
         assert abs(card_m[k] - v) <= tol * abs(v), (k, card_m[k], v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_parallel_gloo_pair_on_one_card_matches_one_rank(cuda, dtype,
+                                                         tmp_path):
+    """Two gloo ranks on cuda:0 (train_matcher, a small PSMNet, 2 x 2
+    samples, 2 steps; tests/torch_parallel_ranks.py 'card') against one
+    rank at 4 on the same weights and data. The first step (the global
+    batch's semantics, before any update): its loss within rtol 1e-4 in
+    float32 (1 % in bfloat16); in float32 its BN statistics within 1e-4 of
+    their largest value and each parameter's gradient's cosine above
+    0.999. After RMSprop's first update (about 10 lr times the sign of
+    every gradient element) float32 noise moves the parameters by whole
+    updates, as a 1e-7 perturbation of the weights alone does: later
+    steps are held finite. The ranks' gradients and parameters bitwise
+    equal, K4 and K2 on both ranks."""
+    from torch_parallel_ranks import (CARD_STEPS, RANKS, finish_ranks,
+                                      free_port, start_ranks)
+    out = str(tmp_path)
+    port = free_port()
+    finish_ranks(start_ranks(
+        [[RANKS, "card", out, "0", "1", "0", dtype]]
+        + [[RANKS, "card", out, str(r), "2", str(port), dtype]
+           for r in range(2)]), timeout=600)
+    load = lambda name: torch.load(f"{out}/{name}.pt",      # noqa: E731
+                                   weights_only=False)
+    one, two = load("card1_0"), [load(f"card2_{r}") for r in range(2)]
+    for res in two:
+        k = res["launches"]
+        assert k["conv3d_packed_s1"] == 13 * CARD_STEPS, k
+        assert k["fused_soft_argmin_backward"] == 3 * CARD_STEPS, k
+        assert res["bf16_launches"]["conv3d_packed_s1"] == (
+            13 * CARD_STEPS if dtype == "bf16" else 0)
+        assert res["collectives"]["all_reduce"] > 0
+    assert set(one["collectives"].values()) == {0}
+    for n, p in two[0]["params"].items():
+        assert torch.equal(p, two[1]["params"][n]), n
+    for g, h in zip(two[0]["first"]["grads"], two[1]["first"]["grads"]):
+        assert torch.equal(g, h)
+    losses, want = two[0]["losses"], one["losses"]
+    assert len(losses) == len(want) == CARD_STEPS
+    assert np.isfinite(losses).all()
+    rtol = 1e-4 if dtype == "f32" else 0.01
+    assert abs(losses[0] - want[0]) <= rtol * abs(want[0]), (losses, want)
+    if dtype == "f32":
+        got, ref = two[0]["first"]["buffers"], one["first"]["buffers"]
+        names = [n for n, t in ref.items() if t.is_floating_point()]
+        top = max(float(ref[n].abs().max()) for n in names)
+        for n in names:
+            err = float((got[n] - ref[n]).abs().max())
+            assert err <= 1e-4 * top, (n, err, top)
+        grads = two[0]["first"]["grads"]
+        ref = one["first"]["grads"]
+        gtop = max(float(w.abs().max()) for w in ref)
+        for g, w in zip(grads, ref):
+            if float(w.abs().max()) > 1e-6 * gtop:    # not a bias before BN
+                cos = float((g * w).sum() / (g.norm() * w.norm()))
+                assert cos > 0.999, cos
+
+
+@pytest.mark.cuda
+def test_parallel_nccl_rank_runs_the_collectives_on_card(cuda, tmp_path,
+                                                         monkeypatch):
+    """tools/train.main --launcher env as the one rank of an NCCL group
+    (WORLD_SIZE 1) on a small PSMNet: 2 steps and the per-epoch eval, each
+    collective counted; the tool leaves the group at the end."""
+    from densematchingbenchmark_tpu_torch.parallel import (
+        collective_counts, reset_collective_counts)
+    from densematchingbenchmark_tpu_torch.tools import train as ttrain
+    from torch_parallel_ranks import CARD_SMALL, free_port
+    monkeypatch.setenv("MASTER_ADDR", "localhost")
+    monkeypatch.setenv("MASTER_PORT", str(free_port()))
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    reset_collective_counts()
+    state = ttrain.main(
+        ["--config", "PSMNet/scene_flow_f32", "--work-dir", str(tmp_path),
+         "--synthetic", "--synthetic-shape", "64", "128",
+         "--synthetic-length", "2", "--synthetic-eval", "2",
+         "--max-steps", "2", "--log-interval", "1", "--launcher", "env",
+         "--override", *[f"{k}={v}" for k, v in CARD_SMALL.items()]])
+    assert not torch.distributed.is_initialized()
+    assert next(state.module.parameters()).device == torch.device("cuda", 0)
+    # a step: 3 loss counts, the gradients, the metrics; the eval: keys
+    # and sums; the broadcast of float32 and int64 tensors; the checkpoint
+    assert collective_counts() == {"all_reduce": 11, "all_gather": 1,
+                                   "broadcast": 2, "barrier": 1}
+

@@ -40,12 +40,15 @@ from densematchingbenchmark_tpu_torch.evaluation.format import (
     combine_shard_metrics)
 from densematchingbenchmark_tpu_torch.models import build_model
 from densematchingbenchmark_tpu_torch.ops import warp
+from densematchingbenchmark_tpu_torch.parallel import collectives
 from densematchingbenchmark_tpu_torch.tools import demo as tdemo
 from densematchingbenchmark_tpu_torch.tools import test as ttest
 from densematchingbenchmark_tpu_torch.tools import train as ttrain
 from densematchingbenchmark_tpu_torch.trainer.loop import read_metrics
 from densematchingbenchmark_tpu_torch.utils import (flax_variables,
                                                     load_jax_variables)
+
+from torch_parallel_ranks import free_port
 
 # The suite runs several test workers on one CPU: one torch intra-op
 # thread each keeps their OpenMP pools from oversubscribing the cores.
@@ -196,13 +199,22 @@ def test_evaluate_fails_loudly_on_a_bad_sample(eval_case, tmp_path):
                            eval_case["cfg"]["model"]["eval"])
 
 
-def test_combine_shard_metrics_one_process_and_many(monkeypatch):
-    res = {"disp_0/epe": 1.5}
+def test_combine_shard_metrics_one_process_and_many(tmp_path):
+    """Without a process group: the input itself. In a group of one (gloo
+    on the CPU): the collectives run, and give the same averages. Two
+    processes: tests/test_torch_parallel.py."""
+    res = {"disp_0/epe": 1.5, "disp_0/3px": 12.25}
     assert combine_shard_metrics(res, 4) == (res, 4)
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        combine_shard_metrics(res, 4)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp_path / 'rendezvous'}",
+        world_size=1, rank=0)
+    try:
+        collectives.reset_collective_counts()
+        got, n = combine_shard_metrics(res, 4)
+        assert collectives.collective_counts()["all_reduce"] == 1
+    finally:
+        torch.distributed.destroy_process_group()
+    assert n == 4 and got == pytest.approx(res, rel=1e-12)
 
 
 @pytest.mark.parametrize("compat", [False, True])
@@ -279,7 +291,8 @@ def tiny_overrides():
         "model.eval.batch_size=3"]
 
 
-def test_test_tool_runs_end_to_end(eval_case, tmp_path, capsys):
+def test_test_tool_runs_end_to_end(eval_case, tmp_path, capsys,
+                                   monkeypatch):
     """tools/test.py on the tiny file dataset: the restored checkpoint's
     metrics equal ``evaluate`` on the saved module, and --out-dir holds
     every sample's KITTI PNG at its original size."""
@@ -303,9 +316,18 @@ def test_test_tool_runs_end_to_end(eval_case, tmp_path, capsys):
         assert disp.shape == (h, w)
         for sub in ("color_disp", "group_disp"):
             assert os.path.exists(os.path.join(out, sub, f"{i:06d}.png"))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ttest.main(["--config", "PSMNet/kitti_2015_f32", "--work-dir", work,
-                    "--cpu", "--launcher", "env"])
+    # under a launcher with a group of one (gloo on the CPU) the same
+    # table, and the group is left again
+    monkeypatch.setenv("MASTER_ADDR", "localhost")
+    monkeypatch.setenv("MASTER_PORT", str(free_port()))
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("RANK", "0")
+    got, m = ttest.main([
+        "--config", "PSMNet/kitti_2015_f32", "--work-dir", work,
+        "--data-root", eval_case["root"], "--annfile", eval_case["ann"],
+        "--cpu", "--launcher", "env", "--override", *tiny_overrides()])
+    assert m == n and not torch.distributed.is_initialized()
+    assert got == pytest.approx(results, rel=1e-6)
 
 
 def test_train_tool_runs_with_synthetic_eval(tmp_path):

@@ -128,8 +128,8 @@ def test_port_imports_no_jax():
     # inference and one training step in float32 and in bfloat16 (PSMNet,
     # AcfNet, StereoNet, GCNet, DeepPruner, AnyNet; PWCFlow and RAFT
     # through the flow API and trainer) and the packed-conv
-    # microbench, with every module of the port and its four command-line
-    # tools imported
+    # microbench, with every module of the port (parallel/ among them) and
+    # its four command-line tools imported
     train = dict(TINY, **{"model.losses.l1_loss.max_disp": 64,
                           "data.batch_size_per_device": 1})
     # AcfNet adaptive (with the vis hook, the profiler window and the
@@ -178,6 +178,9 @@ import densematchingbenchmark_tpu_torch.ops.patch_match
 import densematchingbenchmark_tpu_torch.ops.spn
 import densematchingbenchmark_tpu_torch.flow
 import densematchingbenchmark_tpu_torch.flow.trainer
+import densematchingbenchmark_tpu_torch.parallel
+import densematchingbenchmark_tpu_torch.parallel.collectives
+import densematchingbenchmark_tpu_torch.parallel.distributed
 from densematchingbenchmark_tpu_torch.tools import bench, demo, test, train
 model = init_model("PSMNet/scene_flow_f32", device="cpu", **{TINY!r})
 rng = np.random.RandomState(0)

@@ -1,5 +1,8 @@
 """One PSMNet train step of the port against JAX ``make_train_step``, and
-the port's ``train_matcher`` with exact resume, on the CPU.
+the port's ``train_matcher`` with exact resume, on the CPU. The same
+compiled JAX step also holds the port's step over two gloo processes (one
+sample each, started before JAX compiles: tests/torch_parallel_ranks.py)
+at the global batch of 2, whose two samples have different valid counts.
 
 The port's model (tiny PSMNet, max_disp 16) is built from a seed, every
 BatchNorm's parameters and running statistics are drawn at random (identity
@@ -47,6 +50,9 @@ from densematchingbenchmark_tpu_torch.trainer import (TrainState,
 from densematchingbenchmark_tpu_torch.trainer.loop import read_metrics
 from densematchingbenchmark_tpu_torch.utils import (flax_variables,
                                                     load_jax_variables)
+
+from torch_parallel_ranks import (RANKS, family_model, finish_ranks,
+                                  free_port, global_batch, start_ranks)
 
 # The suite runs several test workers on one CPU: one torch intra-op
 # thread each keeps their OpenMP pools from oversubscribing the cores.
@@ -107,8 +113,29 @@ def find_nu(opt_state):
     return found[0]
 
 
+# JAX's jitted train step of the tiny PSMNet at [B, H, W], kept by
+# ``one_step`` for the data-parallel test (a second call compiles nothing)
+JAX_STEP = {}
+
+
 @pytest.fixture(scope="module")
-def one_step():
+def parallel_ranks(tmp_path_factory):
+    """Two gloo ranks of tiny PSMNet's train step at the global batch of B,
+    started here so that they run while ``one_step`` compiles JAX's
+    step."""
+    out = str(tmp_path_factory.mktemp("ranks"))
+    port = free_port()
+    procs = start_ranks([[RANKS, "steps", out, str(r), "2", str(port),
+                          str(B), "psmnet"] for r in range(2)])
+    yield procs, out
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+@pytest.fixture(scope="module")
+def one_step(parallel_ranks):
     """The port and JAX after one train step from the same weights."""
     cfg = get_config("PSMNet/scene_flow_f32", **TINY)
     module = build_model(cfg, torch.Generator().manual_seed(0))
@@ -144,6 +171,7 @@ def one_step():
                            jax.random.PRNGKey(1))
     step = jmake_train_step(jmodel, tx, jmake_ev(jcfg["model"]["losses"]),
                             donate=False)
+    JAX_STEP.update(step=step, tx=tx, max_norm=jcfg["grad_clip"]["max_norm"])
     new_state, jmetrics = step(jstate, {k: jnp.asarray(v)
                                         for k, v in batch.items()})
     jmetrics = {k: float(v) for k, v in jmetrics.items()}
@@ -236,6 +264,58 @@ def test_train_step_bn_stats_match_jax(one_step):
         # Flax E[x^2] - E[x]^2 vs torch's two-pass variance, float32
         np.testing.assert_allclose(got[k], w, rtol=1e-4, atol=1e-5,
                                    err_msg="/".join(k))
+
+
+def test_two_ranks_match_jax_at_the_global_batch(one_step, parallel_ranks):
+    """The port's step over two gloo ranks (tests/torch_parallel_ranks.py,
+    one sample each; the second sample's ground truth mostly invalid)
+    against JAX's jitted train step at the global batch on the same
+    weights, with this file's bounds: loss entries rtol 2e-4, per-leaf
+    gradient cosine above 0.999 and relative error below 3e-2, the biases
+    before batch-statistics BN below 1e-6 of the largest gradient, BN
+    statistics rtol 1e-4 and atol 1e-5. Both ranks log the global loss and
+    hold the global gradient."""
+    procs, out = parallel_ranks
+    finish_ranks(procs)
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"),
+                        weights_only=False)["psmnet"] for r in range(2)]
+    _, module, variables = family_model("psmnet")
+    step, tx = JAX_STEP["step"], JAX_STEP["tx"]
+    jstate = JState.create(jax.tree.map(jnp.asarray, variables), tx,
+                           jax.random.PRNGKey(1))
+    batch = global_batch("psmnet", b=B)
+    new_state, jmetrics = step(jstate, {k: jnp.asarray(v)
+                                        for k, v in batch.items()})
+    jmetrics = {k: float(v) for k, v in jmetrics.items()}
+    clip = min(1.0, JAX_STEP["max_norm"] / jmetrics["grad_norm"])
+    before, after = flat(jstate.params), flat(new_state.params)
+    nu = flat(find_nu(new_state.opt_state))
+    jgrads = {k: -np.sign(after[k] - before[k]) * np.sqrt(nu[k] / 0.01)
+              / clip for k in before}
+    jstats = flat(new_state.batch_stats)
+    top = max(float(np.abs(w).max()) for w in jgrads.values())
+    for port in ranks:
+        for k, v in jmetrics.items():
+            np.testing.assert_allclose(port["metrics"][k], v, rtol=2e-4,
+                                       err_msg=k)
+        got = flat(flax_variables(module, port["grads"])["params"])
+        assert sorted(got) == sorted(jgrads)
+        zero = zero_grad_leaves(set(got))
+        for k, g in got.items():
+            w = jgrads[k]
+            if k in zero:
+                assert max(np.abs(g).max(), np.abs(w).max()) < 1e-6 * top, k
+                continue
+            cos = float((g * w).sum() / (np.linalg.norm(g) *
+                                         np.linalg.norm(w)))
+            rel = np.linalg.norm(g - w) / np.linalg.norm(w)
+            assert cos > 0.999 and rel < 3e-2, ("/".join(k), cos, rel)
+        module.load_state_dict({**module.state_dict(), **port["buffers"]})
+        stats = flat(flax_variables(module)["batch_stats"])
+        assert sorted(stats) == sorted(jstats)
+        for k, w in jstats.items():
+            np.testing.assert_allclose(stats[k], w, rtol=1e-4, atol=1e-5,
+                                       err_msg="/".join(k))
 
 
 def test_flax_variables_round_trip():
