@@ -235,6 +235,40 @@ PyTorch version on the card. Phases, each fatal on failure:
      broadcast, the checkpoint's barrier). The step times of 1 x 6 and 2
      x 3 are printed: times of the check, not a speed claim (the pair's
      all-reduces go through the host).
+ 16. Correlation: PSMNet/scene_flow with model.cost_processor.type
+     Correlation (the one-channel volume of
+     ops.cost_volume.correlation1d_volume; the first trunk unit 1 -> 32,
+     padded with zero channels to its kernels' widths) at full width,
+     seed 0 with BN drawn by damp_bn (at seed 0 its costs are far larger
+     than the concatenation model's and the soft-argmin a hard argmax:
+     the largest |cost| of each is printed), through init_model +
+     inference_stereo over three random 375x1242 pairs padded to
+     384x1248, in both eval modes and both dtypes, launches asserted
+     (float32: K1 13 a forward; bfloat16: K4's bfloat16 route 13, K1
+     none; K2 or K3 3), the kept operands built in the first frame only,
+     each forward under the sync guard; the modes against each other
+     (MODES_ATOL scaled by the costs' size over the concatenation
+     model's), bfloat16 against float32 (mean gap within BF16_GAP_ATOL),
+     the first trunk unit as the main path ran it against its plain
+     version (K1 with Ci padded 1 -> 4, K4's bfloat16 route 1 -> 16;
+     CONV_RTOL, BF16_STEP besides in bfloat16), the card against the
+     plain versions on the CPU on a small pair (CORR_CPU_ATOL), a small
+     model in each dtype against the CPU (corr_small_vs_cpu: in bfloat16
+     by the CPU's own bfloat16 gap); train_matcher for 3 steps at
+     3x256x512 in float32 (K4 13 a step, K2 3 and its backward 3); one
+     float32 forward of GCNet (K1 10) and AcfNet uniform (K1 13) with a
+     correlation volume; forward ms (CUDA events) and peak memory. Its
+     launches join each dtype's counts.
+ 17. Tools: the port's measurement tools through their main(argv):
+     tools/benchmark.py over every family in each dtype (--iters 3: the
+     zoo table's parameters, GFLOPs, latency and frames/s),
+     tools/train_throughput.py over every family (--iters 2),
+     tools/profile_model.py on PSMNet's forward and on its train step
+     (Chrome trace, top kernels, busy share, launches) and
+     tools/loader_throughput.py on six SceneFlow-shaped pairs against the
+     PSMNet step just measured; every row's times finite and positive,
+     the zoo's parameter count the built module's, GFLOPs present; the
+     phase's seconds.
 
 Prints a JSON line of per-kernel numbers before the last line (K4's and
 K5's bfloat16 routes in the microbench in rows of their own, ``*_bf16``,
@@ -273,6 +307,10 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+# the profiler's per-kernel breakdown, shared with the port's tool
+from densematchingbenchmark_tpu_torch.tools.profile_model import (
+    device_profile)
 
 # H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA cores, dense
 # bfloat16 on the tensor cores, HBM3; and the special-function units'
@@ -362,7 +400,9 @@ BF16_GAP_ATOL = 3.0    # px, the mean |bf16 - float32| disparity gap of the
                        # 192x624, the port's 0.27-0.40 and 0.35-0.79
                        # (tests/bf16_gap_study.py); on the card at 384x1248
                        # the port's measured 1.21-1.96. It bounds the EPE
-                       # gap of the eval too.
+                       # gap of the eval too, and the gap of PSMNet with a
+                       # correlation volume (BN drawn by damp_bn: 2.17-2.25
+                       # px measured on the card at 384x1248).
 BF16_CPU_ATOL = 0.05   # px, mean |card - CPU| of a small bfloat16 model
                        # with BN drawn as the CPU tests draw it (damp_bn):
                        # the bound they hold the port to against JAX; its
@@ -1710,55 +1750,6 @@ def bench_phase(smi):
         torch.cuda.empty_cache()
 
 
-def device_profile(label, fn, reps=2, top=14, convs=0, named=None):
-    """Device time of one call of ``fn`` by kernel name (torch.profiler),
-    after one call outside the profile; with ``convs``, also the ``convs``
-    convolution ops (forward or backward, by input shapes) that take the
-    most device time, their kernels included; with ``named`` ({label:
-    weight shape}), the device time of the convolution ops (forward and
-    backward, their kernels included) of each weight shape."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=bool(convs or named)) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / reps
-    # kernels only: device time of events that are not CPU-side ops
-    rows = [(e.key, e.self_device_time_total / 1e3 / reps, e.count // reps)
-            for e in prof.key_averages()
-            if e.self_device_time_total > 0 and e.device_type.name == "CUDA"]
-    busy = sum(r[1] for r in rows)
-    launches = sum(r[2] for r in rows)
-    print(f"profile {label}: wall {wall:.2f} ms per call under the "
-          f"profiler, device busy {busy:.2f} ms ({100 * busy / wall:.1f}%), "
-          f"{launches} kernel launches of {len(rows)} names")
-    wgmma = [r for r in rows if "conv3d_wgmma" in r[0]]
-    if wgmma:
-        print(f"  K4/K5 bfloat16 block (conv3d_wgmma): "
-              f"{sum(r[1] for r in wgmma):.3f} ms of device time, "
-              f"{sum(r[2] for r in wgmma)} launches")
-    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
-        print(f"  {ms:8.3f} ms {count:4d}x  {key[:90]}")
-    ops = [e for e in prof.key_averages(group_by_input_shape=True)
-           if e.key in ("aten::convolution", "aten::convolution_backward")]
-    for e in sorted(ops, key=lambda e: -e.device_time_total)[:convs]:
-        print(f"  {e.device_time_total / 1e3 / reps:8.3f} ms "
-              f"{e.count // reps:4d}x  {e.key} {e.input_shapes[:3]}")
-    for name, weight in (named or {}).items():
-        # the weight is the second input of a forward, the third of a
-        # backward (grad_output, input, weight, ...)
-        hits = [e for e in ops if weight in [list(s) for s in
-                                             e.input_shapes[1:3]]]
-        ms = sum(e.device_time_total for e in hits) / 1e3 / reps
-        print(f"  {name}: {ms:.3f} ms of device time, "
-              f"{sum(e.count for e in hits) // reps} ops "
-              f"({', '.join(sorted({e.key for e in hits}))})")
-
-
 def profile_phase(models, name="PSMNet/scene_flow_f32"):
     """The forward of each eval mode, and one training step of ``name``,
     by kernel (in float32 also the step with cudnn.benchmark)."""
@@ -2524,20 +2515,21 @@ def acf_eval_phase(smi, root, ann):
     return launches["_f32"], launches["_bf16"]
 
 
-def family_train_phase(smi, name, steps, units=13, argmins=3, keys=None):
-    """train_matcher on ``name`` at full width, its crop and batch, for
-    ``steps`` steps: launches asserted (a step K4 ``units``, K2 ``argmins``
-    forward and as many backward; the bfloat16 route in bfloat16), the
-    loss and every loss entry finite (``keys``; AcfNet's by default), the
-    step's ms (median of steps 2 on, host clock) and the peak. Returns the
-    launch counts."""
+def family_train_phase(smi, name, steps, units=13, argmins=3, keys=None,
+                       overrides=None):
+    """train_matcher on ``name`` (with ``overrides``) at full width, its
+    crop and batch, for ``steps`` steps: launches asserted (a step K4
+    ``units``, K2 ``argmins`` forward and as many backward; the bfloat16
+    route in bfloat16), the loss and every loss entry finite (``keys``;
+    AcfNet's by default), the step's ms (median of steps 2 on, host clock)
+    and the peak. Returns the launch counts."""
     from densematchingbenchmark_tpu_torch.configs import get_config
     from densematchingbenchmark_tpu_torch.data import (SyntheticStereoDataset,
                                                        transforms)
     from densematchingbenchmark_tpu_torch.ops import cuda as kernels
     from densematchingbenchmark_tpu_torch.trainer import train_matcher
     from densematchingbenchmark_tpu_torch.trainer.loop import read_metrics
-    cfg = get_config(name)
+    cfg = get_config(name, **(overrides or {}))
     bf16 = cfg["model"]["dtype"] == "bfloat16"
     data = cfg["data"]
     crop, batch = data["train"]["input_shape"], data["batch_size_per_device"]
@@ -4806,6 +4798,335 @@ def check_parallel(suffix, one, two, floor, smi):
             for n in one["launches"]}
 
 
+# Correlation (phase 16): PSMNet/scene_flow with the Correlation cost
+# processor at full width; the one-channel volume reaches the first trunk
+# unit padded with zero channels (K1: Ci 4; K4's bfloat16 route: Ci 16)
+CORR = {"model.cost_processor.type": "Correlation"}
+CORR_CONFIG = "PSMNet/scene_flow"
+CORR_CPU_ATOL = 1e-3   # px: the card against the plain versions on the CPU,
+                       # same weights, a small pair (float32)
+CORR_TRAIN_STEPS = 3
+# (config, K1 launches a float32 forward, K2 launches) of the families
+# whose aggregators JAX runs on a correlation volume beside PSMNet's
+CORR_OTHERS = (("GCNet/scene_flow_f32", 10, 1),
+               ("AcfNet/scene_flow_uniform_f32", 13, 3))
+
+
+def corr_mode(name, fused, pairs, smi):
+    """init_model(``name`` with a correlation volume, seed 0, BN drawn by
+    damp_bn) in one eval mode and inference_stereo over ``pairs`` padded
+    to PADDED: launches
+    asserted (float32: K1 13 a forward; bfloat16: K4's bfloat16 route 13,
+    K1 none; K2 or K3 3), the trunk's kept operands built in the first
+    frame only (13, then none); the disparities finite, of the frame's
+    shape; forward ms (CUDA events) and peak memory; the forward under the
+    sync guard (the zero channels of the first unit's pad copy nothing
+    from the host); in the plain mode, the first unit as the first frame
+    ran it against its plain version (corr_first_unit). Returns (model,
+    disparities, counts)."""
+    from densematchingbenchmark_tpu_torch.apis import (inference_stereo,
+                                                       init_model)
+    from densematchingbenchmark_tpu_torch.models.layers import ConvUnit
+    from densematchingbenchmark_tpu_torch.ops import cuda as kernels
+    model = init_model(name, seed=0, **CORR,
+                       **{"model.eval.fused_upsample_argmin": fused})
+    damp_bn(model.module, 0)
+    agg = model.module.cost_processor.aggregator
+    assert agg.ConvUnit_0.in_features == 1, agg.ConvUnit_0.widths
+    bf16 = model.cfg["model"]["dtype"] == "bfloat16"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    builds = ConvUnit.operand_builds
+    seen = []
+    hook = agg.ConvUnit_0.register_forward_hook(
+        lambda unit, args, out: seen.append((args[0], out)) if not seen
+        else None)
+    results = inference_stereo(model, pairs[:1], pad_to_shape=PADDED)
+    hook.remove()
+    first = ConvUnit.operand_builds - builds
+    results += inference_stereo(model, pairs[1:], pad_to_shape=PADDED)
+    later = ConvUnit.operand_builds - builds - first
+    torch.cuda.synchronize()
+    counts, bf16_counts = kernels.launch_counts(), kernels.bf16_launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert (first, later) == (13, 0), (first, later)
+    n = len(pairs)
+    want = {k: 0 for k in counts}
+    want["conv3d_packed_s1" if bf16 else "fused_conv3d"] = 13 * n
+    want["fused_upsample_soft_argmin" if fused
+         else "fused_soft_argmin"] = 3 * n
+    assert counts == want, counts
+    assert bf16_counts["conv3d_packed_s1"] == (13 * n if bf16 else 0), \
+        bf16_counts
+    disps = []
+    for r in results:
+        assert len(r["disps"]) == 3
+        for d in r["disps"]:
+            assert d.shape == (1, *IMAGE, 1) and np.isfinite(d).all()
+        disps.append(r["disps"])
+    if not fused:
+        corr_first_unit(agg.ConvUnit_0, *seen[0])
+    del seen
+    x = torch.randn((1, *PADDED, 3), device="cuda")
+    ms = time_ms(lambda: model.forward(x, x), FORWARD_REPS)
+    print(f"correlation {name} fused_upsample_argmin={fused}: forward "
+          f"{ms:.2f} ms (median of {FORWARD_REPS}, 1x{PADDED[0]}x"
+          f"{PADDED[1]}), peak {peak:.2f} GiB, launches over {n} pairs "
+          f"{counts} (bf16 route {bf16_counts}), kept operands built "
+          f"{first} in the first frame, {later} after; {smi}")
+    guarded(f"{name} + Correlation eval forward at {PADDED}, "
+            f"fused_upsample_argmin={fused}", lambda: model.forward(x, x))
+    return model, disps, counts
+
+
+def corr_first_unit(unit, x, got):
+    """The first trunk unit of the full-width correlation model as the
+    main path ran it (``x`` its one-channel input, ``got`` its output in
+    the first frame): K1 with Ci padded 1 -> 4 in float32, K4's bfloat16
+    route with Ci padded 1 -> 16 in bfloat16, against the plain version of
+    the unpadded unit on the same input and folded BN (CONV_RTOL of
+    max|plain|, BF16_STEP besides in bfloat16)."""
+    from densematchingbenchmark_tpu_torch.ops.cuda import (
+        conv3d_packed_s1_plain, conv3d_plain)
+    f32 = unit.dtype == torch.float32
+    assert unit.padded and unit.widths.ci == (4 if f32 else 16), \
+        unit.widths
+    assert x.shape[-1] == 1 and got.shape[-1] == unit.features, \
+        (x.shape, got.shape)
+    with torch.no_grad():
+        inv, shift = unit.folded_bn()
+        kernel = unit.Conv_0.weight.permute(2, 3, 4, 1, 0).to(unit.dtype)
+        x = x.to(unit.dtype)
+        want = (conv3d_plain(x, kernel, inv, shift, unit.relu) if f32 else
+                conv3d_packed_s1_plain(x, kernel, inv, shift, 1, unit.relu))
+    top = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = (CONV_RTOL if f32 else CONV_RTOL + BF16_STEP) * top
+    print(f"correlation first unit {'K1' if f32 else 'K4 bf16'} 1->"
+          f"{unit.features} (Ci padded to {unit.widths.ci}) "
+          f"{'x'.join(map(str, x.shape[1:4]))}: max_abs_err {err:.3g} "
+          f"against the plain version (tolerance {tol:.3g})")
+    assert err <= tol, (unit.dtype, err, tol)
+
+
+def corr_small_vs_cpu(shape=(64, 128)):
+    """A small PSMNet with a correlation volume (SMALL, BN drawn by
+    damp_bn) on the card against the same weights through the plain
+    versions on the CPU, one random pair of ``shape``: float32 within
+    CPU_ATOL max; bfloat16 by the CPU's own bfloat16-vs-float32 gap (about
+    10 times the concatenation model's: the volume rounds 32-channel
+    sums), each disparity's mean gap to the CPU within twice it plus 0.01
+    px and the card's own gap at least half of it (as
+    tests/test_torch_cuda.py::test_correlation_model_on_card_matches_cpu)."""
+    from densematchingbenchmark_tpu_torch.apis import (StereoModel,
+                                                       inference_stereo,
+                                                       init_model)
+    pair = random_pairs(np.random.RandomState(6), 1, shape)
+    out = {}
+    for suffix in ("_f32", "_bf16"):
+        cpu = init_model(CORR_CONFIG + suffix, device="cpu", seed=4,
+                         **SMALL, **CORR)
+        damp_bn(cpu.module, 4)
+        card = StereoModel(cpu.cfg, copy.deepcopy(cpu.module).cuda(),
+                           torch.device("cuda"))
+        out[suffix] = (inference_stereo(card, pair)[0]["disps"],
+                       inference_stereo(cpu, pair)[0]["disps"])
+    err = max(float(np.abs(g - w).max()) for g, w in zip(*out["_f32"]))
+    assert err <= CPU_ATOL, err
+    rows = []
+    for (g, w), (g32, w32) in zip(zip(*out["_bf16"]), zip(*out["_f32"])):
+        gap, own = float(np.abs(g - w).mean()), float(np.abs(w - w32).mean())
+        card_own = float(np.abs(g - g32).mean())
+        assert gap <= 2 * own + 0.01 and card_own >= 0.5 * own, \
+            (gap, own, card_own)
+        rows.append(f"{gap:.4f} (own {own:.4f}, card's own {card_own:.4f})")
+    print(f"correlation small model ({SMALL['model.max_disp']} disps, "
+          f"{shape}), card vs CPU plain versions: float32 {err:.4g} px max "
+          f"(tolerance {CPU_ATOL}); bf16 mean " + ", ".join(rows) + " px")
+
+
+def correlation_phase(smi):
+    """Phase 16: the Correlation cost processor (the one-channel volume,
+    ops.cost_volume.correlation1d_volume) on PSMNet at full width in both
+    eval modes and both dtypes (corr_mode, with the first unit against its
+    plain version, corr_first_unit; the cost sizes of the seeded, damped
+    and concatenation models printed first), the bfloat16 disparities
+    against the float32 model's of the same seed (BF16_GAP_ATOL), the card
+    against the CPU on a small pair (float32, CORR_CPU_ATOL), a small
+    model against the CPU in each dtype (corr_small_vs_cpu),
+    CORR_TRAIN_STEPS steps of train_matcher at 3x256x512
+    in float32 (K4 13 a step, K2 3 and its backward 3), and one float32
+    forward of GCNet and AcfNet with a correlation volume (K1 launches
+    asserted). Returns the launch counts of the float32 runs and of the
+    bfloat16 runs."""
+    from densematchingbenchmark_tpu_torch.apis import (StereoModel,
+                                                       inference_stereo,
+                                                       init_model)
+    from densematchingbenchmark_tpu_torch.ops import cuda as kernels
+    t0 = time.perf_counter()
+    # at seed 0 (identity BN) the correlation volume's 32-channel sums of
+    # unnormalised features make costs far larger than the concatenation
+    # model's, where the soft-argmin is a hard argmax and float32 rounding
+    # moves a disparity by tenths of a pixel; with BN drawn as the CPU
+    # tests draw it (damp_bn) they are of the concatenation model's size,
+    # and the checks below run there
+    x = torch.randn((1, *PADDED, 3), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    sizes = []
+    for over, damp in ((CORR, False), (CORR, True), ({}, False)):
+        model = init_model(CORR_CONFIG + "_f32", seed=0, **over)
+        if damp:
+            damp_bn(model.module, 0)
+        sizes.append(max(float(c.abs().max())
+                         for c in model.forward(x, x)["costs"]))
+    print(f"correlation: largest |cost| of a forward at {PADDED}: seed 0 "
+          f"{sizes[0]:.1f}, BN drawn by damp_bn {sizes[1]:.1f}; the "
+          f"concatenation model at seed 0 {sizes[2]:.1f}")
+    del model
+    rng = np.random.RandomState(16)
+    pairs = random_pairs(rng, PAIRS, IMAGE)
+    totals = {}
+    f32_disps = []
+    for suffix in ("_f32", "_bf16"):
+        total = totals.setdefault(suffix, {})
+        for fused in (False, True):
+            model, disps, counts = corr_mode(CORR_CONFIG + suffix, fused,
+                                             pairs, smi)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            if suffix == "_f32":
+                f32_disps.append(disps)
+                if not fused:
+                    f32_model = model
+                continue
+            # above 0 (the model computed in bfloat16) and within
+            # BF16_GAP_ATOL: the correlation volume's bfloat16 rounding,
+            # at the scale of its 32-channel sums, makes this model's own
+            # gap about 10 times the concatenation model's (on the CPU,
+            # at tests/test_torch_cuda.py's small size, 0.13-0.19 against
+            # 0.008-0.017 px mean; on the card at full width, damped,
+            # 2.17-2.25 px); its first unit is held against the plain
+            # version in corr_mode and its bfloat16 path by the small
+            # model against the CPU below
+            ref = f32_disps[int(fused)]
+            gap = max(float(np.abs(d - f).mean())
+                      for ds, fs in zip(disps, ref) for d, f in zip(ds, fs))
+            print(f"correlation bf16 fused_upsample_argmin={fused}: vs "
+                  f"float32, same seed: mean |gap| up to {gap:.4f} px "
+                  f"(tolerance {BF16_GAP_ATOL})")
+            assert 0 < gap <= BF16_GAP_ATOL, gap
+            del model
+        torch.cuda.empty_cache()
+    # MODES_ATOL is the concatenation model's, at its seeded costs; a
+    # float32 rounding moves the soft-argmin in proportion to the costs'
+    # size, so the bound scales with the damped model's largest |cost|
+    # over the concatenation model's (both printed above)
+    atol = MODES_ATOL * max(1.0, sizes[1] / sizes[2])
+    modes = max(float(np.abs(a - b).max())
+                for da, db in zip(*f32_disps) for a, b in zip(da, db))
+    print(f"correlation: float32 eval modes agree to {modes:.3g} px "
+          f"(tolerance {atol:.3g}: {MODES_ATOL} x {sizes[1]:.1f} / "
+          f"{sizes[2]:.1f})")
+    assert modes <= atol, modes
+    cpu = StereoModel(f32_model.cfg, copy.deepcopy(f32_model.module).cpu(),
+                      torch.device("cpu"))
+    small = random_pairs(rng, 1, SMALL_IMAGE)
+    pad = tuple(-(-s // 32) * 32 for s in SMALL_IMAGE)
+    want = inference_stereo(cpu, small, pad_to_shape=pad)[0]["disps"]
+    got = inference_stereo(f32_model, small, pad_to_shape=pad)[0]["disps"]
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    print(f"correlation: card vs CPU plain versions at {SMALL_IMAGE}, "
+          f"float32: {err:.3g} px (tolerance {CORR_CPU_ATOL})")
+    assert err <= CORR_CPU_ATOL, err
+    del f32_model, cpu
+    corr_small_vs_cpu()
+    torch.cuda.empty_cache()
+    counts = family_train_phase(
+        smi, CORR_CONFIG + "_f32", CORR_TRAIN_STEPS,
+        keys=[f"l1_loss_lvl{i}" for i in range(3)], overrides=CORR)
+    for k, v in counts.items():
+        totals["_f32"][k] += v
+    torch.cuda.empty_cache()
+    x = torch.randn((1, *PADDED, 3), device="cuda")
+    for name, k1, k2 in CORR_OTHERS:
+        model = init_model(name, seed=0, **CORR)
+        assert model.module.cost_processor.aggregator.ConvUnit_0 \
+            .in_features == 1
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        out = model.forward(x, x)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = {k: 0 for k in counts}
+        want["fused_conv3d"], want["fused_soft_argmin"] = k1, k2
+        assert counts == want, (name, counts)
+        for d in out["disps"]:
+            assert d.shape == (1, *PADDED, 1) and bool(torch.isfinite(d).all())
+        for k, v in counts.items():
+            totals["_f32"][k] += v
+        ms = time_ms(lambda: model.forward(x, x), 3)
+        print(f"correlation {name}: forward {ms:.2f} ms (median of 3, "
+              f"1x{PADDED[0]}x{PADDED[1]}), peak "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+              f"launches {counts}; {smi}")
+        del model, out
+        torch.cuda.empty_cache()
+    print(f"correlation phase: {time.perf_counter() - t0:.1f} s")
+    return totals["_f32"], totals["_bf16"]
+
+
+def tools_phase(smi):
+    """Phase 17: the port's measurement tools through their main(argv) on
+    the card: tools/benchmark.py over every family in each dtype (--iters
+    3), tools/train_throughput.py over every family (--iters 2),
+    tools/profile_model.py on PSMNet's forward and on its train step, and
+    tools/loader_throughput.py on a small SceneFlow-shaped set against
+    the PSMNet train step just measured. Every row: finite, positive
+    times; the zoo's parameter count the built module's; GFLOPs. Prints
+    the tables and the phase's seconds."""
+    from densematchingbenchmark_tpu_torch.configs import get_config
+    from densematchingbenchmark_tpu_torch.models import build_model
+    from densematchingbenchmark_tpu_torch.tools import (benchmark,
+                                                        loader_throughput,
+                                                        profile_model,
+                                                        train_throughput)
+    t0 = time.perf_counter()
+
+    def positive(x):
+        return isinstance(x, float) and np.isfinite(x) and x > 0
+    for dtype in ("float32", "bfloat16"):
+        rows = benchmark.main(["--dtype", dtype, "--iters", "3"])
+        assert [r["model"] for r in rows] == list(benchmark.BASELINES_FPS)
+        for r in rows:
+            assert "error" not in r, r
+            module = build_model(get_config(r["model"]))
+            assert r["params"] == sum(p.numel() for p in
+                                      module.parameters()), r
+            assert r["gflops"] > 0 and positive(r["latency_ms"]), r
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        records = os.path.join(work, "train.json")
+        recs = train_throughput.main(["--iters", "2", "--out", records])
+        assert [r["family"] for r in recs] == list(train_throughput.FAMILIES)
+        for r in recs:
+            assert positive(r["f32_ms"]) and positive(r["bf16_ms"]), r
+        torch.cuda.empty_cache()
+        for extra in ([], ["--train", "--height", "256", "--width", "512"]):
+            trace = os.path.join(work, "trace.json")
+            summary = profile_model.main(
+                ["--config", "PSMNet/scene_flow", "--iters", "2",
+                 "--height", "384", "--width", "1248", "--out", trace]
+                + extra)
+            assert os.path.getsize(trace) > 0 and summary["kernels"]
+            assert summary["launches"] > 0 and positive(summary["busy_ms"])
+            torch.cuda.empty_cache()
+        rec = loader_throughput.main(["--n", "6", "--epochs", "1",
+                                      "--throughput-json", records])
+        assert positive(rec["value"]) and rec["vs_train_step_demand"] > 0
+    print(f"tools phase: {time.perf_counter() - t0:.1f} s; {smi}")
+
+
 def main():
     t_start = time.perf_counter()
     smi = device_phase()
@@ -4940,6 +5261,18 @@ def main():
         launches[name] += n
     for name, n in par_bf16.items():
         bf16_launches[name] += n
+    torch.cuda.empty_cache()
+    # the Correlation cost processor: PSMNet in both modes and dtypes,
+    # card vs CPU, training, GCNet and AcfNet; its launches join each
+    # dtype's counts
+    corr_f32, corr_bf16 = correlation_phase(smi)
+    for name, n in corr_f32.items():
+        launches[name] += n
+    for name, n in corr_bf16.items():
+        bf16_launches[name] += n
+    torch.cuda.empty_cache()
+    # the measurement tools on the card (their launches are not a path's)
+    tools_phase(smi)
     torch.cuda.empty_cache()
     # the bfloat16 paths ran K2 and K3 on bfloat16 costs, K1 never
     assert bf16_launches["fused_conv3d"] == 0, bf16_launches

@@ -7,8 +7,9 @@ outside the hourglasses, as the reference's AcfNet keeps it; the three
 classified costs are upsampled 4x in D, H and W by learned
 ConvTranspose3d(1, 1, 8, stride 4, padding 2) convs, a library call as in
 JAX (an input-dilated conv there, whose kernel utils/jax_weights.py flips
-on the way in). Input: raw cost volume [B, D/4, H/4, W/4, 2C]; output:
-[up3, up2, up1], [B, D, H, W] each in the compute dtype, best first.
+on the way in). Input: raw cost volume [B, D/4, H/4, W/4, Cv] (2C, or 1
+for a correlation volume); output: [up3, up2, up1], [B, D, H, W] each in
+the compute dtype, best first.
 """
 
 import torch

@@ -1,8 +1,9 @@
 """GCNet 3-D encoder-decoder aggregator (layers 19-37).
 
 Counterpart of densematchingbenchmark_tpu/models/aggregators/gcnet.py:
-17-162. Input: the concatenation volume [B, D, H, W, 2C] (D = max_disp / 2,
-C = 32, at half resolution); four stride-2 stages on the dense skip
+17-162. Input: the raw volume [B, D, H, W, Cv] (D = max_disp / 2, at half
+resolution; Cv = 2C = 64 for the concatenation volume, 1 for a
+correlation volume); four stride-2 stages on the dense skip
 concatenations, five transposed-conv stages with additive skips, and a
 32 -> 1 transposed-conv head: the full-resolution cost [B, 2D, 2H, 2W] in
 the compute dtype (the soft-argmin upcasts it).
@@ -31,12 +32,18 @@ from ..layers import ConvUnit, library_conv
 
 
 class GCAggregator(nn.Module):
-    # ``max_disp``, the config's, is implied by the input's D as in JAX
+    """``in_planes``: the raw volume's channels (64 for the concatenation
+    of two 32-channel views, 1 for a correlation volume), taken by c19 and
+    by c21's concatenation. The widths of every other unit follow from
+    JAX's ``in_planes`` field, which its builder never sets: f = 64 // 2
+    whatever the volume. ``max_disp``, the config's, is implied by the
+    input's D as in JAX."""
+
     def __init__(self, max_disp=192, in_planes=64, batch_norm=True,
                  dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
-        f = in_planes // 2
+        f = 64 // 2
         # (in, out, stride) of c19 .. c32 in order, then c33 .. c36
         convs = [(in_planes, f, 1), (f, f, 1),
                  (in_planes + f, 2 * f, 2), (2 * f, 2 * f, 1),

@@ -1,9 +1,10 @@
 """PSMNet cost aggregation: 3 stacked 3-D hourglasses + classify heads.
 
 Counterpart of densematchingbenchmark_tpu/models/aggregators/psmnet.py.
-Input: raw cost volume [B, D/4, H/4, W/4, 2C]; output: 3 cost volumes
-[B, max_disp, H, W] (or [B, D/4, H/4, W/4] with ``return_low_res``), best
-(deepest) first.
+Input: raw cost volume [B, D/4, H/4, W/4, Cv] (``in_planes`` Cv: 2C = 64
+for the concatenation volume, 1 for a correlation volume); output: 3 cost
+volumes [B, max_disp, H, W] (or [B, D/4, H/4, W/4] with
+``return_low_res``), best (deepest) first.
 
 The 13 stride-1 conv+BN(+ReLU) units (4 dres, 2 per hourglass, 3 classify)
 run through the trunk kernels (layers.ConvUnit: K1 at eval in float32, K4

@@ -10,7 +10,8 @@ stays at the raw volume's resolution (1/8): the refinement upsamples the
 disparity. JAX's ``pack`` (a D-packed TPU schedule with the same
 parameters) has no counterpart: the builder drops it.
 
-Input: raw difference volume [B, D, H, W, 32]; output: [cost] with cost
+Input: raw difference volume [B, D, H, W, 32] (or a correlation volume,
+``in_planes`` 1); output: [cost] with cost
 [B, D, H, W] in float32 in every compute dtype, as JAX returns it.
 """
 

@@ -16,6 +16,8 @@ from ..layers import BasicBlock, conv_bn_relu, library_conv
 
 
 class GCNetBackbone(nn.Module):
+    out_planes = 32   # the channels of each view\'s features
+
     def __init__(self, in_planes=3, batch_norm=True, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype

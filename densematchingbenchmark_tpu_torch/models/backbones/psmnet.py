@@ -18,6 +18,8 @@ from ...ops.pooling import avg_pool2d
 
 
 class PSMNetBackbone(nn.Module):
+    out_planes = 32   # the channels of each view\'s features
+
     def __init__(self, in_planes=3, batch_norm=True, dtype=torch.float32):
         super().__init__()
         bn, dt = batch_norm, dtype

@@ -17,6 +17,8 @@ from ..layers import BasicBlock, library_conv
 
 
 class StereoNetBackbone(nn.Module):
+    out_planes = 32   # the channels of each view\'s features
+
     def __init__(self, in_planes=3, batch_norm=True, downsample_num=3,
                  residual_num=6, dtype=torch.float32):
         super().__init__()

@@ -16,11 +16,14 @@ K2), ``split_concat`` and ``w_pad``, and DeepPruner's PatchMatch
 ``scoring='corr'`` (its 'warp' scores by linearity). Of JAX's
 backbones only PSMNet's takes a schedule field (``pack``): the others
 take the config's keys as they are, so one with a schedule raises, as
-in JAX. A name missing from a registry raises KeyError, as in JAX;
-pieces not ported yet raise NotImplementedError naming their ROADMAP.md
-item. A flow config (``task`` "flow") builds through
-``flow.models.build_flow_model`` (JAX :116-118), which raises ValueError
-for a meta-architecture it does not register.
+in JAX. A name missing from a registry (a backbone, aggregator,
+refinement or cost processor type) raises KeyError and an unknown
+meta-architecture ValueError, as in JAX. Flax infers a first unit's
+input channels at init; the port fixes them here, from the raw volume
+the cost processor builds (``cost_processors.volume_planes``). A flow
+config (``task`` "flow") builds through ``flow.models.build_flow_model``
+(JAX :116-118), which raises ValueError for a meta-architecture it does
+not register.
 """
 
 import torch
@@ -37,18 +40,13 @@ from .backbones.gcnet import GCNetBackbone
 from .backbones.psmnet import PSMNetBackbone
 from .backbones.stereonet import StereoNetBackbone
 from .cmn import Cmn
-from .cost_processors import CostProcessor
+from .cost_processors import CostProcessor, volume_planes
 from .deeppruner import DeepPruner
 from .generalized import GeneralizedStereoModel
 from .layers import init_parameters
 from .predictors import build_disp_predictor
 from .refinement.anynet import AnyNetRefinement
 from .refinement.stereonet import StereoNetRefinement
-
-def _not_ported(what):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
-                              "queue 1)")
-
 
 BACKBONES = {"PSMNet": PSMNetBackbone, "GCNet": GCNetBackbone,
              "StereoNet": StereoNetBackbone, "AnyNet": AnyNetBackbone,
@@ -60,7 +58,8 @@ AGGREGATORS = {"PSMNet": PSMAggregator, "AcfNet": AcfAggregator,
 SCHEDULED_BACKBONES = {PSMNetBackbone}
 REFINEMENTS = {"StereoNet": StereoNetRefinement,
                "AnyNet": AnyNetRefinement}
-VOLUME_TYPES = {"Concatenation": "concatenation", "Difference": "difference"}
+VOLUME_TYPES = {"Concatenation": "concatenation", "Difference": "difference",
+                "Correlation": "correlation"}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -149,16 +148,13 @@ def build_model(cfg, generator=None):
         init_parameters(model, generator)
         return model
     if arch != "GeneralizedStereoModel":
-        _not_ported(arch)
+        raise ValueError(f"unknown meta architecture {arch}")
     bn = model_cfg.get("batch_norm", True)
     backbone = _backbone(model_cfg, dtype)
     cp = model_cfg["cost_processor"]
     agg = cp["cost_aggregator"]
     agg_cls = AGGREGATORS[agg["type"]]
-    if cp["type"] not in VOLUME_TYPES:
-        raise NotImplementedError(
-            f"{cp['type']} cost processor is not ported yet (ROADMAP.md "
-            "queue 1)")
+    volume_type = VOLUME_TYPES[cp["type"]]
     refinement = None
     if "disp_refinement" in model_cfg:
         r = model_cfg["disp_refinement"]
@@ -177,7 +173,9 @@ def build_model(cfg, generator=None):
     agg_kwargs = _kwargs(agg)
     if agg["type"] == "PSMNet":
         agg_kwargs["return_low_res"] = fused
-    aggregator = agg_cls(batch_norm=bn, dtype=dtype, **agg_kwargs)
+    aggregator = agg_cls(
+        in_planes=volume_planes(volume_type, backbone.out_planes),
+        batch_norm=bn, dtype=dtype, **agg_kwargs)
     cmn = None
     if "cmn" in model_cfg:
         c = model_cfg["cmn"]
@@ -186,7 +184,7 @@ def build_model(cfg, generator=None):
     model = GeneralizedStereoModel(
         backbone=backbone,
         cost_processor=CostProcessor(
-            aggregator, VOLUME_TYPES[cp["type"]],
+            aggregator, volume_type,
             max_disp=comp.get("max_disp", model_cfg["max_disp"]),
             start_disp=comp.get("start_disp", 0),
             dilation=comp.get("dilation", 1),

@@ -1,17 +1,42 @@
 """Cost processor: raw volume construction + aggregation.
 
 Counterpart of densematchingbenchmark_tpu/models/cost_processors.py: the
-concatenation volume (PSMNet, AcfNet) and the difference volume
-(StereoNet, with its ``normalize`` and ``p``), on the fixed sample range.
-The correlation volume arrives with the families that use it (ROADMAP.md
-queue 1 items 10 and 12).
+concatenation volume (PSMNet, AcfNet, GCNet), the difference volume
+(StereoNet, with its ``normalize`` and ``p``) and the 1-D correlation
+volume (``Correlation`` in any of them: one channel), on the fixed sample
+range.
 """
 
 import functools
 
 from torch import nn
 
-from ..ops.cost_volume import cat_volume, dif_volume
+from ..ops.cost_volume import cat_volume, correlation1d_volume, dif_volume
+
+
+def _correlation(ref_fms, tgt_fms, *args):
+    """The correlation volume with a trailing channel of 1, [B, D, H, W,
+    1]: the aggregators take a channel axis."""
+    return correlation1d_volume(ref_fms, tgt_fms, *args)[..., None]
+
+
+# volume type -> (its function, its channels on features of c channels)
+VOLUMES = {"concatenation": (cat_volume, lambda c: 2 * c),
+           "difference": (dif_volume, lambda c: c),
+           "correlation": (_correlation, lambda c: 1)}
+
+
+def _volume(volume_type):
+    if volume_type not in VOLUMES:
+        raise ValueError(f"unknown volume type {volume_type}")
+    return VOLUMES[volume_type]
+
+
+def volume_planes(volume_type, feature_planes):
+    """The channels of the raw volume of ``volume_type`` on features of
+    ``feature_planes`` channels: what the aggregator's first unit takes
+    (Flax infers it at init; the port fixes it at build time)."""
+    return _volume(volume_type)[1](feature_planes)
 
 
 class CostProcessor(nn.Module):
@@ -22,15 +47,10 @@ class CostProcessor(nn.Module):
     def __init__(self, aggregator, volume_type="concatenation", max_disp=48,
                  start_disp=0, dilation=1, normalize=False, p=1.0):
         super().__init__()
-        if volume_type == "concatenation":
-            self.volume = cat_volume
-        elif volume_type == "difference":
+        self.volume = _volume(volume_type)[0]
+        if volume_type == "difference":
             self.volume = functools.partial(dif_volume, normalize=normalize,
                                             p=p)
-        else:
-            raise NotImplementedError(
-                f"{volume_type} cost volume is not ported yet (ROADMAP.md "
-                "queue 1: AnyNet / remaining pieces)")
         self.aggregator = aggregator
         self.max_disp, self.start_disp = max_disp, start_disp
         self.dilation = dilation

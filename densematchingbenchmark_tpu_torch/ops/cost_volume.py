@@ -1,20 +1,20 @@
-"""Cost-volume construction (concatenation and difference): the
-fixed-range path and the per-pixel ``disp_sample`` path (DeepPruner's);
-and the flow models' local 2-D correlation, ``correlation2d_volume``.
+"""Cost-volume construction (concatenation, difference and 1-D
+correlation): the fixed-range path and the per-pixel ``disp_sample`` path
+(DeepPruner's); and the flow models' local 2-D correlation,
+``correlation2d_volume``.
 
-Counterpart of densematchingbenchmark_tpu/ops/cost_volume.py:30-118 and
-:150-177. The
+Counterpart of densematchingbenchmark_tpu/ops/cost_volume.py:30-177. The
 per-pixel path warps the target features with ``warp.inverse_warp_3d``
 and zeroes the reference features where the warp left the frame (the
 reference's exact path; with ``compat_grid_sample`` its fast path's
 masking quirk, the reference zeroed where the warped value is <= 0).
 """
 
-import functools
 
 import numpy as np
 import torch
 
+from .kept import kept
 from .warp import inverse_warp_3d
 
 
@@ -31,7 +31,7 @@ def disp_sample_values(max_disp, start_disp=0, dilation=1):
     return np.linspace(start_disp, end_disp, num, dtype=np.float32)
 
 
-@functools.lru_cache(maxsize=256)
+@kept(256)
 def disp_sample_tensor(max_disp, start_disp, dilation, device):
     """``disp_sample_values`` as a float32 tensor on ``device``, made once
     per key and kept (a copy from the host per call would make every call
@@ -123,6 +123,46 @@ def dif_volume(reference_fm, target_fm, max_disp, start_disp=0, dilation=1,
             return vol.abs().sum(-1)
         return vol.abs().pow(p).sum(-1).pow(1.0 / p)
     return vol
+
+
+def correlation1d_volume(reference_fm, target_fm, max_disp, start_disp=0,
+                         dilation=1, disp_sample=None, leaky_slope=0.1):
+    """1-D correlation cost: the channel dot product at each disparity,
+    then a leaky ReLU.
+
+    For each sample value v (shift d = int(v)):
+    ``cost[:, i, :, x] = sum_c ref[:, :, x, c] * tgt[:, :, x - d, c]`` where
+    0 <= x - d < W, and zero elsewhere. With ``disp_sample`` [B, D, H, W]
+    (per-pixel samples, sub-pixel): the dot product of the reference with
+    the target warped by each sample (linear, zero outside the frame; the
+    reference is not masked). Disparity runs 0 -> max_disp - 1 along D, as
+    in the JAX package (the reference's patch order runs it backwards). The
+    channel sum accumulates in float32 and is rounded to the features'
+    dtype once.
+
+    Args:
+      reference_fm, target_fm: [B, H, W, C] left/right features.
+
+    Returns:
+      [B, D, H, W] in the features' dtype.
+    """
+    dtype = reference_fm.dtype
+    ref, tgt = reference_fm.float(), target_fm.float()
+    if disp_sample is not None:
+        warped, _ = inverse_warp_3d(tgt, disp_sample.float())
+        cost = torch.einsum("bhwc,bdhwc->bdhw", ref, warped)
+    else:
+        b, h, w, _ = ref.shape
+        vals = disp_sample_values(max_disp, start_disp, dilation)
+        cost = ref.new_zeros((b, len(vals), h, w))
+        for i, val in enumerate(vals):
+            d = int(val)  # each sample is shifted by its value cast to int
+            lo, hi = max(0, d), min(w, w + d)
+            if lo < hi:
+                cost[:, i, :, lo:hi] = torch.einsum(
+                    "bhwc,bhwc->bhw", ref[:, :, lo:hi],
+                    tgt[:, :, lo - d:hi - d])
+    return torch.nn.functional.leaky_relu(cost.to(dtype), leaky_slope)
 
 
 def correlation2d_volume(reference_fm, target_fm, radius, dilation=1):

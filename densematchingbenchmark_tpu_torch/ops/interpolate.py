@@ -9,10 +9,11 @@ taps of each (sizes, dtype, device) are made into tensors once and kept
 call on the card wait for the work queued before it.
 """
 
-import functools
 
 import numpy as np
 import torch
+
+from .kept import kept
 
 
 def _axis_taps(in_size, out_size, align_corners):
@@ -30,7 +31,7 @@ def _axis_taps(in_size, out_size, align_corners):
     return idx0, np.minimum(idx0 + 1, in_size - 1), w1
 
 
-@functools.lru_cache(maxsize=256)
+@kept(256)
 def axis_taps_tensors(in_size, out_size, align_corners, dtype, device):
     """``_axis_taps`` as tensors on ``device``, made once per key and kept:
     (idx0, idx1) int64 and w1 in ``dtype``. Callers must not write to them."""

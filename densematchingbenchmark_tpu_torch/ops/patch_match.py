@@ -27,12 +27,12 @@ PRNG and torch's cannot match bit for bit: the parity tests inject JAX's
 draw through ``noise``.
 """
 
-import functools
 
 import torch
 import torch.nn.functional as F
 
 from ..parallel import collectives
+from .kept import kept
 from .warp import inverse_warp_3d
 
 
@@ -71,7 +71,7 @@ def _evaluate(left, right, samples, noise, filter_size, temperature):
     return samples, noise
 
 
-@functools.lru_cache(maxsize=64)
+@kept(64)
 def eval_noise(n, h, w, device):
     """The eval draw [1, n, H, W] on ``device``: uniform [0, 1) from a
     generator seeded 0, made once per key and kept (a copy from the host

@@ -37,6 +37,7 @@ from ..losses import make_loss_evaluator
 from ..models import build_model
 from ..parallel import collectives
 from ..utils.checkpoint import CheckpointManager
+from ..utils.collect_env import collect_env_info, device_memory_stats
 from ..utils.logging import MetricsLogger, get_logger
 from .optim import build_optimizer
 from .state import TrainState
@@ -89,10 +90,13 @@ def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
     for AcfNet 'stereo_focal_loss_lvl<i>' and 'conf_loss_lvl<i>'),
     'grad_norm',
     'throughput' (samples/s), 'lr', 'step_ms' (host clock around the step,
-    ended by reading its metrics) and, on a GPU, 'peak_mem_gib'
-    (torch.cuda.max_memory_allocated). ``eval_dataset`` defaults to the
-    file dataset of data.eval.annfile, when that is set; its metrics are
-    logged after every epoch as 'eval/disp_<id>/<metric>'. A flow config
+    ended by reading its metrics) and, on a GPU, 'peak_mem_gib' (the
+    device's peak allocated of utils.collect_env.device_memory_stats; the
+    text log adds its reserved memory). The environment (utils.collect_env.collect_env_info: the
+    card's name and power limit first) is logged at the start.
+    ``eval_dataset`` defaults to the file dataset of data.eval.annfile,
+    when that is set; its metrics are logged after every epoch as
+    'eval/disp_<id>/<metric>'. A flow config
     logs 'flow_loss_lvl<i>' and 'eval/<metric>' (epe, 1px, 2px, 3px, 5px),
     needs ``train_dataset`` and builds no default eval set.
 
@@ -108,6 +112,7 @@ def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
     rank, world = collectives.rank(), collectives.world_size()
     logger = get_logger(work_dir, rank=rank)
     metrics_log = MetricsLogger(work_dir, rank=rank)
+    logger.info("environment:\n" + collect_env_info())
 
     data_cfg = cfg["data"]
     mean, std = data_cfg["mean"], data_cfg["std"]
@@ -212,9 +217,13 @@ def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
                                step_ms=t_step * 1e3)
                 mem_str = ""
                 if device.type == "cuda":
-                    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+                    index = (torch.cuda.current_device()
+                             if device.index is None else device.index)
+                    mem = device_memory_stats()[f"cuda:{index}"]
+                    peak = mem["peak_allocated"] / 2 ** 30
                     metrics["peak_mem_gib"] = peak
-                    mem_str = f" mem {peak:.1f}GiB"
+                    mem_str = (f" mem {peak:.1f}GiB (reserved "
+                               f"{mem['reserved'] / 2 ** 30:.1f}GiB)")
                 logger.info(
                     f"epoch {epoch + 1}/{total_epochs} step {step_num} "
                     f"lr {metrics['lr']:.2e} loss {metrics['loss']:.4f} "

@@ -1907,3 +1907,95 @@ def test_parallel_nccl_rank_runs_the_collectives_on_card(cuda, tmp_path,
     assert collective_counts() == {"all_reduce": 11, "all_gather": 1,
                                    "broadcast": 2, "barrier": 1}
 
+
+
+CORR = {"model.cost_processor.type": "Correlation"}
+TINY_CORR = {"PSMNet": dict(TINY, **CORR), "AcfNet": dict(
+    TINY, **CORR, **{"model.losses.focal_loss.max_disp": 64}),
+    "GCNet": dict(TINY_GCNET, **CORR)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(TINY_CORR))
+def test_correlation_model_on_card_matches_cpu(cuda, family):
+    """PSMNet, AcfNet (uniform) and GCNet with the Correlation cost
+    processor, small, on a 64x128 pair, in each dtype from one tree of
+    weights: the eval forward on the card (the first trunk unit takes the
+    one-channel volume, padded with zero channels to the kernels' widths:
+    K1 in float32, K4's bfloat16 route in bfloat16) against the plain
+    versions on the CPU. Float32: every disparity within 1e-2 px (cuDNN
+    against the CPU's convolutions through the soft-argmin, the PSMNet
+    slice's bound). Bfloat16: the correlation volume rounds sums of 32
+    products, which makes this model's own bfloat16-vs-float32 gap about
+    10 times the concatenation model's (on the CPU 0.13-0.19 px mean for
+    PSMNet here, against 0.008-0.017); so each disparity is held by the
+    CPU's own gap: within twice it plus 0.01 px of the CPU's, and the
+    card's own gap at least half the CPU's (a model that ignored bfloat16
+    would have none; the gap bound caps it above at three times the
+    CPU's: measured 0.8-1.26 times)."""
+    from densematchingbenchmark_tpu_torch.apis import StereoModel
+    name = {"PSMNet": "PSMNet/scene_flow", "GCNet": "GCNet/scene_flow",
+            "AcfNet": "AcfNet/scene_flow_uniform"}[family]
+    x = torch.tensor(np.random.RandomState(0).randn(1, 64, 128, 3),
+                     dtype=torch.float32)
+    state = None
+    disps = {}
+    for dtype in ("f32", "bf16"):
+        cfg = get_config(f"{name}_{dtype}", **TINY_CORR[family])
+        cpu = build_model(cfg, torch.Generator().manual_seed(0))
+        if state is None:
+            state = draw_bn(cpu, 0).state_dict()
+        cpu.load_state_dict(state)
+        card = copy.deepcopy(cpu).to(cuda)
+        assert card.cost_processor.aggregator.ConvUnit_0.in_features == 1
+        units = {"PSMNet": 13, "AcfNet": 13,
+                 "GCNet": 10 if dtype == "f32" else 12}[family]
+        kernels.reset_launch_counts()
+        got = StereoModel(cfg, card.eval(), cuda).forward(x.to(cuda),
+                                                          x.to(cuda))
+        counts, bf16 = kernels.launch_counts(), kernels.bf16_launch_counts()
+        assert counts["fused_conv3d"] == (units if dtype == "f32" else 0)
+        assert bf16["conv3d_packed_s1"] == (0 if dtype == "f32" else units)
+        want = StereoModel(cfg, cpu.eval(), torch.device("cpu")).forward(
+            x, x)
+        disps[dtype] = ([g.cpu() for g in got["disps"]], want["disps"])
+        assert len(got["disps"]) == len(want["disps"])
+    for (g, w), (g32, w32) in zip(zip(*disps["bf16"]), zip(*disps["f32"])):
+        assert g.shape == w.shape == (1, 64, 128, 1)
+        assert (g32 - w32).abs().max() <= 1e-2
+        gap = (g - w).abs().mean()
+        own, card_own = (w - w32).abs().mean(), (g - g32).abs().mean()
+        assert gap <= 2 * own + 0.01, (gap, own)
+        assert card_own >= 0.5 * own, (card_own, own)
+
+
+@pytest.mark.cuda
+def test_measurement_tools_on_card(cuda, tmp_path):
+    """The zoo table, the train-step table, the profiler and the loader
+    rate on the card at a few iterations on PSMNet: positive times, the
+    parameter count the module's, GFLOPs, the device's kernels listed, the
+    card's name on every row."""
+    from densematchingbenchmark_tpu_torch.tools import (loader_throughput,
+                                                        profile_model,
+                                                        train_throughput)
+    from densematchingbenchmark_tpu_torch.tools import benchmark as zoo
+    name = torch.cuda.get_device_name(0)
+    rows = zoo.main(["--models", "PSMNet/scene_flow", "--dtype", "bfloat16",
+                     "--iters", "2", "--json"])
+    module = build_model(get_config("PSMNet/scene_flow_bf16"))
+    assert rows[0]["params"] == sum(p.numel() for p in module.parameters())
+    assert rows[0]["latency_ms"] > 0 and rows[0]["gflops"] > 0
+    assert rows[0]["device"] == name
+    recs = train_throughput.main(["--only", "StereoNet/scene_flow_8x_2",
+                                  "--iters", "2"])
+    assert len(recs) == 1 and recs[0]["f32_ms"] > 0 and \
+        recs[0]["bf16_ms"] > 0
+    summary = profile_model.main(["--config", "PSMNet/scene_flow",
+                                  "--height", "256", "--width", "512",
+                                  "--iters", "1", "--out",
+                                  str(tmp_path / "trace.json")])
+    assert summary["busy_ms"] > 0 and summary["launches"] > 0
+    assert any("conv3d_wgmma" in k for k, _, _ in summary["kernels"])
+    rec = loader_throughput.main(["--n", "3", "--epochs", "1",
+                                  "--workdir", str(tmp_path / "set")])
+    assert rec["value"] > 0 and rec["device"] == name

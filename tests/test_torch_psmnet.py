@@ -33,6 +33,8 @@ from densematchingbenchmark_tpu_torch.utils import (flax_variables,
 from densematchingbenchmark_tpu_torch.utils.checkpoint import (
     CheckpointManager)
 
+from acfnet_parity import flat
+
 # The suite runs several test workers on one CPU: one torch intra-op
 # thread each keeps their OpenMP pools from oversubscribing the cores.
 torch.set_num_threads(1)
@@ -127,9 +129,10 @@ def test_scale_factor_and_crop_run_on_the_port():
 def test_port_imports_no_jax():
     # inference and one training step in float32 and in bfloat16 (PSMNet,
     # AcfNet, StereoNet, GCNet, DeepPruner, AnyNet; PWCFlow and RAFT
-    # through the flow API and trainer) and the packed-conv
-    # microbench, with every module of the port (parallel/ among them) and
-    # its four command-line tools imported
+    # through the flow API and trainer), PSMNet with the Correlation cost
+    # processor and the packed-conv microbench, with every module of the
+    # port (parallel/ and the environment dump among them), its four
+    # command-line tools and its measurement tools imported
     train = dict(TINY, **{"model.losses.l1_loss.max_disp": 64,
                           "data.batch_size_per_device": 1})
     # AcfNet adaptive (with the vis hook, the profiler window and the
@@ -182,9 +185,19 @@ import densematchingbenchmark_tpu_torch.parallel
 import densematchingbenchmark_tpu_torch.parallel.collectives
 import densematchingbenchmark_tpu_torch.parallel.distributed
 from densematchingbenchmark_tpu_torch.tools import bench, demo, test, train
+from densematchingbenchmark_tpu_torch.tools import (
+    benchmark, gen_annotations, loader_throughput, profile_model,
+    train_throughput)
+from densematchingbenchmark_tpu_torch.ops import correlation1d_volume
+from densematchingbenchmark_tpu_torch.utils.collect_env import (
+    collect_env_info, device_memory_stats)
+print(collect_env_info(), device_memory_stats())
 model = init_model("PSMNet/scene_flow_f32", device="cpu", **{TINY!r})
 rng = np.random.RandomState(0)
 img = rng.rand(64, 64, 3).astype(np.float32) * 255
+inference_stereo(model, [{{"leftImage": img, "rightImage": img}}])
+model = init_model("PSMNet/scene_flow_f32", device="cpu", **{TINY!r},
+                   **{{"model.cost_processor.type": "Correlation"}})
 inference_stereo(model, [{{"leftImage": img, "rightImage": img}}])
 model = init_model("PSMNet/scene_flow_bf16", device="cpu", **{TINY!r})
 inference_stereo(model, [{{"leftImage": img, "rightImage": img}}])
@@ -276,34 +289,59 @@ def test_init_model_without_cuda_raises(monkeypatch):
 
 
 # (override, what JAX's builder does with it: the exception it raises,
-# or None where it builds); the Correlation pieces are not ported yet and
-# raise NotImplementedError in the port; a flow task on a stereo config
-# has no flow meta-architecture (ValueError on both sides)
+# or None where it builds); a flow task on a stereo config has no flow
+# meta-architecture (ValueError on both sides), an unknown
+# meta-architecture raises ValueError and an unknown cost processor
+# KeyError on both sides (ROADMAP fault 11)
 @pytest.mark.parametrize("override,jax_does", [
     ({"model.backbone.type": "AnyNet"}, TypeError),
     ({"model.cost_processor.cost_aggregator.type": "AnyNet"}, KeyError),
     ({"model.backbone.type": "AnyNet",
       "model.cost_processor.type": "Correlation"}, TypeError),
-    ({"model.cost_processor.type": "Correlation"}, NotImplementedError),
+    ({"model.cost_processor.type": "Correlation"}, None),
     ({"model.disp_refinement": {"type": "AnyNet"}}, None),
     ({"model.meta_architecture": "AnyNet"}, TypeError),
     ({"task": "flow"}, ValueError),
-], ids=[f"override{i}" for i in range(7)])
+    ({"model.meta_architecture": "Foo"}, ValueError),
+    ({"model.cost_processor.type": "Foo"}, KeyError),
+], ids=[f"override{i}" for i in range(9)])
 def test_unported_pieces_raise(override, jax_does):
-    """AnyNet's pieces on a PSMNet config, as JAX's builder takes them
-    (since AnyNet was ported): its backbone takes no ``pack`` (TypeError),
-    there is no AnyNet aggregator (KeyError), its refinement builds, and
-    the AnyNet branch cannot read PSMNet's int sample range (TypeError).
-    The pieces not ported yet raise NotImplementedError."""
+    """Pieces of other families on a PSMNet config, as JAX's builder takes
+    them: AnyNet's backbone takes no ``pack`` (TypeError), there is no
+    AnyNet aggregator (KeyError), its refinement builds, and the AnyNet
+    branch cannot read PSMNet's int sample range (TypeError). The
+    Correlation cost processor builds on both sides into the same Flax
+    tree (jax.eval_shape of JAX's init), whose first aggregator unit takes
+    the one-channel volume; its forward and a train step against JAX's:
+    tests/test_torch_correlation*.py. Unknown names raise what JAX
+    raises."""
     cfg = get_config("PSMNet/scene_flow", **override)
     if jax_does is None:
-        jbuild_model(jget_config("PSMNet/scene_flow", **override))
-        assert type(build_model(cfg).disp_refinement).__name__ == \
-            "AnyNetRefinement"
+        jmodel = jbuild_model(jget_config("PSMNet/scene_flow", **override))
+        module = build_model(cfg)
+        if "model.disp_refinement" in override:
+            assert type(module.disp_refinement).__name__ == \
+                "AnyNetRefinement"
+            return
+        dummy = jnp.zeros((1, 64, 128, 3))
+        shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), dummy,
+                                dummy)
+        want = {k: tuple(v.shape) for k, v in flat(jax.tree.map(
+            lambda s: np.empty(s.shape, np.float32), shapes)).items()}
+        variables = flax_variables(module)
+        assert {k: v.shape for k, v in flat(variables).items()} == want
+        first = ("params", "cost_processor", "aggregator", "ConvUnit_0",
+                 "Conv_0", "kernel")
+        assert want[first] == (3, 3, 3, 1, 32)
+        # the tree loads, and a leaf of another shape still raises
+        load_jax_variables(module, variables)
+        variables["params"]["cost_processor"]["aggregator"]["ConvUnit_0"][
+            "Conv_0"]["kernel"] = np.zeros((3, 3, 3, 64, 32), np.float32)
+        with pytest.raises(ValueError, match="shape"):
+            load_jax_variables(module, variables)
         return
-    if jax_does is not NotImplementedError:
-        with pytest.raises(jax_does):
-            jbuild_model(jget_config("PSMNet/scene_flow", **override))
+    with pytest.raises(jax_does):
+        jbuild_model(jget_config("PSMNet/scene_flow", **override))
     with pytest.raises(jax_does):
         build_model(cfg)
 
