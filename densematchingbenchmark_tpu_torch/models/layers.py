@@ -445,12 +445,14 @@ class Hourglass3D(nn.Module):
     skips.
     """
 
+    dims = 3   # the volume's spatial axes (layers_extra.Hourglass2D: 2)
+
     def __init__(self, features, batch_norm=True, dtype=torch.float32):
         super().__init__()
         c2 = features * 2
 
         def unit(cin, cout, stride=1, relu=True, transpose=False):
-            return ConvUnit(cin, cout, 3, stride, 1, dims=3,
+            return ConvUnit(cin, cout, 3, stride, 1, dims=self.dims,
                             batch_norm=batch_norm, relu=relu, bias=False,
                             transpose=transpose,
                             output_padding=1 if transpose else 0,

@@ -50,16 +50,22 @@ def add_cpu_arg(parser):
     return parser
 
 
-def tool_device(args):
-    """The measurement tools' device: the GPU, or the CPU with --cpu;
-    without a GPU and without --cpu it raises (no fall-back). On the GPU
-    TF32 is turned off, as init_model turns it off: float32 configs
-    compute in float32."""
-    device = resolve_device("cpu" if args.cpu else None)
+def float32_device(device=None):
+    """``resolve_device(device)`` (the GPU by default, which it needs);
+    on the GPU TF32 is turned off, as init_model turns it off: float32
+    configs compute in float32."""
+    device = resolve_device(device)
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     return device
+
+
+def tool_device(args):
+    """The measurement tools' device: the GPU, or the CPU with --cpu;
+    without a GPU and without --cpu it raises (no fall-back), TF32 off
+    (``float32_device``)."""
+    return float32_device("cpu" if args.cpu else None)
 
 
 def device_label(device):

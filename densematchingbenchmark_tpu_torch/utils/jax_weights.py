@@ -21,6 +21,9 @@ torch_convert.py:60-81):
       conv applies the flipped kernel)
   BatchNorm scale / bias                  -> weight / bias
   BatchNorm batch_stats mean / var        -> running_mean / running_var
+  a parameter of any other module (``self.param`` in Flax, for example
+      models/cost_norm.CostVolumeNorm's weight and bias)
+                                          -> the parameter of that name
 
 Any leaf left unmatched on either side, or of the wrong shape, raises.
 ``flax_variables`` is the inverse direction with the same rules: it lays
@@ -108,6 +111,9 @@ def flax_variables(model, values=None):
                 m.running_mean.detach().cpu().numpy())
             put("batch_stats", path + ("var",),
                 m.running_var.detach().cpu().numpy())
+        else:
+            for attr, _ in m.named_parameters(recurse=False):
+                put("params", path + (attr,), get(attr))
     return tree
 
 
@@ -145,9 +151,9 @@ def load_jax_variables(model, variables):
             take(("params",) + path + ("bias",), m.bias)
             take(("batch_stats",) + path + ("mean",), m.running_mean)
             take(("batch_stats",) + path + ("var",), m.running_var)
-        elif any(True for _ in m.parameters(recurse=False)):
-            raise TypeError(f"{name} ({type(m).__name__}) has parameters "
-                            "with no Flax mapping")
+        else:
+            for attr, param in m.named_parameters(recurse=False):
+                take(("params",) + path + (attr,), param)
     unmatched = sorted("/".join(k) for k in set(leaves) - used)
     if unmatched:
         raise ValueError(f"{len(unmatched)} Flax leaves have no module in "

@@ -1999,3 +1999,112 @@ def test_measurement_tools_on_card(cuda, tmp_path):
     rec = loader_throughput.main(["--n", "3", "--epochs", "1",
                                   "--workdir", str(tmp_path / "set")])
     assert rec["value"] > 0 and rec["device"] == name
+
+
+def hourglass_pair(dtype, seed=0):
+    """DilatedHourglass3D(8) in ``dtype`` with random BN (draw_bn) on the
+    CPU, and its copy on the card."""
+    from densematchingbenchmark_tpu_torch.models.layers import (
+        init_parameters)
+    from densematchingbenchmark_tpu_torch.models.layers_extra import (
+        DilatedHourglass3D)
+    cpu = DilatedHourglass3D(8, dtype=dtype)
+    init_parameters(cpu, torch.Generator().manual_seed(seed))
+    draw_bn(cpu, seed)
+    return cpu, copy.deepcopy(cpu).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,train", [(torch.float32, False),
+                                         (torch.float32, True),
+                                         (torch.bfloat16, False)])
+def test_dilated_hourglass3d_on_card(cuda, dtype, train):
+    """DilatedHourglass3D (models/layers_extra.py) on a 2x8x12x20 volume
+    (its two stride-2 stages need sides divisible by 4; 20 and 12 are
+    ragged for the blocks' tiles): its two stride-1 units launch K1 in float32 eval, K4 in
+    training and K4's bfloat16 route in bfloat16 eval (two launches, no
+    other kernel). Float32: the three outputs within 1e-4 of max|CPU| of
+    the CPU's (the plain versions, the library convs on the CPU).
+    Bfloat16: each stride-1 unit, as the module ran it, within 1e-4 +
+    BF16_STEP of max|plain| of its plain version on the same input."""
+    cpu, card = hourglass_pair(dtype)
+    x = torch.randn(2, 8, 12, 20, 8, generator=torch.Generator()
+                    .manual_seed(1))
+    seen = {}
+    for name in ("ConvUnit_1", "ConvUnit_3"):
+        getattr(card, name).register_forward_hook(
+            lambda m, a, o, name=name: seen.__setitem__(name, (a[0], o)))
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = card.train(train)(x.to(cuda))
+        want = cpu.train(train)(x)
+    torch.cuda.synchronize()
+    launched = "fused_conv3d" if dtype == torch.float32 and not train \
+        else "conv3d_packed_s1"
+    assert kernels.launch_counts() == {
+        **{k: 0 for k in kernels.launch_counts()}, launched: 2}
+    assert kernels.bf16_launch_counts()["conv3d_packed_s1"] == (
+        2 if dtype == torch.bfloat16 else 0)
+    if dtype == torch.float32:
+        for g, w in zip(got, want):
+            assert (g.cpu() - w).abs().max() <= 1e-4 * w.abs().max()
+        return
+    for name, (xin, out) in seen.items():
+        unit = getattr(card, name)
+        inv, shift = unit.folded_bn()
+        kernel = unit.Conv_0.weight.permute(2, 3, 4, 1, 0).to(dtype)
+        ref = kernels.conv3d_packed_s1_plain(xin.to(dtype), kernel, inv,
+                                             shift, 1, unit.relu).float()
+        top = ref.abs().max().item()
+        assert (out.float() - ref).abs().max().item() <= \
+            (1e-4 + BF16_STEP) * top, name
+
+
+@pytest.mark.cuda
+def test_gauntlet_overfit_on_card(cuda):
+    """tools/convergence_gauntlet.py's overfit mode on AnyNet/scene_flow
+    (bfloat16 on a GPU) at its full width, 2x64x128, 24 steps at lr 2e-3
+    without warmup: JAX's criterion (the loss below 0.7 of its first, the
+    batch's EPE down); each step and each of the two eval forwards launch
+    K4's bfloat16 route 15 times and K2 3, each step K2's backward 3."""
+    from densematchingbenchmark_tpu_torch.tools import (
+        convergence_gauntlet as gauntlet)
+    cfg = get_config("AnyNet/scene_flow")
+    assert cfg["model"]["dtype"] == "bfloat16"
+    cfg["optimizer"]["lr"] = 2e-3
+    cfg["lr_schedule"]["warmup_iters"] = 0
+    kernels.reset_launch_counts()
+    r = gauntlet.run_stereo_family(cfg, steps=24, batch=2, crop_hw=(64, 128),
+                                   log_every=4, overfit=True)
+    counts = kernels.launch_counts()
+    assert counts["conv3d_packed_s1"] == 26 * 15 == \
+        kernels.bf16_launch_counts()["conv3d_packed_s1"]
+    assert counts["fused_soft_argmin"] == 26 * 3
+    assert counts["fused_soft_argmin_backward"] == 24 * 3
+    assert r["loss_last"] < 0.7 * r["loss_first"], r
+    assert r["epe_final"] < r["epe_init"], r
+
+
+@pytest.mark.cuda
+def test_view_cost_on_card_matches_cpu(cuda, tmp_path):
+    """tools/view_cost.py on the card at PSMNet max_disp 32 in float32:
+    the PNGs decode, and each curve is within 1e-4 (a probability) and
+    each estimate within 1e-2 px of the same weights' on the CPU."""
+    from densematchingbenchmark_tpu_torch.data import io as dio
+    from densematchingbenchmark_tpu_torch.tools import view_cost
+    over = {"model.max_disp": 32,
+            "model.cost_processor.cost_computation.max_disp": 8,
+            "model.cost_processor.cost_aggregator.max_disp": 32,
+            "model.disp_predictor.max_disp": 32}
+    got = view_cost.main(["--config", "PSMNet/scene_flow_f32", "--out-dir",
+                          str(tmp_path), "--override",
+                          *(f"{k}={v}" for k, v in over.items())])
+    want = view_cost.cost_curves(init_model("PSMNet/scene_flow_f32",
+                                            device="cpu", **over))
+    for g, w in zip(got["curves"], want["curves"]):
+        assert (g["y"], g["x"], g["gt"]) == (w["y"], w["x"], w["gt"])
+        assert np.abs(g["prob"] - w["prob"]).max() <= 1e-4
+        assert abs(g["est"] - w["est"]) <= 1e-2
+        img = dio.decode_png((tmp_path / f"cost_y{g['y']}_x{g['x']}.png")
+                             .read_bytes())
+        assert img.shape == view_cost.PLOT_SIZE + (3,)

@@ -132,7 +132,8 @@ def test_port_imports_no_jax():
     # through the flow API and trainer), PSMNet with the Correlation cost
     # processor and the packed-conv microbench, with every module of the
     # port (parallel/ and the environment dump among them), its four
-    # command-line tools and its measurement tools imported
+    # command-line tools, its measurement tools and its convergence tools
+    # imported, and the library pieces no config reaches run once
     train = dict(TINY, **{"model.losses.l1_loss.max_disp": 64,
                           "data.batch_size_per_device": 1})
     # AcfNet adaptive (with the vis hook, the profiler window and the
@@ -191,6 +192,15 @@ from densematchingbenchmark_tpu_torch.tools import (
 from densematchingbenchmark_tpu_torch.ops import correlation1d_volume
 from densematchingbenchmark_tpu_torch.utils.collect_env import (
     collect_env_info, device_memory_stats)
+from densematchingbenchmark_tpu_torch.tools import (
+    bf16_convergence, convergence_gauntlet, view_cost)
+from densematchingbenchmark_tpu_torch.models import (
+    conf_measure, cost_norm, layers_extra)
+from densematchingbenchmark_tpu_torch.models.refinement.warp_error import (
+    WarpErrorRefinement)
+from densematchingbenchmark_tpu_torch.ops import propagation
+from densematchingbenchmark_tpu_torch.losses import (relative_loss,
+                                                     self_supervised)
 print(collect_env_info(), device_memory_stats())
 model = init_model("PSMNet/scene_flow_f32", device="cpu", **{TINY!r})
 rng = np.random.RandomState(0)
@@ -271,6 +281,26 @@ for name, over, size in (("PWCFlow/flying_chairs", flow["pwc"], 32),
                   device="cpu")
 microbench_packed.run(cases=(("tiny", (1, 8, 4, 6), 8, 4),), iters=1,
                       device="cpu")
+# the library pieces no config reaches, and the convergence tools
+vol = torch.zeros(1, 4, 4, 4, 4)
+assert layers_extra.DilatedHourglass3D(4)(vol)[0].shape == vol.shape
+assert layers_extra.DenseAspp(8, 4)(torch.zeros(1, 8, 8, 8)).shape[-1] == 4
+fm = torch.zeros(1, 8, 8, 2)
+assert WarpErrorRefinement(2, C=2)(torch.zeros(1, 4, 4, 1), fm, fm).shape[
+    -1] == 1
+cost = torch.rand(1, 8, 4, 4)
+conf_measure.apkr_confidence(cost), cost_norm.CostVolumeNorm("var")(cost)
+propagation.bilateral_filter(fm[..., :1], fm)
+self_supervised.inverse_warp_loss(fm[..., :1], fm, fm)
+relative_loss.relative_loss(fm[..., :1], fm[..., :1], fm[..., :1], 32)
+r = convergence_gauntlet.run_stereo_family(
+    "AnyNet/scene_flow_f32", steps=1, batch=1, crop_hw=(32, 64),
+    gen_hw=(48, 96), gen_max_disp=8, train_len=1, eval_len=1,
+    device="cpu")
+assert np.isfinite(r["epe_final"])
+bf16_convergence.run("AnyNet/scene_flow", "bfloat16", 1, 32, 64, 1, 1,
+                     device="cpu")
+assert view_cost.draw_curve(np.ones(8) / 8, 2.0, 3.0).dtype == np.uint8
 names = ("jax", "flax", "optax", "orbax", "densematchingbenchmark_tpu")
 bad = [m for m in sys.modules if m in names
        or m.startswith(tuple(n + "." for n in names))]
