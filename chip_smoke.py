@@ -289,6 +289,23 @@ PyTorch version on the card. Phases, each fatal on failure:
      read back by data/io.decode_png, the float32 curves against the CPU's
      on the same weights; tools/bf16_convergence.py for 40 steps at
      2x128x256: both curves finite and falling.
+ 21. D-sharded cost volume (parallel/mesh.py): PSMNet/scene_flow at full
+     width, its cost volume split along D over the model axis of a grid
+     of gloo ranks on cuda:0 (collectives through the host), each against
+     one process on the same seeded weights and data. Eval: a (1, 2)
+     grid, one random normalised 384x1248 pair, float32 and bfloat16,
+     both eval modes; each rank's disparities against the one process's
+     (D_F32_ATOL, D_BF16_ATOL); launches a forward per rank: K1 13 in
+     float32, K4's bfloat16 route 13 in bfloat16 (the dres and classify
+     units on 24 + 2 planes), K2 or K3 3. Training: train_matcher(mesh=,
+     use_volume_sharding=True) on a (1, 2) grid for D_STEPS steps at
+     256x512, global batch 3, and on a (2, 2) grid for D_GRID_STEPS steps
+     at a global batch of 2, each against one process at its global batch:
+     the first step's loss, gradient cosines and BN statistics within
+     phase 15's PAR_* bounds, the ranks' parameters bitwise equal, K4 13
+     and K2 3 + 3 a step per rank. Prints each rank's peak memory beside
+     the one process's, the collective calls and bytes of a forward and of
+     a step, and the phase's seconds: a check on one card, not a speed.
 
 Prints a JSON line of per-kernel numbers before the last line (K4's and
 K5's bfloat16 routes in the microbench in rows of their own, ``*_bf16``,
@@ -4562,8 +4579,8 @@ def first_step_capture(perturb=0.0):
             first["names"] = [n for n, _ in state.module.named_parameters()]
         return out
 
-    def build_model(cfg, generator=None):
-        module = real[2](cfg, generator)
+    def build_model(cfg, generator=None, mesh=None):
+        module = real[2](cfg, generator, mesh=mesh)
         g = torch.Generator().manual_seed(1)
         with torch.no_grad():
             for p in module.parameters():
@@ -4816,6 +4833,283 @@ def check_parallel(suffix, one, two, floor, smi):
     return {n: one["launches"][n] + floor["launches"][n]
             + two[0]["launches"][n] + two[1]["launches"][n]
             for n in one["launches"]}
+
+
+# The D-sharded cost volume (phase 21): PSMNet/scene_flow at full width on
+# grids of gloo ranks sharing cuda:0; eval at 384x1248 on a (1, 2) grid,
+# training at 256x512 on (1, 2) (global batch 3) and (2, 2) (global 2)
+D_CONFIG = "PSMNet/scene_flow"
+D_FRAME = (384, 1248)
+D_STEPS, D_GLOBAL = 3, 3
+D_GRID_STEPS, D_GRID_GLOBAL = 2, 2
+D_F32_ATOL = 2e-3    # px, float32: the units on 24 + 2 planes sum each
+                     # output's taps as on 48, the gathers copy; MODES_ATOL
+D_BF16_ATOL = 0.05   # px, bfloat16, mean: a bfloat16 rounding that flips
+                     # in a sum of another order moves the soft-argmin by
+                     # a bfloat16 step of its costs (BF16_CPU_ATOL's scale)
+
+
+def d_pair():
+    """One normalised random 384x1248 pair, the same in every process."""
+    g = torch.Generator().manual_seed(21)
+    return [torch.randn((1, *D_FRAME, 3), generator=g) for _ in range(2)]
+
+
+def d_eval_rank(rank, world, port, out_dir):
+    """A D-split PSMNet eval forward per dtype and mode on a (1, world)
+    grid on cuda:0 (world 1: the one process, no group); writes its
+    disparities, launches, collectives and peak memory."""
+    from densematchingbenchmark_tpu_torch.configs import get_config
+    from densematchingbenchmark_tpu_torch.models import build_model
+    from densematchingbenchmark_tpu_torch.ops import cuda as kernels
+    from densematchingbenchmark_tpu_torch.parallel import (
+        collective_bytes, collective_counts, d_axis_counts, init_distributed,
+        make_mesh, reset_collective_counts, shutdown_distributed)
+    if world > 1:
+        init_distributed(coordinator=f"localhost:{port}",
+                         num_processes=world, process_id=rank,
+                         device="cuda:0", backend="gloo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh((1, world)) if world > 1 else None
+    left, right = (x.cuda() for x in d_pair())
+    out = {}
+    for dtype in ("f32", "bf16"):
+        for fused in (False, True):
+            cfg = get_config(f"{D_CONFIG}_{dtype}", **{
+                "model.eval.fused_upsample_argmin": fused})
+            module = build_model(cfg, torch.Generator().manual_seed(0),
+                                 mesh=mesh).cuda().eval()
+            with torch.inference_mode():
+                module(left, right)                     # operands, warm-up
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                reset_collective_counts()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                disps = module(left, right)["disps"]
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            out[dtype, fused] = {
+                "disps": [d.float().cpu() for d in disps],
+                "launches": kernels.launch_counts(),
+                "bf16_launches": kernels.bf16_launch_counts(),
+                "collectives": collective_counts(),
+                "bytes": collective_bytes(), "d_axis": d_axis_counts(),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "ms": ms}
+            del module, disps
+            torch.cuda.empty_cache()
+    torch.save(out, os.path.join(out_dir, f"eval{world}_{rank}.pt"))
+    shutdown_distributed()
+
+
+def d_train_rank(rank, world, port, grid, steps, global_batch, out_dir):
+    """train_matcher on PSMNet/scene_flow_f32 with its volume split over
+    ``grid`` (world 1: the one process at ``global_batch``) for ``steps``
+    steps at 256x512 on cuda:0; writes the first step's gradients and BN
+    statistics, the losses, the parameters, launches, the collectives of
+    the second step and the peak memory."""
+    from densematchingbenchmark_tpu_torch.configs import get_config
+    from densematchingbenchmark_tpu_torch.data import (SyntheticStereoDataset,
+                                                       transforms)
+    from densematchingbenchmark_tpu_torch.ops import cuda as kernels
+    from densematchingbenchmark_tpu_torch.parallel import (
+        collective_bytes, collective_counts, d_axis_counts, init_distributed,
+        make_mesh, reset_collective_counts, shutdown_distributed)
+    from densematchingbenchmark_tpu_torch.trainer import train_matcher
+    from densematchingbenchmark_tpu_torch.trainer import train_step
+    from densematchingbenchmark_tpu_torch.trainer.loop import read_metrics
+    if world > 1:
+        init_distributed(coordinator=f"localhost:{port}",
+                         num_processes=world, process_id=rank,
+                         device="cuda:0", backend="gloo")
+    mesh = make_mesh(grid if world > 1 else None)
+    cfg = get_config(PAR_CONFIG + "_f32")
+    data = cfg["data"]
+    data["batch_size_per_device"] = global_batch // mesh.n_data
+    cfg["vis"] = {"enabled": False}
+    crop = data["train"]["input_shape"]
+    ds = SyntheticStereoDataset(
+        length=global_batch * steps, height=crop[0] + 32,
+        width=crop[1] + 64, max_disp=cfg["model"]["max_disp"],
+        transform=transforms.make_train_transform(crop, data["mean"],
+                                                  data["std"]))
+    per_step = []
+    with tempfile.TemporaryDirectory() as work, \
+            first_step_capture() as first:
+        real = train_step.apply_losses
+
+        def apply_losses(state, loss_dict):     # the collectives after each
+            result = real(state, loss_dict)
+            per_step.append((collective_counts(), collective_bytes(),
+                             d_axis_counts()))
+            return result
+        train_step.apply_losses = apply_losses
+        try:
+            kernels.reset_launch_counts()
+            reset_collective_counts()
+            torch.cuda.reset_peak_memory_stats()
+            state = train_matcher(cfg, work, train_dataset=ds,
+                                  max_steps=steps, log_interval=1,
+                                  device="cuda:0", mesh=mesh,
+                                  use_volume_sharding=True)
+            torch.cuda.synchronize()
+        finally:
+            train_step.apply_losses = real
+        records = read_metrics(work) if rank == 0 else []
+    # the second step's collectives: the difference of the counts after it
+    # and after the first
+    step2 = [{k: b[k] - a[k] for k in a}
+             for a, b in zip(per_step[0], per_step[1])]
+    torch.save({"params": {n: p.detach().cpu()
+                           for n, p in state.module.named_parameters()},
+                "first": first,
+                "launches": kernels.launch_counts(),
+                "bf16_launches": kernels.bf16_launch_counts(),
+                "step_collectives": step2,
+                "losses": [r["train/loss"] for r in records],
+                "grad_norms": [r["train/grad_norm"] for r in records],
+                "step_ms": [r["train/step_ms"] for r in records],
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30},
+               os.path.join(out_dir, f"train{world}_{rank}.pt"))
+    shutdown_distributed()
+
+
+def d_first_step_errors(got, want):
+    """The first step's loss relative error, the BN statistics' largest
+    error over their largest value and the gradients' worst cosine."""
+    names = [n for n, t in want["first"]["buffers"].items()
+             if t.is_floating_point()]
+    a, b = got["first"]["buffers"], want["first"]["buffers"]
+    top = max(float(x.abs().max()) for x in want["first"]["grads"])
+    cos = min(float((g * w).sum() / (g.norm() * w.norm()))
+              for g, w in zip(got["first"]["grads"], want["first"]["grads"])
+              if float(w.abs().max()) > 1e-6 * top)
+    return {"loss_1": abs(got["losses"][0] - want["losses"][0])
+            / abs(want["losses"][0]),
+            "bn_1": max(float((a[n] - b[n]).abs().max()) for n in names)
+            / max(float(b[n].abs().max()) for n in names),
+            "grad_cos_1": cos}
+
+
+def d_check_train(label, ranks, one, steps):
+    for r, res in enumerate(ranks):
+        k = res["launches"]
+        assert k["conv3d_packed_s1"] == 13 * steps and \
+            k["fused_soft_argmin"] == 3 * steps and \
+            k["fused_soft_argmin_backward"] == 3 * steps and \
+            k["fused_conv3d"] == 0, (label, r, k)
+        assert res["step_collectives"] == ranks[0]["step_collectives"]
+        for n, p in ranks[0]["params"].items():
+            assert torch.equal(p, res["params"][n]), (label, r, n)
+    d_axis = ranks[0]["step_collectives"][2]
+    assert d_axis == {"halo_exchange": 7, "halo_exchange_backward": 7,
+                      "gather_d": 2, "gather_d_backward": 2}, d_axis
+    assert len(ranks[0]["losses"]) == len(one["losses"]) == steps
+    assert np.isfinite(ranks[0]["losses"]).all()
+    err = d_first_step_errors(ranks[0], one)
+    assert err["loss_1"] <= PAR_LOSS_RTOL and \
+        err["bn_1"] <= PAR_STATE_TOL and \
+        err["grad_cos_1"] > PAR_GRAD_COS, (label, err)
+    return err
+
+
+def d_shard_phase(smi):
+    """Phase 21: the D-split eval on a (1, 2) grid in both dtypes and
+    modes, training on (1, 2) and (2, 2) grids, each against one process;
+    returns the launches of its runs (every rank's), float32's and
+    bfloat16's."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    f32 = dict.fromkeys(SOURCES, 0)
+    bf16 = dict.fromkeys(SOURCES, 0)
+    with tempfile.TemporaryDirectory() as out:
+        d_eval_rank(0, 1, None, out)
+        torch.cuda.empty_cache()
+        mp.start_processes(d_eval_rank, args=(2, free_port(), out),
+                           nprocs=2, join=True, start_method="spawn")
+        one = torch.load(os.path.join(out, "eval1_0.pt"), weights_only=False)
+        two = [torch.load(os.path.join(out, f"eval2_{r}.pt"),
+                          weights_only=False) for r in range(2)]
+        for (dtype, fused), want in one.items():
+            argmin = ("fused_upsample_soft_argmin" if fused
+                      else "fused_soft_argmin")
+            total = f32 if dtype == "f32" else bf16
+            worst = []
+            for r, res in enumerate(two):
+                got = res[dtype, fused]
+                k, kb = got["launches"], got["bf16_launches"]
+                if dtype == "f32":
+                    assert k["fused_conv3d"] == 13 and \
+                        kb["conv3d_packed_s1"] == 0, (r, dtype, fused, k)
+                else:
+                    assert k["fused_conv3d"] == 0 and \
+                        kb["conv3d_packed_s1"] == 13, (r, dtype, fused, kb)
+                assert k[argmin] == 3, (r, dtype, fused, k)
+                assert got["d_axis"] == {
+                    "halo_exchange": 7, "halo_exchange_backward": 0,
+                    "gather_d": 2, "gather_d_backward": 0}, got["d_axis"]
+                assert all(torch.isfinite(d).all() for d in got["disps"])
+                # float32: the largest gap; bfloat16: the mean gap
+                gaps = [(g - w).abs() for g, w in zip(got["disps"],
+                                                      want["disps"])]
+                worst.append(max(float(e.max() if dtype == "f32"
+                                       else e.mean()) for e in gaps))
+                for name, n in k.items():
+                    total[name] += n
+            bound = D_F32_ATOL if dtype == "f32" else D_BF16_ATOL
+            assert max(worst) <= bound, (dtype, fused, worst)
+            g = two[0][dtype, fused]
+            print(f"D-split eval {D_CONFIG}_{dtype} "
+                  f"{'fused' if fused else 'plain'} 1x{D_FRAME[0]}x"
+                  f"{D_FRAME[1]}, (1, 2) grid of gloo ranks on cuda:0 vs "
+                  f"one process: {'max' if dtype == 'f32' else 'mean'} "
+                  f"|d - d_one| per rank {[float(f'{x:.3g}') for x in worst]}"
+                  f" px (bound {bound}); launches per rank {g['launches']} "
+                  f"(bf16 {g['bf16_launches']}); a forward's collectives "
+                  f"per rank {g['collectives']}, bytes {g['bytes']}, D-axis "
+                  f"{g['d_axis']}; peak {g['peak_gib']:.2f} GiB a rank vs "
+                  f"{want['peak_gib']:.2f} GiB one process; forward "
+                  f"{g['ms']:.1f} ms a rank (gloo through the host) vs "
+                  f"{want['ms']:.1f} ms, host clock: a check, not a speed; "
+                  f"{smi}")
+        torch.cuda.empty_cache()
+        for grid, steps, batch in (((1, 2), D_STEPS, D_GLOBAL),
+                                   ((2, 2), D_GRID_STEPS, D_GRID_GLOBAL)):
+            world = grid[0] * grid[1]
+            d_train_rank(0, 1, None, None, steps, batch, out)
+            one = torch.load(os.path.join(out, "train1_0.pt"),
+                             weights_only=False)
+            torch.cuda.empty_cache()
+            mp.start_processes(d_train_rank,
+                               args=(world, free_port(), grid, steps, batch,
+                                     out),
+                               nprocs=world, join=True, start_method="spawn")
+            ranks = [torch.load(os.path.join(out, f"train{world}_{r}.pt"),
+                                weights_only=False) for r in range(world)]
+            err = d_check_train(grid, ranks, one, steps)
+            for res in (one, *ranks):
+                for name, n in res["launches"].items():
+                    f32[name] += n
+            counts, nbytes, d_axis = ranks[0]["step_collectives"]
+            print(f"D-split train_matcher {PAR_CONFIG}_f32 on a {grid} grid "
+                  f"of gloo ranks on cuda:0, global batch {batch} at "
+                  f"256x512, {steps} steps, vs one process: losses "
+                  f"{[round(x, 4) for x in ranks[0]['losses']]} vs "
+                  f"{[round(x, 4) for x in one['losses']]}; first step "
+                  f"{ {k: float(f'{v:.4g}') for k, v in err.items()} }; the "
+                  f"ranks' params bitwise equal; launches per rank "
+                  f"{ranks[0]['launches']}; a step's collectives per rank "
+                  f"{counts}, bytes {nbytes}, D-axis {d_axis}; peak "
+                  f"{ranks[0]['peak_gib']:.2f} GiB a rank vs "
+                  f"{one['peak_gib']:.2f} GiB one process; step "
+                  f"{float(np.median(ranks[0]['step_ms'][1:])):.1f} ms a "
+                  f"rank vs {float(np.median(one['step_ms'][1:])):.1f} ms "
+                  f"(median of steps 2-{steps}, host clock: a check, not a "
+                  f"speed); {smi}")
+    print(f"D-split phase: {time.perf_counter() - t0:.1f} s; {smi}")
+    return f32, bf16
 
 
 # Correlation (phase 16): PSMNet/scene_flow with the Correlation cost
@@ -5721,6 +6015,12 @@ def main():
     view_cost_phase(smi)
     torch.cuda.empty_cache()
     bf16_convergence_phase(smi)
+    torch.cuda.empty_cache()
+    # the D-sharded cost volume on grids of gloo ranks on the card
+    d_f32, d_bf16 = d_shard_phase(smi)
+    for total, counts in ((launches, d_f32), (bf16_launches, d_bf16)):
+        for name, n in counts.items():
+            total[name] += n
     torch.cuda.empty_cache()
     # the bfloat16 paths ran K2 and K3 on bfloat16 costs, K1 never
     assert bf16_launches["fused_conv3d"] == 0, bf16_launches

@@ -9,7 +9,9 @@ ConvTranspose3d(1, 1, 8, stride 4, padding 2) convs, a library call as in
 JAX (an input-dilated conv there, whose kernel utils/jax_weights.py flips
 on the way in). Input: raw cost volume [B, D/4, H/4, W/4, Cv] (2C, or 1
 for a correlation volume); output: [up3, up2, up1], [B, D, H, W] each in
-the compute dtype, best first.
+the compute dtype, best first. Under a ``volume_sharding`` that splits D
+the trunk is PSMAggregator's on this rank's planes, its three costs
+gathered before the learned upsample (JAX acfnet.py:32, :60-80).
 """
 
 import torch
@@ -22,9 +24,11 @@ from .psmnet import PSMAggregator
 
 class AcfAggregator(PSMAggregator):
     def __init__(self, in_planes=64, max_disp=192, batch_norm=True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, volume_sharding=None,
+                 strided_sharding=None):
         super().__init__(in_planes, max_disp, batch_norm, dtype=dtype,
-                         bias=True)
+                         bias=True, volume_sharding=volume_sharding,
+                         strided_sharding=strided_sharding)
         # made in up1, up2, up3 order, as the Flax tree names them
         for i in range(3):
             setattr(self, f"ConvTransposeExact_{i}", nn.ConvTranspose3d(
@@ -37,7 +41,7 @@ class AcfAggregator(PSMAggregator):
                                   weight.to(self.dtype), stride=4,
                                   padding=2)[:, 0]
 
-    def forward(self, raw_cost):
-        costs = self.trunk(raw_cost)
+    def forward(self, raw_cost, size=None):
+        costs = self.trunk(raw_cost, size)
         up1, up2, up3 = (self._up(c, i) for i, c in enumerate(costs))
         return [up3, up2, up1]

@@ -22,13 +22,16 @@ stride-2 unit on a concatenation as two convs over the weight's
 input-channel slices) and ``w_pad`` (a masked W padding). The builder
 drops them. At eval each intermediate volume is freed as soon as its last
 reader has run (c19 before the 19.2 GB ``cat(c18, c20)`` of a 544x960
-batch-4 float32 evaluation is made).
+batch-4 float32 evaluation is made). Under a ``volume_sharding`` that
+splits D the raw volume comes as this rank's planes and is gathered at
+once: JAX pins the whole trunk to D whole (``strided_sharding``,
+gcnet.py:40-43, :58-63).
 """
 
 import torch
 from torch import nn
 
-from ..layers import ConvUnit, library_conv
+from ..layers import ConvUnit, DAxis, library_conv
 
 
 class GCAggregator(nn.Module):
@@ -40,9 +43,12 @@ class GCAggregator(nn.Module):
     input's D as in JAX."""
 
     def __init__(self, max_disp=192, in_planes=64, batch_norm=True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, volume_sharding=None,
+                 strided_sharding=None):
         super().__init__()
         self.dtype = dtype
+        self.volume_sharding = volume_sharding
+        self.strided_sharding = strided_sharding
         f = 64 // 2
         # (in, out, stride) of c19 .. c32 in order, then c33 .. c36
         convs = [(in_planes, f, 1), (f, f, 1),
@@ -65,7 +71,8 @@ class GCAggregator(nn.Module):
         self.ConvTransposeExact_0 = nn.ConvTranspose3d(
             f, 1, 3, 2, 1, output_padding=1)
 
-    def forward(self, raw_cost):
+    def forward(self, raw_cost, size=None):
+        raw_cost = DAxis(self.volume_sharding, size).whole(raw_cost)
         unit = [getattr(self, f"ConvUnit_{i}") for i in range(18)]
         c19 = unit[0](raw_cost)
         c20 = unit[1](c19)

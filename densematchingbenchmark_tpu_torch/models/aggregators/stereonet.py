@@ -13,28 +13,37 @@ parameters) has no counterpart: the builder drops it.
 Input: raw difference volume [B, D, H, W, 32] (or a correlation volume,
 ``in_planes`` 1); output: [cost] with cost
 [B, D, H, W] in float32 in every compute dtype, as JAX returns it.
+
+Under a ``volume_sharding`` that splits D (JAX shards the raw volume and
+pins nothing in this aggregator, so XLA keeps D split through its
+stride-1 convs) the four units and ``Conv_0`` run on this rank's planes,
+each with one halo plane from each neighbour, and the cost is gathered
+at the end.
 """
 
 import torch
 from torch import nn
 
-from ..layers import ConvUnit, library_conv
+from ..layers import ConvUnit, DAxis
 
 
 class StereoNetAggregator(nn.Module):
     # ``max_disp``, the config's, is unused as in JAX
     def __init__(self, in_planes=32, max_disp=192, num=4, batch_norm=True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, volume_sharding=None):
         super().__init__()
         self.dtype, self.num = dtype, num
+        self.volume_sharding = volume_sharding
         for i in range(num):
             setattr(self, f"ConvUnit_{i}", ConvUnit(
                 in_planes if i == 0 else 32, 32, 3, 1, 1, dims=3,
                 batch_norm=batch_norm, relu=True, bias=True, dtype=dtype))
         self.Conv_0 = nn.Conv3d(32, 1, 3, padding=1)
 
-    def forward(self, raw_cost):
+    def forward(self, raw_cost, size=None):
+        ax = DAxis(self.volume_sharding, size)
         x = raw_cost
         for i in range(self.num):
-            x = getattr(self, f"ConvUnit_{i}")(x)
-        return [library_conv(self.Conv_0, x, self.dtype)[..., 0].float()]
+            x = ax.unit(getattr(self, f"ConvUnit_{i}"), x)
+        return [ax.whole(ax.conv(self.Conv_0, x, self.dtype)[..., 0])
+                .float()]

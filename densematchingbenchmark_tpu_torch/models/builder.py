@@ -24,10 +24,22 @@ the cost processor builds (``cost_processors.volume_planes``). A flow
 config (``task`` "flow") builds through ``flow.models.build_flow_model``
 (JAX :116-118), which raises ValueError for a meta-architecture it does
 not register.
+
+A ``mesh`` (parallel/mesh.make_mesh) reaches a GeneralizedStereoModel
+only, where JAX's ``build_aggregator`` / ``build_cost_processor`` wire it
+(:68-103): the cost processor gets ``cost_volume_sharding`` (each model
+rank builds its planes of the raw volume), and the aggregators with a
+``strided_sharding`` field in JAX (PSMNet, AcfNet, GCNet) get it and
+``volume_sharding``. StereoNet's aggregator, which JAX leaves to XLA's
+propagation of the raw volume's sharding, gets ``volume_sharding`` and
+keeps D split through its stride-1 units. AnyNet, DeepPruner and the flow
+models take no mesh, as in JAX: on a grid with several model ranks each
+of them runs the whole model.
 """
 
 import torch
 
+from ..parallel.mesh import batch_only_volume_sharding, cost_volume_sharding
 from .aggregators.acfnet import AcfAggregator
 from .aggregators.gcnet import GCAggregator
 from .aggregators.psmnet import PSMAggregator
@@ -128,9 +140,15 @@ def _deeppruner(model_cfg, dtype):
 _BRANCHES = {"AnyNet": _anynet, "DeepPruner": _deeppruner}
 
 
-def build_model(cfg, generator=None):
+# the aggregators that take JAX's strided_sharding beside volume_sharding
+_STRIDED = {PSMAggregator, AcfAggregator, GCAggregator}
+
+
+def build_model(cfg, generator=None, mesh=None):
     """cfg (nested dict, see configs/) -> nn.Module, parameters initialised
-    from ``generator`` (a torch.Generator; a fresh one seeded 0 if None)."""
+    from ``generator`` (a torch.Generator; a fresh one seeded 0 if None);
+    with ``mesh`` its cost volume split along D over the mesh's model
+    axis (the same parameters)."""
     if cfg.get("task") == "flow":
         # lazy: flow.models imports models.layers
         from ..flow.models import build_flow_model
@@ -173,6 +191,12 @@ def build_model(cfg, generator=None):
     agg_kwargs = _kwargs(agg)
     if agg["type"] == "PSMNet":
         agg_kwargs["return_low_res"] = fused
+    volume_sharding = None
+    if mesh is not None:
+        volume_sharding = agg_kwargs["volume_sharding"] = \
+            cost_volume_sharding(mesh)
+        if agg_cls in _STRIDED:
+            agg_kwargs["strided_sharding"] = batch_only_volume_sharding(mesh)
     aggregator = agg_cls(
         in_planes=volume_planes(volume_type, backbone.out_planes),
         batch_norm=bn, dtype=dtype, **agg_kwargs)
@@ -188,7 +212,8 @@ def build_model(cfg, generator=None):
             max_disp=comp.get("max_disp", model_cfg["max_disp"]),
             start_disp=comp.get("start_disp", 0),
             dilation=comp.get("dilation", 1),
-            normalize=comp.get("normalize", False), p=comp.get("p", 1.0)),
+            normalize=comp.get("normalize", False), p=comp.get("p", 1.0),
+            volume_sharding=volume_sharding),
         disp_predictor=build_disp_predictor(pred_cfg),
         cmn=cmn,
         disp_refinement=refinement,

@@ -23,8 +23,12 @@ conv bias in that dtype, and runs BatchNorm in float32 (the running
 statistics stay float32) with one rounding back.
 
 The TPU schedules of the JAX layers (trunk ``pack``, PackedBatchNorm,
-DispatchConv2D row packing, remat, sharding constraints) have no
-counterpart: their parameter trees equal the unpacked ones.
+DispatchConv2D row packing, remat) have no counterpart: their parameter
+trees equal the unpacked ones. JAX's sharding constraints on a D-split
+cost volume (the hourglass's ``pin``, :634-672) become ``DAxis``: an
+aggregator's stride-1 units run on a rank's planes of D with a halo, and
+its strided stages, the hourglasses, on the whole D after a gather, as
+JAX's pins place them; ``Hourglass3D`` itself needs no collective.
 """
 
 import math
@@ -39,6 +43,7 @@ from ..ops.cuda.packed_conv3d_kernel import (WgmmaOperands,
                                              conv3d_packed_s1_prepared,
                                              route_widths, wgmma_operands)
 from ..parallel import collectives
+from ..parallel.collectives import gather_d, halo_exchange, shard_d
 
 
 def _tuple(x, n):
@@ -363,7 +368,15 @@ class ConvUnit(nn.Module):
         return self._conv(x, parts, scale, bias,
                           self.relu and not self.pre_norm)
 
-    def forward(self, x):
+    def forward(self, x, extended=False):
+        """``extended``: ``x`` [B, d + 2, ...] is a fusable unit's planes
+        of a D split with one halo plane on each side (DAxis); its kernel
+        runs on all d + 2 and the halo's output planes are dropped before
+        the bias and a training BN, so that the output is the unit's on
+        its d planes."""
+        if extended and (self.pre_norm or not self.fusable):
+            raise ValueError("only a fusable post-norm unit runs on a D "
+                             "shard with its halo")
         x = x.to(self.dtype)
         if self.pre_norm:
             x = self._norm_act(x)
@@ -375,14 +388,57 @@ class ConvUnit(nn.Module):
             x = F.pad(x, (0, self.widths.ci - self.in_features))
         if not self.training:
             x = self._fused_eval(x)
-            return x[..., :self.features].contiguous() if self.padded else x
+            if extended:
+                x = x[:, 1:-1]
+            return x[..., :self.features].contiguous() if self.padded or \
+                extended else x
         self._operands = None
         x = self._conv(x, self._parts(self._kernel()))
+        if extended:
+            x = x[:, 1:-1]
         if self.padded:
             x = x[..., :self.features]
         if self.Conv_0.bias is not None:
             x = x + self.Conv_0.bias.to(self.dtype)
         return x if self.pre_norm else self._norm_act(x)
+
+
+class DAxis:
+    """An aggregator's steps along D of its [B, D, ...] volumes under a
+    ``volume_sharding`` (parallel/mesh.py): on this rank's planes of D
+    when the sharding splits D over a model axis, each stride-1 window
+    over D reading one halo plane from each neighbour; the plain calls
+    otherwise. ``size``: the whole D."""
+
+    def __init__(self, sharding, size=None):
+        self.mesh = sharding.mesh if sharding is not None and \
+            sharding.splits_d else None
+        self.size = size
+
+    def unit(self, unit, x):
+        """A fusable stride-1 ``ConvUnit`` on this rank's planes."""
+        if self.mesh is None:
+            return unit(x)
+        return unit(halo_exchange(x, self.mesh), extended=True)
+
+    def shard_unit(self, unit, x):
+        """The unit on this rank's planes of a whole-D ``x``, its halo
+        taken from ``x``."""
+        if self.mesh is None:
+            return unit(x)
+        return unit(shard_d(x, self.mesh, 1), extended=True)
+
+    def conv(self, conv, x, dtype):
+        """A 3x3x3 stride-1 library conv (``library_conv``: the Co = 1
+        heads) on this rank's planes."""
+        if self.mesh is None:
+            return library_conv(conv, x, dtype)
+        return library_conv(conv, halo_exchange(x, self.mesh),
+                            dtype)[:, 1:-1]
+
+    def whole(self, x):
+        """The whole D on every model rank, from each rank's planes."""
+        return gather_d(x, self.mesh, self.size)
 
 
 def conv_bn(batch_norm, in_features, features, kernel_size=3, stride=1,

@@ -31,6 +31,13 @@ def disp_sample_values(max_disp, start_disp=0, dilation=1):
     return np.linspace(start_disp, end_disp, num, dtype=np.float32)
 
 
+def _sample_values(max_disp, start_disp, dilation, planes):
+    """The sample values of the volume's planes: all of them, or those of
+    ``planes`` (lo, hi), the slices lo .. hi - 1 of the whole volume."""
+    vals = disp_sample_values(max_disp, start_disp, dilation)
+    return vals if planes is None else vals[planes[0]:planes[1]]
+
+
 @kept(256)
 def disp_sample_tensor(max_disp, start_disp, dilation, device):
     """``disp_sample_values`` as a float32 tensor on ``device``, made once
@@ -53,7 +60,7 @@ def _warped(reference_fm, target_fm, disp_sample, compat_grid_sample):
 
 
 def cat_volume(reference_fm, target_fm, max_disp, start_disp=0, dilation=1,
-               disp_sample=None, compat_grid_sample=False):
+               disp_sample=None, compat_grid_sample=False, planes=None):
     """Concatenation cost volume.
 
     For each sample value v (shift d = int(v)):
@@ -65,6 +72,8 @@ def cat_volume(reference_fm, target_fm, max_disp, start_disp=0, dilation=1,
 
     Args:
       reference_fm, target_fm: [B, H, W, C] left/right features.
+      planes: (lo, hi), to build only the slices lo .. hi - 1 of the
+        fixed-range volume (a model rank's planes of a D split).
 
     Returns:
       [B, D, H, W, 2C] volume, reference channels first, NDHWC contiguous.
@@ -74,7 +83,7 @@ def cat_volume(reference_fm, target_fm, max_disp, start_disp=0, dilation=1,
                               compat_grid_sample)
         return torch.cat([ref.expand_as(warped), warped], -1)
     b, h, w, c = reference_fm.shape
-    vals = disp_sample_values(max_disp, start_disp, dilation)
+    vals = _sample_values(max_disp, start_disp, dilation, planes)
     vol = reference_fm.new_zeros((b, len(vals), h, w, 2 * c))
     for i, val in enumerate(vals):
         d = int(val)  # each sample is shifted by its value cast to int
@@ -88,7 +97,7 @@ def cat_volume(reference_fm, target_fm, max_disp, start_disp=0, dilation=1,
 
 def dif_volume(reference_fm, target_fm, max_disp, start_disp=0, dilation=1,
                disp_sample=None, normalize=False, p=1.0,
-               compat_grid_sample=False):
+               compat_grid_sample=False, planes=None):
     """Difference cost volume (StereoNet's).
 
     For each sample value v (shift d = int(v)):
@@ -100,6 +109,7 @@ def dif_volume(reference_fm, target_fm, max_disp, start_disp=0, dilation=1,
       reference_fm, target_fm: [B, H, W, C] left/right features.
       disp_sample: optional [B, D, H, W] per-pixel samples: the masked
         reference minus the warped target (``cat_volume``'s halves).
+      planes: as ``cat_volume``'s.
 
     Returns:
       [B, D, H, W, C] volume, or [B, D, H, W] with ``normalize``.
@@ -110,7 +120,7 @@ def dif_volume(reference_fm, target_fm, max_disp, start_disp=0, dilation=1,
         vol = ref - warped
     else:
         b, h, w, c = reference_fm.shape
-        vals = disp_sample_values(max_disp, start_disp, dilation)
+        vals = _sample_values(max_disp, start_disp, dilation, planes)
         vol = reference_fm.new_zeros((b, len(vals), h, w, c))
         for i, val in enumerate(vals):
             d = int(val)  # each sample is shifted by its value cast to int
@@ -126,7 +136,8 @@ def dif_volume(reference_fm, target_fm, max_disp, start_disp=0, dilation=1,
 
 
 def correlation1d_volume(reference_fm, target_fm, max_disp, start_disp=0,
-                         dilation=1, disp_sample=None, leaky_slope=0.1):
+                         dilation=1, disp_sample=None, leaky_slope=0.1,
+                         planes=None):
     """1-D correlation cost: the channel dot product at each disparity,
     then a leaky ReLU.
 
@@ -142,6 +153,7 @@ def correlation1d_volume(reference_fm, target_fm, max_disp, start_disp=0,
 
     Args:
       reference_fm, target_fm: [B, H, W, C] left/right features.
+      planes: as ``cat_volume``'s.
 
     Returns:
       [B, D, H, W] in the features' dtype.
@@ -153,7 +165,7 @@ def correlation1d_volume(reference_fm, target_fm, max_disp, start_disp=0,
         cost = torch.einsum("bhwc,bdhwc->bdhw", ref, warped)
     else:
         b, h, w, _ = ref.shape
-        vals = disp_sample_values(max_disp, start_disp, dilation)
+        vals = _sample_values(max_disp, start_disp, dilation, planes)
         cost = ref.new_zeros((b, len(vals), h, w))
         for i, val in enumerate(vals):
             d = int(val)  # each sample is shifted by its value cast to int

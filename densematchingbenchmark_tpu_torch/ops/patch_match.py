@@ -31,7 +31,7 @@ draw through ``noise``.
 import torch
 import torch.nn.functional as F
 
-from ..parallel import collectives
+from ..parallel.mesh import data_shards
 from .kept import kept
 from .warp import inverse_warp_3d
 
@@ -85,11 +85,13 @@ def eval_noise(n, h, w, device):
 
 def train_noise(b, n, h, w, generator):
     """This rank's [b, n, h, w] rows of the global batch's training draw
-    [world_size * b, n, h, w] from ``generator`` (on its device)."""
-    world, rank = collectives.world_size(), collectives.rank()
-    noise = torch.rand((world * b, n, h, w), generator=generator,
+    [shards * b, n, h, w] from ``generator`` (on its device): its data
+    shard's (parallel/mesh.data_shards: the model ranks of one data index
+    draw the same rows)."""
+    shards, index = data_shards()
+    noise = torch.rand((shards * b, n, h, w), generator=generator,
                        device=generator.device)
-    return noise if world == 1 else noise[rank * b:(rank + 1) * b]
+    return noise if shards == 1 else noise[index * b:(index + 1) * b]
 
 
 def patch_match(left, right, min_disparity, max_disparity,

@@ -30,6 +30,8 @@ import re
 import torch
 import torch.distributed as dist
 
+from .mesh import forget_mesh
+
 log = logging.getLogger("dmb_torch")
 
 _device = None       # the rank's device, while this module's group is up
@@ -146,6 +148,7 @@ def shutdown_distributed():
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
     _device = None
+    forget_mesh()
 
 
 def add_distributed_args(parser):

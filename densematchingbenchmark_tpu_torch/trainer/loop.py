@@ -14,15 +14,22 @@ config (``task`` "flow") runs the same loop with the flow task's batch
 keys, train step, evaluation and vis hook (flow/trainer.flow_task).
 
 In a process group (parallel.init_distributed) each rank trains on its
-device: the global batch is ``batch_size_per_device`` times the group's
-size, the loader gives each rank its slice of every global batch, the
-model starts from rank 0's weights (``broadcast_module``), and the step
-computes the global batch's BN statistics, losses and gradient (JAX
-loop.py:37-39, 61-72, 113, 145, 218-219). Rank 0 alone writes the logs,
-the checkpoints and the vis panels; every rank evaluates its stride shard
-of the eval set and the shards are combined.
+device, as one cell of a (data, model) grid (``mesh``,
+parallel/mesh.make_mesh; by default every rank on the data axis): the
+global batch is ``batch_size_per_device`` times the grid's data size, the
+loader gives each data index its slice of every global batch (the model
+ranks of one data index load the same samples), the model starts from
+rank 0's weights (``broadcast_module``), and the step computes the global
+batch's BN statistics, losses and gradient (JAX loop.py:37-39, 59-75,
+113, 145, 218-219). With ``use_volume_sharding`` the model's cost volume
+is split along D over the model axis (models/builder.py). Rank 0 alone
+writes the logs and the checkpoints, and of the vis panels' forwards,
+which the model ranks of data index 0 run together; each data index
+evaluates its stride shard of the eval set and the shards are combined,
+each counted once.
 """
 
+import functools
 import json
 import os
 import time
@@ -36,6 +43,7 @@ from ..evaluation.format import combine_shard_metrics, metrics_table
 from ..losses import make_loss_evaluator
 from ..models import build_model
 from ..parallel import collectives
+from ..parallel.mesh import make_mesh
 from ..utils.checkpoint import CheckpointManager
 from ..utils.collect_env import collect_env_info, device_memory_stats
 from ..utils.logging import MetricsLogger, get_logger
@@ -45,12 +53,15 @@ from .train_step import make_train_step
 from .vis_hook import VisHook, build_vis_dataset
 
 
-def stereo_task(cfg, work_dir, metrics_log, eval_dataset, vis_dataset):
+def stereo_task(cfg, work_dir, metrics_log, eval_dataset, vis_dataset, *,
+                mesh):
     """The stereo pieces of ``train_matcher``: (batch keys, train step,
     eval callable module -> (metric dict, its log text) or None, vis hook
     or None). The vis set is ``vis_dataset``, else build_vis_dataset's.
-    In a process group the eval runs this rank's stride shard and combines
-    the shards; only rank 0 has a vis hook."""
+    On a grid of processes (``mesh``) the eval runs this data index's
+    stride shard and combines the shards, those of model index 0 alone
+    counted; the ranks of data index 0 have a vis hook, and rank 0's alone
+    writes."""
     data_cfg = cfg["data"]
     evaluator = make_loss_evaluator(
         cfg["model"]["losses"], sparse=data_cfg.get("sparse", False),
@@ -61,28 +72,38 @@ def stereo_task(cfg, work_dir, metrics_log, eval_dataset, vis_dataset):
         eval_ids = tuple(cfg.get("eval_disparity_id", (0,)))
 
         def run_eval(module):
-            results, n = combine_shard_metrics(*evaluate(
+            metrics, count = evaluate(
                 module, eval_dataset, eval_cfg, eval_ids,
-                num_shards=collectives.world_size(),
-                shard_id=collectives.rank()))
+                num_shards=mesh.n_data, shard_id=mesh.data_index)
+            # the model ranks of a data index evaluated the same samples
+            results, n = combine_shard_metrics(
+                metrics, count if mesh.model_index == 0 else 0)
             return results, f"eval ({n} samples):\n" + metrics_table(results)
     vis_hook = None
-    if cfg.get("vis", {}).get("enabled", True) and collectives.rank() == 0:
+    if cfg.get("vis", {}).get("enabled", True) and mesh.data_index == 0:
         vis_dataset = vis_dataset or build_vis_dataset(cfg, eval_dataset)
         if vis_dataset is not None:
             vis_hook = VisHook(
                 vis_dataset, work_dir, metrics_log, data_cfg["mean"],
                 data_cfg["std"], max_disp=cfg["model"].get("max_disp", 192),
-                max_samples=cfg.get("vis", {}).get("max_samples", 4))
+                max_samples=cfg.get("vis", {}).get("max_samples", 4),
+                write=collectives.rank() == 0)
     return (("leftImage", "rightImage", "leftDisp"),
             make_train_step(evaluator), run_eval, vis_hook)
 
 
 def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
                   vis_dataset=None, resume=False, log_interval=10,
-                  max_steps=None, device=None, profile_steps=None):
+                  max_steps=None, device=None, profile_steps=None, mesh=None,
+                  use_volume_sharding=False):
     """Train a model per config on one device, or on each rank's in a
     process group; returns the TrainState.
+
+    ``mesh``: the (data, model) grid of the group (make_mesh, which every
+    rank calls first), by default every rank on the data axis;
+    ``use_volume_sharding``: split the cost volume along D over its model
+    axis (JAX's argument: AnyNet, DeepPruner and flow models run whole on
+    every model rank either way).
 
     Runs on ``cuda`` (in a group the rank's device) unless ``device`` says
     otherwise; with no GPU and no device given it raises. The logged
@@ -132,28 +153,31 @@ def train_matcher(cfg, work_dir, train_dataset=None, eval_dataset=None,
             data_cfg, "eval",
             transform=transforms.make_eval_transform(
                 data_cfg["eval"]["input_shape"], mean, std))
-    global_batch = data_cfg.get("batch_size_per_device", 1) * world
+    mesh = mesh or make_mesh()
+    global_batch = data_cfg.get("batch_size_per_device", 1) * mesh.n_data
     seed = cfg.get("seed", 0)
     loader = DataLoader(train_dataset, global_batch, seed=seed,
                         group_flags=(aspect_group_flags(train_dataset)
                                      if data_cfg.get("group_sampling")
                                      else None),
-                        num_shards=world, shard_id=rank)
+                        num_shards=mesh.n_data, shard_id=mesh.data_index)
     steps_per_epoch = loader.steps_per_epoch()
 
-    module = build_model(cfg, torch.Generator().manual_seed(seed))
+    module = build_model(cfg, torch.Generator().manual_seed(seed),
+                         mesh=mesh if use_volume_sharding else None)
     module.to(device)
     optimizer, schedule = build_optimizer(cfg, module, steps_per_epoch)
     if flow:
         from ..flow.trainer import flow_task as make_task
     else:
-        make_task = stereo_task
+        make_task = functools.partial(stereo_task, mesh=mesh)
     keys, step_fn, run_eval, vis_hook = make_task(
         cfg, work_dir, metrics_log, eval_dataset, vis_dataset)
     state = TrainState.create(module, optimizer, seed + 1)
     n_params = sum(p.numel() for p in module.parameters())
     logger.info(f"model params: {n_params / 1e6:.3f}M, device: {device}, "
-                f"processes: {world}, global batch: {global_batch}, "
+                f"processes: {world}, mesh: {mesh.shape}, volume sharding: "
+                f"{bool(use_volume_sharding)}, global batch: {global_batch}, "
                 f"steps/epoch: {steps_per_epoch}")
 
     ckpt = CheckpointManager(work_dir)

@@ -33,11 +33,13 @@ class VisHook:
       mean, std: to undo the left image's normalisation for the panel.
       max_disp: the colour ramp's scale.
       max_samples: samples drawn per epoch, at most.
+      write: False on a model rank that runs the forwards beside the one
+        that writes (a model whose cost volume is split over its ranks).
     """
 
     def __init__(self, dataset, work_dir, metrics_log=None,
                  mean=(0.0, 0.0, 0.0), std=(1.0, 1.0, 1.0), max_disp=192,
-                 max_samples=4):
+                 max_samples=4, write=True):
         self.dataset = dataset
         self.work_dir = work_dir
         self.metrics_log = metrics_log
@@ -45,6 +47,7 @@ class VisHook:
         self.std = np.asarray(std, np.float32)
         self.max_disp = max_disp
         self.max_samples = max_samples
+        self.write = write
 
     def __call__(self, module, epoch):
         tool = ShowResultTool(self.max_disp)
@@ -59,6 +62,8 @@ class VisHook:
                                                      "rightImage")}, device)
                 with torch.inference_mode():
                     out = module(x["leftImage"], x["rightImage"])
+                if not self.write:
+                    continue
                 result = {
                     "disps": [d.float().cpu().numpy() for d in out["disps"]],
                     "leftImage": batch["leftImage"][0] * self.std
