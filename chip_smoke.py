@@ -10,7 +10,9 @@ PyTorch version on the card. Phases, each fatal on failure:
   1. device: needs CUDA; prints the card's name and power limit
      (nvidia-smi) and turns TF32 off for matmuls and cuDNN convolutions.
   2. build: compiles the CUDA C++ kernels from csrc/ (one nvcc per source,
-     all at once) and prints the build seconds and ptxas's report; asserts
+     all at once) and the host library csrc/dmb_native.cpp (g++, the data
+     pipeline's PNG and PFM decoders) and prints the build seconds and
+     ptxas's report; asserts
      HGMMA (wgmma) instructions in the SASS of the bfloat16 K4 and K5
      kernels and none in the CUDA-core kernels (K1, float32 K4 and K5);
      prints the float32 K5 kernel's registers and blocks per SM as built,
@@ -89,10 +91,17 @@ PyTorch version on the card. Phases, each fatal on failure:
      PSMNet/kitti_2015_bf16 in both modes (K4's bfloat16 route 26 launches,
      K1 none; each EPE within BF16_GAP_ATOL of the float32 eval's; the
      per-batch work under the sync guard; eval ms a sample and peak
-     memory). Then the PNG decoder's host time on one 375x1242 RGB frame
-     per row filter, and tools/bench.py's JSON line in float32 and in
-     bfloat16; each of these lines carries the card's name and power
-     limit.
+     memory). The PNG files are read by the host library
+     (csrc/dmb_native.cpp, built with g++ in the build phase) in the
+     loader threads; each mode prints evaluate's samples/s and the card's
+     busy share over one evaluate (torch.profiler). Then the PNG
+     decoders' host time on one 375x1242 RGB frame per row filter, the
+     host library beside its plain version (the numpy codec), bitwise
+     equal, the PPM reader's on the same frame, and the host library's
+     decode rate over 20 such files in four threads against one (ctypes
+     and zlib release the GIL; four must beat one by 1.2x); and
+     tools/bench.py's JSON line in float32 and in bfloat16; each of these
+     lines carries the card's name and power limit.
   5. train: trainer.loop.train_matcher on PSMNet/scene_flow_f32 at full
      width, its own 256x512 crop and batch 3 of SyntheticStereoDataset, for
      5 steps, then its evaluation of a two-sample synthetic eval set at
@@ -274,7 +283,9 @@ PyTorch version on the card. Phases, each fatal on failure:
      full width, 24 steps on one batch of 2 (GCNet 1) at 128x256 with
      JAX's CPU test's lr 2e-3 and no warmup: the loss below 0.7 of its
      first value and the batch's EPE down (AcfNet-adaptive: its loss down,
-     GAUNTLET_DESCENT_ONLY), launches asserted (each stereo step and eval
+     GAUNTLET_DESCENT_ONLY) at its first run or, when that misses, in a
+     majority of GAUNTLET_RUNS runs, launches asserted in every run (each
+     stereo step and eval
      forward K4's bfloat16 route and K2 by GAUNTLET_LAUNCHES, K2's
      backward each step; flow none of K1-K5), each family's seconds.
  19. Library pieces no shipped config reaches: DilatedHourglass3D(32) at
@@ -306,6 +317,15 @@ PyTorch version on the card. Phases, each fatal on failure:
      and K2 3 + 3 a step per rank. Prints each rank's peak memory beside
      the one process's, the collective calls and bytes of a forward and of
      a step, and the phase's seconds: a check on one card, not a speed.
+ 22. Study tools: tools/eval_batch_study.py --n 16 --batches 1 4 (its
+     default config, StereoNet/scene_flow_8x_2stage in bfloat16, at its
+     384x1248 frame): ms a sample at batch 1 and 4 end to end, the EPE
+     the same within EVAL_EPE_ATOL; tools/dsharding_halo_study.py
+     --n-model 2 (PSMNet's aggregator at [1, 48, 96, 312, 64] on a (1, 2)
+     grid of gloo ranks on cuda:0): the collectives of a forward (7
+     halos, 2 gathers), the bytes a rank receives, the one-process
+     forward measured by CUDA events, and the break-even link rate: a
+     model at NVLink's rate, not a measured multi-GPU speed.
 
 Prints a JSON line of per-kernel numbers before the last line (K4's and
 K5's bfloat16 routes in the microbench in rows of their own, ``*_bf16``,
@@ -1605,27 +1625,62 @@ def check_eval_kernels(gen):
 
 
 def png_decode_phase(smi):
-    """Host time of the port's PNG decoder on one 375x1242 RGB frame
-    written with each row filter (median of 3)."""
+    """Host time of the port's PNG decoders on one 375x1242 RGB frame
+    written with each row filter: the host library (native) beside its
+    plain version (the numpy codec), bitwise equal; the PPM reader on the
+    same frame; and native decodes of files in four threads against one
+    (ctypes releases the GIL for the call, zlib for the inflate)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from densematchingbenchmark_tpu_torch import native
     from densematchingbenchmark_tpu_torch.data import SyntheticStereoDataset
     from densematchingbenchmark_tpu_torch.data import io as dio
+
+    def median_ms(fn, reps):
+        runs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(runs)), out
+
     img = np.clip(np.round(SyntheticStereoDataset(
         length=1, height=375, width=1242, max_disp=192).load(0)[
             "leftImage"]), 0, 255).astype(np.uint8)
-    times = {}
+    names = ("None", "Sub", "Up", "Average", "Paeth")
+    pngs, rows = [], []
     for f in range(5):
         png = dio.encode_png(img, f)
-        runs = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            got = dio.decode_png(png)
-            runs.append((time.perf_counter() - t0) * 1e3)
-        assert np.array_equal(got, img), f
-        times[f] = float(np.median(runs))
-    names = ("None", "Sub", "Up", "Average", "Paeth")
-    print("png decode 375x1242 RGB, host ms (median of 3) by row filter: "
-          + ", ".join(f"{f} {names[f]} {t:.1f}" for f, t in times.items())
-          + f"; {smi}")
+        pngs.append(png)
+        fast, got = median_ms(lambda: native.decode_png(png), 5)
+        slow, want = median_ms(lambda: dio.image_rgb(dio.decode_png(png)),
+                               3)
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32)) \
+            and np.array_equal(want, img.astype(np.float32)), f
+        rows.append(f"{f} {names[f]} {fast:.2f} / {slow:.1f}")
+    ppm = dio.encode_pnm(img)
+    ppm_ms, got = median_ms(lambda: dio.image_rgb(dio.decode_pnm(ppm)), 5)
+    assert np.array_equal(got, img.astype(np.float32))
+    print("png decode 375x1242 RGB, host ms (median of 5 / 3) by row "
+          "filter, native (csrc/dmb_native.cpp) / plain (numpy codec), "
+          "bitwise equal: " + ", ".join(rows) + f"; PPM (decode_pnm, "
+          f"numpy) {ppm_ms:.2f}; {smi}")
+    with tempfile.TemporaryDirectory() as root:
+        paths = []
+        for i in range(20):
+            paths.append(os.path.join(root, f"{i:02d}.png"))
+            with open(paths[-1], "wb") as fp:
+                fp.write(pngs[i % 5])
+        serial = [dio.load_image(p) for p in paths]      # warm: page cache
+        one, _ = median_ms(lambda: [dio.load_image(p) for p in paths], 3)
+        with ThreadPoolExecutor(4) as pool:
+            four, threaded = median_ms(
+                lambda: list(pool.map(dio.load_image, paths)), 3)
+    assert all(np.array_equal(a, b) for a, b in zip(threaded, serial))
+    print(f"png decode threads: load_image (native) over {len(paths)} "
+          f"375x1242 files of the five filters, {len(paths) / one * 1e3:.1f}"
+          f" frames/s in one thread, {len(paths) / four * 1e3:.1f} in four "
+          f"({one / four:.2f}x; {os.cpu_count()} host CPUs); {smi}")
+    assert one / four > 1.2, (one, four)
 
 
 def eval_phase(smi, gen, root, ann, items):
@@ -1707,10 +1762,12 @@ def eval_phase(smi, gen, root, ann, items):
             torch.cuda.set_sync_debug_mode("default")
         compare_metrics(eval_loop.average_metrics(pending, count),
                         results, f"fused={fused} guarded")
-        if "--profile" in sys.argv[1:]:
-            device_profile(f"evaluate fused_upsample_argmin={fused}, "
-                           f"{n} samples", lambda: eval_loop.evaluate(
-                               model.module, ds, ecfg, ids), reps=1)
+        # the card's busy share over one evaluate (the PNG files decoded
+        # by the host library in the loader threads)
+        prof = device_profile(
+            f"evaluate fused_upsample_argmin={fused}, {n} samples",
+            lambda: eval_loop.evaluate(model.module, ds, ecfg, ids), reps=1,
+            top=14 if "--profile" in sys.argv[1:] else 0)
 
         # device time of the eval step (forward + metrics) per sample
         # on a batch staged on the card, at batch 4 and batch 1
@@ -1732,8 +1789,10 @@ def eval_phase(smi, gen, root, ann, items):
               f"reference: EPE {epe:.3g} px, n-px {px:.3g} points; "
               f"eval step {ms4:.2f} ms a sample at batch {EVAL_BATCH}, "
               f"{ms1:.2f} at batch 1 (device, CUDA events); evaluate "
-              f"{n / wall:.2f} samples/s end to end (host clock, "
-              f"files decoded); peak {peak:.2f} GiB at batch "
+              f"{n / wall:.2f} samples/s end to end (host clock, PNG "
+              f"files decoded by the host library), the card busy "
+              f"{100 * prof['busy_ms'] / prof['wall_ms']:.1f} % of an "
+              f"evaluate under the profiler; peak {peak:.2f} GiB at batch "
               f"{EVAL_BATCH}; no synchronising call per batch; {smi}")
         del model, b4, b1, step
         torch.cuda.empty_cache()
@@ -5112,6 +5171,50 @@ def d_shard_phase(smi):
     return f32, bf16
 
 
+# The two study tools (phase 22): eval_batch_study's default config and
+# frame at a shorter run, dsharding_halo_study on a (1, 2) grid of gloo
+# ranks on cuda:0 at its default shape
+STUDY_EVAL = ["--n", "16", "--batches", "1", "4"]
+STUDY_HALO = ["--n-model", "2"]
+
+
+def study_phase(smi):
+    """tools/eval_batch_study.py and tools/dsharding_halo_study.py through
+    their main(argv): the EPE the same at batch 1 and 4, every time
+    finite; the halo study's collectives those of phase 21's eval forward
+    (7 halos, 2 gathers), its compute measured on the card."""
+    from densematchingbenchmark_tpu_torch.tools import (dsharding_halo_study,
+                                                        eval_batch_study)
+    t0 = time.perf_counter()
+    rec = eval_batch_study.main(STUDY_EVAL)
+    assert abs(rec["batch4_epe"] - rec["batch1_epe"]) <= EVAL_EPE_ATOL, rec
+    assert all(rec[f"batch{b}_ms_per_sample"] > 0 for b in (1, 4)), rec
+    print(f"eval_batch_study {' '.join(STUDY_EVAL)} ({rec['config']}, "
+          f"{rec['dtype']}, {rec['shape'][0]}x{rec['shape'][1]}): "
+          f"{rec['batch1_ms_per_sample']:.2f} ms a sample at batch 1, "
+          f"{rec['batch4_ms_per_sample']:.2f} at batch 4 (host clock, "
+          f"end to end), speedup {rec['speedup']:.3f}, EPE "
+          f"{rec['batch1_epe']:.5f} / {rec['batch4_epe']:.5f} px; {smi}")
+    torch.cuda.empty_cache()
+    halo = dsharding_halo_study.main(STUDY_HALO)
+    assert halo["d_axis_counts"] == {
+        "halo_exchange": 7, "halo_exchange_backward": 0, "gather_d": 2,
+        "gather_d_backward": 0}, halo
+    assert halo["single_chip_compute_ms"] > 0 and \
+        halo["break_even_link_gbps"] > 0, halo
+    print(f"dsharding_halo_study {' '.join(STUDY_HALO)} (a model at "
+          f"{halo['link_gbps']} GB/s, not a measured multi-GPU speed): "
+          f"{halo['collective_bytes']['all_gather']} bytes handed to "
+          f"{halo['collective_counts']['all_gather']} all-gathers a rank, "
+          f"{halo['gather_bytes_mib']:.1f} MiB received, "
+          f"{halo['modeled_transfer_ms']:.3f} ms modelled; the one-process "
+          f"aggregator forward {halo['single_chip_compute_ms']:.3f} ms "
+          f"(CUDA events), {halo['compute_saved_ms']:.3f} ms saved; "
+          f"break-even {halo['break_even_link_gbps']:.2f} GB/s; "
+          f"{time.perf_counter() - t0:.1f} s; {smi}")
+    torch.cuda.empty_cache()
+
+
 # Correlation (phase 16): PSMNet/scene_flow with the Correlation cost
 # processor at full width; the one-channel volume reaches the first trunk
 # unit padded with zero channels (K1: Ci 4; K4's bfloat16 route: Ci 16)
@@ -5467,6 +5570,14 @@ GAUNTLET_DROP = 0.7    # loss_last < 0.7 loss_first: JAX's CPU criterion
 # JAX's own run ends at 0.681 and at 0.83 with its weights perturbed by
 # 1e-7 (ROADMAP section 3). Its loss falls in every run: that is asserted.
 GAUNTLET_DESCENT_ONLY = ("AcfNet-adaptive",)
+# Runs of one family on the card differ (float sums on the card are not
+# ordered; with cudnn.deterministic set too). AcfNet-uniform's ratio after
+# 24 steps spreads across 0.42-0.78 in bfloat16 over runs of seed 0, and
+# about one run in eight misses JAX's criterion, by its ratio or by its
+# batch EPE rising (tests/gauntlet_spread_study.py). A family whose first
+# run misses is therefore run GAUNTLET_RUNS - 1 more times with the same
+# seed, and must meet the criterion in a majority of all its runs.
+GAUNTLET_RUNS = 5
 
 
 def gauntlet_phase(smi):
@@ -5479,7 +5590,10 @@ def gauntlet_phase(smi):
     bfloat16 route and K2 by GAUNTLET_LAUNCHES, K2's backward each step,
     K1, K3 and K5 none; the flow families none of K1-K5); each family's
     seconds. AcfNet-adaptive is held to its loss falling
-    (GAUNTLET_DESCENT_ONLY). Returns the launch counts (all bfloat16)."""
+    (GAUNTLET_DESCENT_ONLY). A family whose first run misses is run
+    GAUNTLET_RUNS - 1 more times and must meet the criterion in a
+    majority of its GAUNTLET_RUNS runs. Returns the launch counts of every
+    run (all bfloat16)."""
     from densematchingbenchmark_tpu_torch.configs import get_config
     from densematchingbenchmark_tpu_torch.ops import cuda as kernels
     from densematchingbenchmark_tpu_torch.tools import (
@@ -5493,45 +5607,59 @@ def gauntlet_phase(smi):
         run = (gauntlet.run_stereo_family if task == "stereo"
                else gauntlet.run_flow_family)
         for family, config, overrides, threshold in families:
-            cfg = get_config(config, **overrides)
-            assert cfg["model"].get("dtype", "float32") == "bfloat16", cfg
-            cfg["name"] = config
-            cfg["optimizer"]["lr"] = 2e-3
-            cfg.setdefault("lr_schedule", {})["warmup_iters"] = 0
-            kernels.reset_launch_counts()
-            t0 = time.perf_counter()
-            r = run(cfg, steps=n, batch=1 if family == "GCNet" else 2,
-                    crop_hw=GAUNTLET_CROP, log_every=4, overfit=True,
-                    device="cuda")
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            counts = kernels.launch_counts()
-            bf16 = kernels.bf16_launch_counts()
-            units, argmins = GAUNTLET_LAUNCHES.get(family, (0, 0))
-            assert counts == {"fused_conv3d": 0,
-                              "fused_soft_argmin": (n + 2) * argmins,
-                              "fused_soft_argmin_backward": n * argmins,
-                              "fused_upsample_soft_argmin": 0,
-                              "conv3d_packed_s1": (n + 2) * units,
-                              "conv3d_packed_s1_v2": 0}, (family, counts)
-            assert bf16["conv3d_packed_s1"] == (n + 2) * units, \
-                (family, bf16)
-            print(f"gauntlet {family} ({config}, bfloat16, overfit, "
-                  f"{r['batch']}x{r['crop'][0]}x{r['crop'][1]}, {n} "
-                  f"steps): loss {r['loss_first']} -> {r['loss_last']} "
-                  f"({r['losses']}), EPE {r['epe_init']} -> "
-                  f"{r['epe_final']} (300-step threshold {threshold}); "
-                  f"{secs:.1f} s ({r['train_s']} s training); launches "
-                  f"{counts}; {smi}")
-            met = (r["loss_last"] < r["loss_first"]
-                   if family in GAUNTLET_DESCENT_ONLY else
-                   r["loss_last"] < GAUNTLET_DROP * r["loss_first"]
-                   and r["epe_final"] < r["epe_init"])
-            if not (met and np.isfinite([v for _, v in r["losses"]]).all()):
-                missed.append((family, r))
-            for k, v in counts.items():
-                total[k] += v
-            torch.cuda.empty_cache()
+            def drive(attempt):
+                """One run of the family; asserts its launches, adds them
+                to the phase's total and returns (criterion met, record)."""
+                cfg = get_config(config, **overrides)
+                assert cfg["model"].get("dtype", "float32") == "bfloat16", \
+                    cfg
+                cfg["name"] = config
+                cfg["optimizer"]["lr"] = 2e-3
+                cfg.setdefault("lr_schedule", {})["warmup_iters"] = 0
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                r = run(cfg, steps=n, batch=1 if family == "GCNet" else 2,
+                        crop_hw=GAUNTLET_CROP, log_every=4, overfit=True,
+                        device="cuda")
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                counts = kernels.launch_counts()
+                bf16 = kernels.bf16_launch_counts()
+                units, argmins = GAUNTLET_LAUNCHES.get(family, (0, 0))
+                assert counts == {"fused_conv3d": 0,
+                                  "fused_soft_argmin": (n + 2) * argmins,
+                                  "fused_soft_argmin_backward": n * argmins,
+                                  "fused_upsample_soft_argmin": 0,
+                                  "conv3d_packed_s1": (n + 2) * units,
+                                  "conv3d_packed_s1_v2": 0}, (family, counts)
+                assert bf16["conv3d_packed_s1"] == (n + 2) * units, \
+                    (family, bf16)
+                ratio = r["loss_last"] / r["loss_first"]
+                met = (r["loss_last"] < r["loss_first"]
+                       if family in GAUNTLET_DESCENT_ONLY else
+                       ratio < GAUNTLET_DROP
+                       and r["epe_final"] < r["epe_init"])
+                met = bool(met and np.isfinite(
+                    [v for _, v in r["losses"]]).all())
+                print(f"gauntlet {family} ({config}, bfloat16, overfit, "
+                      f"{r['batch']}x{r['crop'][0]}x{r['crop'][1]}, {n} "
+                      f"steps, run {attempt}): loss {r['loss_first']} -> "
+                      f"{r['loss_last']} (ratio {ratio:.4f}; "
+                      f"{r['losses']}), EPE {r['epe_init']} -> "
+                      f"{r['epe_final']} (300-step threshold {threshold}); "
+                      f"criterion {'met' if met else 'missed'}; {secs:.1f} s "
+                      f"({r['train_s']} s training); launches {counts}; "
+                      f"{smi}")
+                for k, v in counts.items():
+                    total[k] += v
+                torch.cuda.empty_cache()
+                return met, r
+
+            runs = [drive(1)]
+            if not runs[0][0]:
+                runs += [drive(k) for k in range(2, GAUNTLET_RUNS + 1)]
+            if 2 * sum(met for met, _ in runs) <= len(runs):
+                missed.append((family, [r for _, r in runs]))
     print(f"gauntlet phase: {time.perf_counter() - t_phase:.1f} s; {smi}")
     # every family is run and printed before the criterion is asserted
     assert not missed, missed
@@ -6022,6 +6150,8 @@ def main():
         for name, n in counts.items():
             total[name] += n
     torch.cuda.empty_cache()
+    # the study tools (their launches are not a path's)
+    study_phase(smi)
     # the bfloat16 paths ran K2 and K3 on bfloat16 costs, K1 never
     assert bf16_launches["fused_conv3d"] == 0, bf16_launches
     for name in ("fused_soft_argmin", "fused_soft_argmin_backward",

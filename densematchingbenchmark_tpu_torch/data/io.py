@@ -2,9 +2,15 @@
 disparity PNG.
 
 Counterpart of densematchingbenchmark_tpu/data/io.py:25-92. The JAX package
-reads PNG through imageio or its native decoder; the port needs neither
-(the GPU machines it runs on may have no imaging library) and keeps its own
-PNG codec in numpy and zlib:
+reads PNG and PFM through its native decoder (libpng) where that builds,
+else through imageio; the port needs neither library (the GPU machines it
+runs on may have no imaging library). ``load_image`` (PNG),
+``load_kitti_disp`` and ``load_pfm`` read through the port's host library
+(densematchingbenchmark_tpu_torch/native: the chunks walked and the image
+data inflated here, ``png_stream``, the row filters undone and the samples
+converted to float32 in C++), which it builds with g++ at first use. Its
+plain version is the numpy codec here, which the tests and chip_smoke.py
+hold it against:
 
 - decode: 8- and 16-bit gray, gray+alpha, RGB and RGBA, not interlaced,
   all five row filters; a palette image or an Adam7-interlaced one raises.
@@ -36,30 +42,51 @@ _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 
 
-def load_pfm(path):
-    """Read a PFM file -> (float32 array [H, W] or [H, W, 3], scale)."""
-    with open(path, "rb") as fp:
-        header = fp.readline().decode("latin-1").rstrip()
-        if header == "PF":
-            channels = 3
-        elif header == "Pf":
-            channels = 1
-        else:
-            raise ValueError(f"{path}: not a PFM file (header {header!r})")
-        dims = fp.readline().decode("latin-1")
-        m = re.match(r"^\s*(\d+)\s+(\d+)\s*$", dims)
-        if not m:
-            raise ValueError(f"{path}: malformed PFM dimensions {dims!r}")
-        width, height = int(m.group(1)), int(m.group(2))
-        scale = float(fp.readline().decode("latin-1").rstrip())
-        endian = "<" if scale < 0 else ">"
-        data = np.fromfile(fp, dtype=endian + "f4",
-                           count=width * height * channels)
-    if data.size != width * height * channels:
-        raise ValueError(f"{path}: PFM data truncated")
+def pfm_header(data, name="PFM file"):
+    """PFM bytes -> (height, width, channels, scale, offset of the
+    samples): three header lines ('PF' or 'Pf', '<width> <height>', the
+    scale, whose sign is the byte order); ValueError if it is not one or
+    its samples are short."""
+    pos = 0
+
+    def line():
+        nonlocal pos
+        end = data.find(b"\n", pos)
+        end = len(data) if end < 0 else end + 1
+        text, pos = data[pos:end].decode("latin-1"), end
+        return text
+
+    header = line().rstrip()
+    if header not in ("PF", "Pf"):
+        raise ValueError(f"{name}: not a PFM file (header {header!r})")
+    channels = 3 if header == "PF" else 1
+    dims = line()
+    m = re.match(r"^\s*(\d+)\s+(\d+)\s*$", dims)
+    if not m:
+        raise ValueError(f"{name}: malformed PFM dimensions {dims!r}")
+    width, height = int(m.group(1)), int(m.group(2))
+    scale = float(line().rstrip())
+    if len(data) - pos < 4 * width * height * channels:
+        raise ValueError(f"{name}: PFM data truncated")
+    return height, width, channels, scale, pos
+
+
+def decode_pfm(data):
+    """PFM bytes -> (float32 array [H, W] or [H, W, 3], |scale|), in
+    numpy: the plain version of the native reader."""
+    height, width, channels, scale, pos = pfm_header(data)
     shape = (height, width, 3) if channels == 3 else (height, width)
+    samples = np.frombuffer(data, ("<" if scale < 0 else ">") + "f4",
+                            height * width * channels, pos)
     # PFM stores rows bottom-to-top
-    return np.flipud(data.reshape(shape)).astype(np.float32), abs(scale)
+    return np.flipud(samples.reshape(shape)).astype(np.float32), abs(scale)
+
+
+def load_pfm(path):
+    """Read a PFM file -> (float32 array [H, W] or [H, W, 3], |scale|),
+    through the host library."""
+    from .. import native
+    return native.read_pfm(path)
 
 
 def save_pfm(path, data, scale=1.0):
@@ -120,8 +147,11 @@ def _unfilter_diagonals(ftypes, rows, bpp):
         h, stride)
 
 
-def decode_png(data):
-    """PNG bytes -> uint8 or uint16 array, [H, W] (gray) or [H, W, C]."""
+def png_stream(data):
+    """PNG bytes -> (height, width, bit depth, channels, the inflated
+    image data: a filter byte and width * channels * depth / 8 bytes a
+    row). Walks the chunks (every CRC checked) and checks what the
+    decoders read; ValueError otherwise."""
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError("not a PNG file")
     pos, header, idat = 8, None, []
@@ -150,12 +180,19 @@ def decode_png(data):
     if interlace:
         raise ValueError("Adam7-interlaced PNG is not supported")
     channels = _PNG_CHANNELS[color]
+    stream = zlib.decompress(b"".join(idat))
+    if len(stream) != h * (w * channels * depth // 8 + 1):
+        raise ValueError(f"PNG image data holds {len(stream)} bytes, not "
+                         f"{h * (w * channels * depth // 8 + 1)}")
+    return h, w, depth, channels, stream
+
+
+def decode_png(data):
+    """PNG bytes -> uint8 or uint16 array, [H, W] (gray) or [H, W, C], in
+    numpy: the plain version of the native decoder."""
+    h, w, depth, channels, stream = png_stream(data)
     bpp = channels * depth // 8
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (w * bpp + 1):
-        raise ValueError(f"PNG image data holds {raw.size} bytes, not "
-                         f"{h * (w * bpp + 1)}")
-    raw = raw.reshape(h, w * bpp + 1)
+    raw = np.frombuffer(stream, np.uint8).reshape(h, w * bpp + 1)
     ftypes, rows = raw[:, 0], raw[:, 1:]
     if ftypes.max() > 4:
         raise ValueError(f"PNG row filter {ftypes.max()} is not defined")
@@ -266,8 +303,7 @@ def save_pnm(path, img):
         fp.write(encode_pnm(img))
 
 
-_READERS = {".png": decode_png, ".ppm": decode_pnm, ".pgm": decode_pnm,
-            ".pnm": decode_pnm}
+_PNM_SUFFIXES = (".ppm", ".pgm", ".pnm")
 
 
 def _read_refused(path, refusal):
@@ -281,19 +317,9 @@ def _read_refused(path, refusal):
     return np.asarray(imread(path))
 
 
-def load_image(path):
-    """Image -> float32 [H, W, 3] (gray repeated, alpha dropped): a PNG,
-    PPM or PGM through the port's readers, any other file they refuse
-    through imageio where that imports (``_read_refused``)."""
-    try:
-        reader = _READERS.get(os.path.splitext(path)[1].lower())
-        if reader is None:
-            raise ValueError(f"{path}: the port's readers take PPM, PGM "
-                             "and PNG images only")
-        with open(path, "rb") as fp:
-            img = reader(fp.read())
-    except ValueError as refusal:
-        img = _read_refused(path, refusal)
+def image_rgb(img):
+    """Decoded samples [H, W] or [H, W, C] -> float32 [H, W, 3]: gray
+    repeated, alpha dropped (what the native decoder writes)."""
     img = img.astype(np.float32)
     if img.ndim == 2:
         img = np.stack([img] * 3, axis=-1)
@@ -302,9 +328,31 @@ def load_image(path):
     return img[..., :3]
 
 
+def load_image(path):
+    """Image -> float32 [H, W, 3] (gray repeated, alpha dropped): a PNG
+    through the host library, a PPM or PGM through ``decode_pnm``, any
+    other file they refuse through imageio where that imports
+    (``_read_refused``)."""
+    from .. import native
+    suffix = os.path.splitext(path)[1].lower()
+    try:
+        if suffix == ".png":
+            return native.decode_png_rgb(path)
+        if suffix not in _PNM_SUFFIXES:
+            raise ValueError(f"{path}: the port's readers take PPM, PGM "
+                             "and PNG images only")
+        with open(path, "rb") as fp:
+            img = decode_pnm(fp.read())
+    except ValueError as refusal:
+        img = _read_refused(path, refusal)
+    return image_rgb(img)
+
+
 def load_kitti_disp(path):
-    """KITTI disparity PNG (uint16, value/256; 0 = invalid) -> [H, W] f32."""
-    return load_png(path).astype(np.float32) / 256.0
+    """KITTI disparity PNG (uint16, value/256; 0 = invalid) -> [H, W] f32
+    (a PNG of C > 1 channels: [H, W, C]), through the host library."""
+    from .. import native
+    return native.decode_png_disp16(path)
 
 
 def save_kitti_disp(path, disp):
